@@ -6,14 +6,18 @@
 Phases, each printing one JSON line:
   1. env     torch/CUDA versions, device name and compute capability, and
              `nvidia-smi --query-gpu=name,power.limit`.
-  2. build   nvcc builds the CUDA kernel library from
-             reflecting_reality_tpu_torch/ops/kernels/csrc while the Triton
-             kernels compile; seconds for each.
+  2. build   nvcc builds the two CUDA kernel libraries (flash forward;
+             flash backward) from reflecting_reality_tpu_torch/ops/kernels/csrc,
+             one nvcc each, all started together, while the Triton kernels
+             compile; seconds for each and ptxas's register/spill lines.
   3. kernels every kernel against its plain PyTorch version on the card, at
-             the shapes the main path gives it and a few it meets elsewhere
-             (1024², 576x512, fp32 parity): max abs error in the working dtype
-             and against fp32 and the relative L2 error, each with its
-             tolerance; kernel, plain and library times; the roofline bound.
+             the shapes the main path and the training step give it and a
+             few they meet elsewhere (1024², 576x512, fp32 parity): max abs
+             error in the working dtype and against fp32 and the relative L2
+             error, each with its tolerance; kernel, plain and library times;
+             the roofline bound.  The flash backward kernels (B3 dQ, B4
+             dK/dV) are held to `flash_attention_bwd_plain` on B1's own out
+             and lse; their library time is SDPA's backward.
   4. slice   full-width SD-1.5 UNet + BrushNet(conditioning_channels=6), one
              denoise step's forward at 64x64 latents, batch 2, fp32 with TF32
              off: the card (kernels) against the CPU (plain versions).
@@ -25,11 +29,26 @@ Phases, each printing one JSON line:
              kernel at least once.
   6. profile one traced 4-step call: device busy time, idle share, device
              time by kind of kernel and the top kernels (torch.profiler).
-Then `kernels_detail` (every measured kernel and shape with the launches the
-main path's 8-step call gave that shape, 0 where it gave none), the
-`{"kernels": [...]}` summary line (the kernels and shapes the main path
-launched), the nvidia-smi name/power-limit line, and last
-`{"ok": true, "device": {...}}`.  Any failed check raises and
+  7. train_parity  full-width UNet + BrushNet (`from_unet`, seeded zero
+             convs), fp32 with TF32 off, 64x64 latents, batch 1: one loss and
+             backward on the card (through the kernels' autograd Functions)
+             against the CPU (plain paths) on the same draws: the loss and
+             four BrushNet gradients, each with its tolerance; B1/B3/B4 must
+             launch 5/5/5 times and GroupNorm at least once.
+  8. train_main  the training step (`make_train_step`) at full width: bf16
+             autocast, frozen UNet/VAE/CLIP stored in bf16, fp32 BrushNet
+             master weights, 512² batch 4, depth concat, AdamW lr 5e-6 without
+             warm-up.  A warm step, then TRAIN_REPEATS timed steps (median
+             s/step, samples/s, peak memory), one step with gradient
+             checkpointing, and one traced step (idle share, device time by
+             kind).  Every loss finite, BrushNet moved, UNet/VAE/CLIP
+             bit-identical, and per step B1/B3/B4 launch 5/5/5 (10/5/5 with
+             checkpointing).
+Then `kernels_detail` (every measured kernel and shape with the launches
+each path gave that shape: the main path's 8-step call and the timed
+training steps, 0 where none), the `{"kernels": [...]}` summary line (the
+kernels and shapes the paths launched), the nvidia-smi name/power-limit
+line, and last `{"ok": true, "device": {...}}`.  Any failed check raises and
 the script exits non-zero; without a CUDA device it exits non-zero at once.
 Weights are random, made from a seed.
 """
@@ -37,6 +56,7 @@ Weights are random, made from a seed.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -48,6 +68,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 MAIN_REPEATS = 5                    # timed 4- and 8-step calls of each count
+TRAIN_REPEATS = 5                   # timed training steps
+TRAIN_BATCH = 4                     # the training CLI's --train_batch_size default
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core bf16
               "float32": 67e12}     # fp32 outside the tensor cores
@@ -98,17 +120,18 @@ def phase_build(torch):
     from reflecting_reality_tpu_torch.ops.kernels import build
     from reflecting_reality_tpu_torch.ops.kernels.groupnorm import group_norm_silu_fwd
 
-    lib = build.library_path("flash_attn_fwd")
-    built_now = not lib.exists()
+    names = ("flash_attn_fwd", "flash_attn_bwd")
+    built_now = {n: not build.library_path(n).exists() for n in names}
     t0 = time.perf_counter()
 
-    def nvcc_build() -> float:
-        build.load("flash_attn_fwd")
+    def nvcc_build(name: str) -> float:
+        build.load(name)
         return time.perf_counter() - t0
 
-    # Triton compiles its variants (dtype x SiLU x fused/split) while nvcc runs
-    with ThreadPoolExecutor(1) as pool:
-        nvcc_done = pool.submit(nvcc_build)
+    # one nvcc per source, all started together; Triton compiles its variants
+    # (dtype x SiLU x fused/split) meanwhile
+    with ThreadPoolExecutor(len(names)) as pool:
+        nvcc_done = {n: pool.submit(nvcc_build, n) for n in names}
         for dtype in (torch.bfloat16, torch.float32):
             for shape in ((2, 64, 8, 8), (1, 64, 256, 256)):
                 x = torch.randn(shape, device="cuda", dtype=dtype)
@@ -117,11 +140,13 @@ def phase_build(torch):
                     group_norm_silu_fwd(x, w, w, 32, 1e-5, silu)
         torch.cuda.synchronize()
         t_triton = time.perf_counter() - t0
-        t_nvcc = nvcc_done.result()
-    log = lib.with_suffix(".log")
-    ptxas = [ln.strip() for ln in (log.read_text().splitlines() if log.exists() else [])
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "flash_attn_fwd_nvcc_s": round(t_nvcc, 2),
+        t_nvcc = {n: f.result() for n, f in nvcc_done.items()}
+    ptxas = {}
+    for n in names:
+        log = build.library_path(n).with_suffix(".log")
+        ptxas[n] = [ln.strip() for ln in (log.read_text().splitlines() if log.exists() else [])
+                    if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "nvcc_s": {n: round(t, 2) for n, t in t_nvcc.items()},
           "built_now": built_now, "groupnorm_triton_compile_s": round(t_triton, 2),
           "ptxas": ptxas})
 
@@ -129,8 +154,9 @@ def phase_build(torch):
 # ---------------------------------------------------------------- phase 3
 
 def check(entry: dict) -> None:
-    bad = [k for k in ("max_abs_err", "max_abs_err_f32", "rel_l2_err", "lse_max_abs_err")
-           if k in entry and not entry[k] <= entry[k.replace("err", "tol")]]
+    """Every `*err*` number with a `*tol*` counterpart must be within it."""
+    bad = [k for k in entry if "err" in k and k.replace("err", "tol") in entry
+           and not entry[k] <= entry[k.replace("err", "tol")]]
     if bad:
         raise AssertionError(f"{entry['name']}: {bad} over tolerance: {entry}")
 
@@ -187,6 +213,70 @@ def bench_flash(torch, shape, dtype) -> dict:
     return entry
 
 
+def bench_flash_bwd(torch, shape, dtype):
+    """Kernels B3 (dQ) and B4 (dK/dV) at one shape -> two entries."""
+    import torch.nn.functional as F
+
+    from reflecting_reality_tpu_torch.ops.kernels import flash_attention as fa
+
+    b, t, h, d = shape
+    g = torch.Generator("cuda").manual_seed(SEED + 7)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+                   for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    delta = fa.flash_attention_delta(out, do)
+    got = {"dq": fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)}
+    got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    ref = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_plain(q, k, v, out, lse, do)))
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+
+    # as the forward: 4 bf16 ulps at the gradient's max (the kernels round p
+    # and dS to bf16 before their products, as the Pallas kernels do) and a
+    # relative L2 error under 1e-2; fp32 1e-4 of the max and L2 under 1e-4
+    def errors(name):
+        diff = got[name].float() - ref[name].float()
+        scale = ref[name].float().abs().max().item()
+        return {f"{name}_max_abs_err": diff.abs().max().item(),
+                f"{name}_max_abs_tol": 4 * bf16_ulp(scale) if bf16 else 1e-4 * scale,
+                f"{name}_rel_l2_err": (diff.norm() / ref[name].float().norm()).item(),
+                f"{name}_rel_l2_tol": 1e-2 if bf16 else 1e-4}
+
+    # SDPA's backward as the yardstick: dq, dk, dv of one call together
+    qs, ks, vs = (x.permute(0, 2, 1, 3).detach().requires_grad_(True) for x in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs)
+    do_s = do.permute(0, 2, 1, 3)
+    library_ms = cuda_ms(torch, lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), do_s,
+                                                            retain_graph=True))
+    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do),
+                       iters=5)
+    itemsize = q.element_size()
+    tensor_bytes = b * t * h * d * itemsize
+    rows_bytes = 2 * b * h * t * 4          # lse and delta
+    entries = []
+    for kind, names, products, run in (
+            ("flash_bwd_dq", ("dq",), 3,
+             lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)),
+            ("flash_bwd_dkv", ("dk", "dv"), 4,
+             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))):
+        e = {"name": f"flash_attn_bwd_{kind[10:]} {'x'.join(map(str, shape))} {str(dtype)[6:]}",
+             "key": (kind, (tuple(shape), str(dtype)[6:])),
+             "shape": list(shape), "dtype": str(dtype)[6:]}
+        for n in names:
+            e.update(errors(n))
+        e["max_abs_err"] = max(e[f"{n}_max_abs_err"] for n in names)
+        e["rel_l2_err_max"] = max(e[f"{n}_rel_l2_err"] for n in names)
+        e["ms"] = cuda_ms(torch, run)
+        e["plain_ms"] = plain_ms      # the plain backward computes dq, dk and dv together
+        e["library_ms"] = library_ms  # so does SDPA's
+        # products of 2·B·H·T²·D each; q, k, v, dO, lse, delta read, grads written
+        nbytes = (4 + len(names)) * tensor_bytes + rows_bytes
+        e["bound_ms"], e["bound_by"] = bound(2.0 * products * b * h * t * t * d, nbytes,
+                                             e["dtype"])
+        entries.append(e)
+    return entries
+
+
 def bench_groupnorm(torch, shape, dtype, silu) -> dict:
     import torch.nn.functional as F
 
@@ -232,11 +322,14 @@ def bench_groupnorm(torch, shape, dtype, silu) -> dict:
     return entry
 
 
-FLASH_SHAPES = [((2, 4096, 8, 40), "bfloat16"), ((2, 4096, 8, 80), "bfloat16"),
-                ((2, 4608, 8, 40), "bfloat16"), ((1, 2048, 8, 160), "bfloat16"),
-                ((2, 4096, 8, 40), "float32")]
-GN_SHAPES = [(2, 320, 64, 64), (2, 2560, 16, 16), (2, 1280, 8, 8), (1, 512, 64, 64),
-             (1, 128, 512, 512)]
+FLASH_SHAPES = [((2, 4096, 8, 40), "bfloat16"), ((4, 4096, 8, 40), "bfloat16"),
+                ((2, 4096, 8, 80), "bfloat16"), ((2, 4608, 8, 40), "bfloat16"),
+                ((1, 2048, 8, 160), "bfloat16"), ((2, 4096, 8, 40), "float32")]
+FLASH_BWD_SHAPES = [((4, 4096, 8, 40), "bfloat16"), ((2, 4096, 8, 40), "bfloat16"),
+                    ((2, 4608, 8, 40), "bfloat16"), ((1, 2048, 8, 160), "bfloat16"),
+                    ((2, 4096, 8, 40), "float32")]
+GN_SHAPES = [(2, 320, 64, 64), (4, 320, 64, 64), (2, 2560, 16, 16), (2, 1280, 8, 8),
+             (1, 512, 64, 64), (1, 128, 512, 512), (4, 128, 512, 512)]
 
 
 def phase_kernels(torch):
@@ -248,6 +341,11 @@ def phase_kernels(torch):
         e = bench_flash(torch, shape, getattr(torch, dt))
         e.update(kernel="flash", route="cuda", source=fa.SOURCE, replaces=fa.REPLACES)
         entries.append(e)
+    for shape, dt in FLASH_BWD_SHAPES:
+        for e, replaces in zip(bench_flash_bwd(torch, shape, getattr(torch, dt)),
+                               (fa.DQ_REPLACES, fa.DKV_REPLACES)):
+            e.update(kernel=e["key"][0], route="cuda", source=fa.BWD_SOURCE, replaces=replaces)
+            entries.append(e)
     for shape in GN_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
             for silu in (False, True):
@@ -275,29 +373,29 @@ def fill_zero_convs(torch, brushnet, seed: int, std: float) -> None:
                 p.copy_(torch.randn(p.shape, generator=g, device=p.device) * std)
 
 
-def counters():
+def counters() -> dict:
+    """{kernel: its wrapper}; each wrapper counts the launches of its kernel."""
     from reflecting_reality_tpu_torch.ops.kernels import flash_attention as fa
     from reflecting_reality_tpu_torch.ops.kernels import groupnorm as gn
 
-    return fa.flash_attention_fwd, gn.group_norm_silu_fwd
+    return {"flash": fa.flash_attention_fwd, "flash_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_bwd_dkv": fa.flash_attention_bwd_dkv, "groupnorm": gn.group_norm_silu_fwd}
 
 
 def reset_counters() -> None:
-    for fn in counters():
+    for fn in counters().values():
         fn.launches = 0
         fn.launches_by_shape.clear()
 
 
 def read_counters() -> dict:
-    fa, gn = counters()
-    return {"flash": fa.launches, "groupnorm": gn.launches}
+    return {k: fn.launches for k, fn in counters().items()}
 
 
 def read_counters_by_shape() -> dict:
     """{(kernel, shape key): launches} since the last reset."""
-    fa, gn = counters()
-    return {**{("flash", k): n for k, n in fa.launches_by_shape.items()},
-            **{("groupnorm", k): n for k, n in gn.launches_by_shape.items()}}
+    return {(kern, key): n for kern, fn in counters().items()
+            for key, n in fn.launches_by_shape.items()}
 
 
 def phase_slice(torch):
@@ -432,8 +530,14 @@ def phase_main(torch, gpu_line: str):
     return by_shape
 
 
-def phase_profile(torch, pipe, kw, steps: int = 4, top: int = 12) -> None:
-    """One traced 4-step call: device busy time (the sum of kernel times, all
+KINDS = (("flash_attn_fwd", ("flash_fwd",)), ("flash_attn_bwd_dq", ("flash_bwd_dq",)),
+         ("flash_attn_bwd_dkv", ("flash_bwd_dkv",)), ("groupnorm", ("_gn_",)),
+         ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
+         ("matmul", ("gemm", "cublas", "cutlass")))
+
+
+def trace(torch, fn, top: int = 12) -> dict:
+    """One traced call of fn: device busy time (the sum of kernel times, all
     on one stream), the idle share of the traced wall time, device time by
     kind of kernel, and the kernels that take the most.  The tracer slows the
     host, so the idle share is an upper bound for the untraced run."""
@@ -443,33 +547,218 @@ def phase_profile(torch, pipe, kw, steps: int = 4, top: int = 12) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe(**kw, num_inference_steps=steps, output_type="np")
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
 
-    # device-side events only: a CPU op's own device time repeats its kernels'
+    # device-side kernel events only: a CPU op's own device time repeats its
+    # kernels', and a user annotation (the optimizer's step range) spans them
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+              if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+              and not getattr(e, "is_user_annotation", False)]
     busy_s = sum(dev_us(e) for e in events) / 1e6
     events.sort(key=dev_us, reverse=True)
     groups = {}
     for e in events:
         name = e.key.lower()
-        kind = next((k for k, subs in (("flash_attn_fwd", ("flash_fwd",)),
-                                       ("groupnorm", ("_gn_",)),
-                                       ("convolution", ("conv", "fprop", "implicit")),
-                                       ("matmul", ("gemm", "cublas", "cutlass")))
-                     if any(s in name for s in subs)), "other")
+        kind = next((k for k, subs in KINDS if any(sub in name for sub in subs)), "other")
         groups[kind] = groups.get(kind, 0.0) + dev_us(e) / 1e3
-    emit({"phase": "profile", "steps": steps, "traced_wall_s": wall,
-          "device_busy_s": busy_s if events else "not measured",
-          "device_idle_share": 1.0 - busy_s / wall if events else "not measured",
-          "device_ms_by_kind": groups,
-          "top_kernels": [{"name": e.key[:90], "calls": e.count, "device_ms": dev_us(e) / 1e3}
-                          for e in events[:top]]})
+    return {"traced_wall_s": wall,
+            "device_busy_s": busy_s if events else "not measured",
+            "device_idle_share": 1.0 - busy_s / wall if events else "not measured",
+            "device_ms_by_kind": groups,
+            "top_kernels": [{"name": e.key[:90], "calls": e.count, "device_ms": dev_us(e) / 1e3}
+                            for e in events[:top]]}
+
+
+def phase_profile(torch, pipe, kw, steps: int = 4) -> None:
+    """One traced 4-step pipeline call."""
+    res = trace(torch, lambda: pipe(**kw, num_inference_steps=steps, output_type="np"))
+    emit({"phase": "profile", "steps": steps, **res})
+
+
+# ---------------------------------------------------------------- phase 7/8
+
+def phase_train_parity(torch):
+    """One fp32 loss + backward of full-width UNet + BrushNet on the card
+    (kernels through their autograd Functions) against the CPU."""
+    from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
+    from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
+    from reflecting_reality_tpu_torch.schedulers.common import NoiseSchedule, add_noise
+    from reflecting_reality_tpu_torch.training.train_step import (
+        TrainConfig, denoise, diffusion_loss,
+    )
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        unet = UNet2DConditionModel().requires_grad_(False)
+    brushnet = BrushNetModel.from_unet(unet, conditioning_channels=6)
+    fill_zero_convs(torch, brushnet, SEED, 0.02)
+    config = TrainConfig()
+    schedule = NoiseSchedule.create(1000, 0.00085, 0.012, "scaled_linear")
+    g = torch.Generator().manual_seed(SEED + 2)
+    latents, noise = torch.randn(1, 4, 64, 64, generator=g), torch.randn(1, 4, 64, 64, generator=g)
+    cond = torch.randn(1, 6, 64, 64, generator=g)
+    ehs = torch.randn(1, 77, 768, generator=g)
+    t = torch.tensor([321])
+    noisy = add_noise(schedule, latents, noise, t)
+    names = ("conv_in_condition.weight", "brushnet_down_blocks.0.weight",
+             "down_blocks.0.resnets.0.conv1.weight", "time_embedding.linear_1.weight")
+
+    def loss_and_grads(unet, brushnet, device):
+        params = dict(brushnet.named_parameters())
+        args = (x.to(device) for x in (noisy, t, ehs, cond))
+        pred = denoise(unet, brushnet, *args)
+        loss = diffusion_loss(pred, noise.to(device), t.to(device), schedule, config)
+        loss.backward()
+        return loss.item(), {n: params[n].grad.detach().cpu() for n in names}
+
+    reset_counters()
+    t0 = time.perf_counter()
+    card_loss, card = loss_and_grads(unet, brushnet, "cuda")
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    launched = read_counters()
+    unet_c = copy.deepcopy(unet).cpu()
+    bn_c = copy.deepcopy(brushnet).cpu()
+    bn_c.zero_grad(set_to_none=True)
+    t0 = time.perf_counter()
+    cpu_loss, cpu = loss_and_grads(unet_c, bn_c, "cpu")
+    t_cpu = time.perf_counter() - t0
+    # fp32 both sides, TF32 off: summation order through ~130 conv/matmul
+    # layers forward and as many back; each gradient is held at 1e-3 of its
+    # largest element (the forward alone agreed to ~4e-6 of its scale)
+    res = {"phase": "train_parity", "loss": card_loss, "cpu_loss": cpu_loss,
+           "loss_rel_err": abs(card_loss - cpu_loss) / abs(cpu_loss), "loss_rel_tol": 1e-4,
+           "launches": launched, "card_loss_backward_s": round(t_card, 3),
+           "cpu_loss_backward_s": round(t_cpu, 3), "grads": {}}
+    for n in names:
+        scale = cpu[n].abs().max().item()
+        res["grads"][n] = {"max_abs_err": (card[n] - cpu[n]).abs().max().item(),
+                           "max_abs_tol": 1e-3 * scale, "max_abs": scale,
+                           "finite": bool(torch.isfinite(card[n]).all())}
+    emit(res)
+    bad = [n for n, r in res["grads"].items()
+           if not (r["finite"] and r["max_abs"] > 0 and r["max_abs_err"] <= r["max_abs_tol"])]
+    if bad or not res["loss_rel_err"] <= res["loss_rel_tol"]:
+        raise AssertionError(f"train parity failed ({bad}): {res}")
+    if (launched["flash"], launched["flash_bwd_dq"], launched["flash_bwd_dkv"]) != (5, 5, 5) \
+            or launched["groupnorm"] == 0:
+        raise AssertionError(f"train parity did not run through the kernels: {launched}")
+    del unet, brushnet, unet_c, bn_c
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+
+
+def phase_train_main(torch, gpu_line: str) -> dict:
+    """The training step at full width, bf16, 512² batch 4 -> {(kernel, key):
+    launches} over the timed steps."""
+    import numpy as np
+
+    from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
+    from reflecting_reality_tpu_torch.models.clip_text import CLIPTextModel
+    from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
+    from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+    from reflecting_reality_tpu_torch.training import TrainConfig, make_train_step
+
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        unet = UNet2DConditionModel()
+        vae = AutoencoderKL()
+        text = CLIPTextModel()
+    brushnet = BrushNetModel.from_unet(unet, conditioning_channels=6)
+    fill_zero_convs(torch, brushnet, SEED, 0.02)
+    for m in (unet, vae, text):           # frozen modules stored in bf16
+        m.to(torch.bfloat16)
+    config = TrainConfig(learning_rate=5e-6, lr_warmup_steps=0)
+    step, init_state = make_train_step(unet, brushnet, vae, text, config, dtype=torch.bfloat16)
+    step_ckpt, _ = make_train_step(unet, brushnet, vae, text,
+                                   dataclasses.replace(config, gradient_checkpointing=True),
+                                   dtype=torch.bfloat16)
+    state = init_state()
+
+    rng = np.random.RandomState(SEED)
+    n, px = TRAIN_BATCH, 512
+    masks = np.zeros((n, px, px, 1), np.float32)
+    masks[:, 128:384, 160:352] = 1.0
+    batch = {k: torch.from_numpy(v).cuda() for k, v in {
+        "pixel_values": rng.uniform(-1, 1, (n, px, px, 3)).astype(np.float32),
+        "conditioning_pixel_values": rng.uniform(-1, 1, (n, px, px, 3)).astype(np.float32),
+        "masks": masks,
+        "depths": rng.uniform(-1, 1, (n, px, px, 1)).astype(np.float32),
+        "input_ids": rng.randint(0, 49408, (n, 77)).astype(np.int64)}.items()}
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    frozen0 = {k: [p.detach().cpu().clone() for p in m.parameters()]
+               for k, m in (("unet", unet), ("vae", vae), ("text", text))}
+    watched = ("conv_in_condition.weight", "brushnet_mid_block.weight",
+               "down_blocks.0.resnets.0.conv1.weight")
+    bn_params = dict(brushnet.named_parameters())
+    before = {k: bn_params[k].detach().clone() for k in watched}
+
+    losses = []
+
+    def run(fn):
+        nonlocal state
+        state, m = fn(state, batch, gen)
+        losses.append(float(m["loss"]))
+        if not (math.isfinite(losses[-1]) and float(m["nonfinite_skipped"]) == 0.0):
+            raise AssertionError(f"train step {state.step}: loss {losses[-1]}, {m}")
+        return m
+
+    run(step)                               # warm: cuBLAS/cuDNN/Triton set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    s_each = []
+    for _ in range(TRAIN_REPEATS):
+        t0 = time.perf_counter()
+        m = run(step)
+        torch.cuda.synchronize()
+        s_each.append(time.perf_counter() - t0)
+    launched = read_counters()
+    by_shape = read_counters_by_shape()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / TRAIN_REPEATS for k, v in launched.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    run(step_ckpt)
+    torch.cuda.synchronize()
+    t_ckpt = time.perf_counter() - t0
+    ckpt = {"s": t_ckpt, "launches": read_counters(),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    traced = trace(torch, lambda: run(step))
+
+    moved = {k: (bn_params[k].detach() - before[k]).abs().max().item() for k in watched}
+    frozen_same = {k: all(torch.equal(a, p.detach().cpu()) for a, p in zip(ps, m.parameters()))
+                   for (k, ps), m in zip(frozen0.items(), (unet, vae, text))}
+    s_step = statistics.median(s_each)
+    emit({"phase": "train_main", "gpu": gpu_line, "size": f"{px}x{px}", "batch": n,
+          "dtype": "bfloat16 autocast; BrushNet fp32 master, UNet/VAE/CLIP bf16",
+          "optimizer": "AdamW lr 5e-6, no warm-up, clip 1.0", "s_each": s_each,
+          "s_per_step": s_step, "samples_per_s": n / s_step,
+          "max_memory_allocated_bytes": peak, "launches_per_step": per_step,
+          "losses": losses, "last_grad_norm": float(m["grad_norm"]),
+          "brushnet_max_abs_change": moved, "frozen_bit_identical": frozen_same,
+          "gradient_checkpointing_step": ckpt, "trace": traced})
+    if not all(v > 0 for v in moved.values()) or not all(frozen_same.values()):
+        raise AssertionError(f"train step moved {moved}, frozen unchanged {frozen_same}")
+    want = {"flash": 5, "flash_bwd_dq": 5, "flash_bwd_dkv": 5}
+    if any(per_step[k] != v for k, v in want.items()) or per_step["groupnorm"] == 0:
+        raise AssertionError(f"train step launches per step {per_step}, want {want}")
+    got_ckpt = ckpt["launches"]
+    if (got_ckpt["flash"], got_ckpt["flash_bwd_dq"], got_ckpt["flash_bwd_dkv"]) != (10, 5, 5):
+        raise AssertionError(f"checkpointed step launches {got_ckpt}, want 10/5/5")
+    del state, unet, brushnet, vae, text
+    torch.cuda.empty_cache()
+    return by_shape
 
 
 # ------------------------------------------------------------------ main
@@ -495,27 +784,31 @@ def main() -> int:
     entries = phase_kernels(torch)
     phase_slice(torch)
     by_shape = phase_main(torch, gpu_line)
+    phase_train_parity(torch)
+    train_by_shape = phase_train_main(torch, gpu_line)
 
-    # each entry carries the launches of its own kernel, shape and dtype in
-    # the main path's 8-step call
+    # each entry carries the launches of its own kernel, shape and dtype on
+    # each path: the main path's 8-step call (and per denoise step) and the
+    # TRAIN_REPEATS timed training steps (and per training step)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []
     for e in entries:
         row = {k: e.get(k) for k in keys if k != "launches"}
-        row["launches"] = by_shape[8].get(e["key"], 0)
-        row["launches_per_step"] = (row["launches"] - by_shape[4].get(e["key"], 0)) / 4
-        row.update({k: e[k] for k in ("shape", "dtype", "silu", "max_rel_err", "max_abs_tol",
-                                      "max_abs_err_f32", "max_abs_tol_f32", "rel_l2_err",
-                                      "rel_l2_tol") if k in e})
-        row["kernel_ms"] = e["ms"]
+        main_n, train_n = by_shape[8].get(e["key"], 0), train_by_shape.get(e["key"], 0)
+        row["launches"] = main_n + train_n
+        row["launches_by_path"] = {"main_path_8_steps": main_n,
+                                   f"train_main_{TRAIN_REPEATS}_steps": train_n}
+        row["launches_per_denoise_step"] = (main_n - by_shape[4].get(e["key"], 0)) / 4
+        row["launches_per_train_step"] = train_n / TRAIN_REPEATS
+        row.update({k: e[k] for k in e if k not in row and k not in ("key", "kernel", "ms")})
         rows.append(row)
     emit({"phase": "kernels_detail", "kernels": rows})
     summary = [r for r in rows if r["launches"] > 0]
     missing = {e["kernel"] for e in entries} - {e["kernel"] for e, r in zip(entries, rows)
                                                  if r["launches"] > 0}
     if missing:
-        raise AssertionError(f"no measured shape of {missing} ran on the main path")
+        raise AssertionError(f"no measured shape of {missing} ran on a path")
     emit({"kernels": summary})
     print(gpu_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

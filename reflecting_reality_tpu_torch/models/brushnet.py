@@ -10,7 +10,10 @@ state), 1 "mid", 15 "up" (every up resnet/upsampler state, captured before
 injection).  `conditioning_scale` multiplies all residuals; `guess_mode`
 applies the logspace(-1, 0) ramp; `global_pool_conditions` mean-pools them.
 
-The `init_params_from_unet` training-time surgery is not ported yet.
+`config_from_unet` / `from_unet` build the branch from a UNet the way
+training does (`cli/train.py:125-142`), and `init_from_unet` is the weight
+surgery of `init_params_from_unet` (`reflecting_reality_tpu/models/
+brushnet.py:302-336`; reference brushnet.py:513-528).
 """
 
 from __future__ import annotations
@@ -122,6 +125,60 @@ class BrushNetModel(nn.Module, ConfigMixin):
             self.up_blocks.append(cls(**kw))
             up_channels += [out_ch] * (layers_per_block + 1 + (1 if i < n - 1 else 0))
         self.brushnet_up_blocks = nn.ModuleList([_zero_conv(c) for c in up_channels])
+
+    @classmethod
+    def config_from_unet(cls, unet, conditioning_channels: int = 5) -> dict:
+        """BrushNet config cloned from a UNet (or its config dict), every block
+        turned into its conv-only variant (reference :479-511)."""
+        cfg = unet.to_config() if hasattr(unet, "to_config") else dict(unet)
+        return dict(
+            in_channels=cfg["in_channels"],
+            conditioning_channels=conditioning_channels,
+            down_block_types=tuple("DownBlock2D" for _ in cfg["down_block_types"]),
+            mid_block_type="MidBlock2D",
+            up_block_types=tuple("UpBlock2D" for _ in cfg["down_block_types"]),
+            block_out_channels=tuple(cfg["block_out_channels"]),
+            layers_per_block=cfg["layers_per_block"],
+            transformer_layers_per_block=cfg.get("transformer_layers_per_block", 1),
+            downsample_padding=cfg.get("downsample_padding", 1),
+            norm_num_groups=cfg["norm_num_groups"],
+            norm_eps=cfg["norm_eps"],
+            cross_attention_dim=cfg["cross_attention_dim"],
+            attention_head_dim=cfg["attention_head_dim"],
+            use_linear_projection=cfg.get("use_linear_projection", False),
+            flip_sin_to_cos=cfg.get("flip_sin_to_cos", True),
+            freq_shift=cfg.get("freq_shift", 0),
+        )
+
+    @classmethod
+    def from_unet(cls, unet: nn.Module, conditioning_channels: int = 5) -> "BrushNetModel":
+        """A BrushNet on the UNet's device and dtype, initialized from its
+        weights (`init_from_unet`); the 28 zero convs stay zero."""
+        p = next(unet.parameters())
+        with torch.device(p.device):
+            model = cls(**cls.config_from_unet(unet, conditioning_channels))
+        return model.to(p.dtype).init_from_unet(unet)
+
+    @torch.no_grad()
+    def init_from_unet(self, unet: nn.Module) -> "BrushNetModel":
+        """Copy the UNet's weights in, in place:
+        - `conv_in` into input channels 0:4 and 4:8 of `conv_in_condition`,
+          zeros in the remaining conditioning channels, the bias copied;
+        - `time_embedding`;
+        - every down/mid/up leaf whose name and shape match (the attention
+          weights have no counterpart in the conv-only twin).
+        """
+        src = unet.state_dict()
+        w = self.conv_in_condition.weight          # (C, in + cond, 3, 3)
+        w.zero_()
+        w[:, 0:4] = src["conv_in.weight"]
+        w[:, 4:8] = src["conv_in.weight"]
+        self.conv_in_condition.bias.copy_(src["conv_in.bias"])
+        for name, t in self.state_dict().items():
+            if (name.startswith(("time_embedding.", "down_blocks.", "mid_block.", "up_blocks."))
+                    and name in src and src[name].shape == t.shape):
+                t.copy_(src[name])
+        return self
 
     @property
     def has_cross_attention(self) -> bool:

@@ -6,11 +6,14 @@ routes by the tensors' device and shape, never by a process global:
 
 - CUDA tensors whose shape the JAX dispatch rule sends to flash
   (`ops/attention.py:63-64`: Tq >= 2048, Tq == Tk, Tq % 8 == 0, D <= 256)
-  go to kernel B1 (`ops/kernels/flash_attention.py`).  That threshold was
-  measured on the TPU; re-deriving it for the H100 is later work.  The
-  kernel takes head dims up to 160 (SD-1.5's largest) and raises past it.
+  go to the flash kernels (`ops/kernels/flash_attention.py`): through the
+  `FlashAttention` autograd Function (B1 forward, B3 + B4 backward) when a
+  gradient is needed, straight to B1 when not.  That threshold was measured
+  on the TPU; re-deriving it for the H100 is later work.  The kernels take
+  head dims up to 160 (SD-1.5's largest) and raise past it.
 - Everything else takes the plain path, the JAX einsum path (:69-72): fp32
-  logits and softmax, probabilities cast to q.dtype before P V.
+  logits and softmax, probabilities cast to q.dtype before P V; torch
+  autograd differentiates it.
 
 `Attention` keeps separate to_q/to_k/to_v parameters (diffusers names) and
 concatenates them for one fused qkv (self) or kv (cross) product (:196-214);

@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` compiles with nvcc for sm_90a into
 `_build/lib<name>-<hash>.so` beside this file (a directory .gitignore lists),
-keyed by a hash of the source and the flags, so a rebuild happens only when
-either changes.  Nothing is built when the module is imported: the first
+keyed by a hash of the source, the shared headers (`csrc/*.cuh`) and the
+flags, so a rebuild happens only when one of them changes.  Nothing is built when the module is imported: the first
 `load` (the first kernel launch) builds.  The ptxas report (`-Xptxas -v`:
 registers, shared memory, spills) is kept beside each library as `<lib>.log`.
 """
@@ -41,9 +41,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _build(name: str) -> Path:

@@ -29,80 +29,14 @@
 // head-dim column per lane for P V; each K and V element read from shared
 // memory serves all 4 rows.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
+using namespace flash;
+
 constexpr int BM = 64;    // query rows per CTA (16 per warp)
 constexpr int BN = 64;    // keys per K/V tile
-constexpr int PADH = 8;   // bf16 of row padding in shared memory
-constexpr int THREADS = 128;
-constexpr int MAX_D = 160;  // the largest head dim taken (SD-1.5's level-2 heads)
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices; lane l gives the address of row (l % 8) of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 16-byte global -> shared copy; src_bytes == 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Rows [row0, row0 + 64) of one head into shared memory [64][DP + PADH];
-// columns >= D and rows >= nrows are zero.  16-byte copies (D % 8 == 0).
-template <int DP>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16* g,
-                                          long long row_stride, int row0, int nrows, int D) {
-  constexpr int CPR = DP / 8;
-  for (int i = threadIdx.x; i < 64 * CPR; i += THREADS) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const int row = row0 + r;
-    const bool ok = row < nrows && c < D;
-    cp_async16(s + r * (DP + PADH) + c, ok ? g + (long long)row * row_stride + c : g,
-               ok ? 16 : 0);
-  }
-}
 
 template <int DP>
 __global__ void __launch_bounds__(THREADS)
@@ -230,10 +164,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     // O += P V: the S fragments of key groups 2kk and 2kk+1 form P's A fragment
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t a[4] = {pack_f32(s[2 * kk][0], s[2 * kk][1]),
-                             pack_f32(s[2 * kk][2], s[2 * kk][3]),
-                             pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t a[4];
+      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int i = 0; i < DP / 8; i += 2) {
         uint32_t vb[4];  // b0, b1 of head-dim groups i and i + 1
@@ -414,16 +346,6 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
   return cudaGetLastError();
 }
 
-// Padded head dim of the bf16 instance that takes D (0 if none does): the
-// SD-1.5 head dims 40, 80 and 160 pad to 48, 80 and 160; 64 is its own.
-int padded_dim(int D) {
-  if (D <= 0 || D > MAX_D || D % 8 != 0) return 0;
-  const int choices[] = {48, 64, 80, 160};
-  for (int c : choices)
-    if (c >= D) return c;
-  return 0;
-}
-
 }  // namespace
 
 extern "C" {
@@ -440,11 +362,11 @@ int rr_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void
   cudaStream_t s = (cudaStream_t)stream;
   float* l = (float*)lse;
   if (dtype == 1) {
-    if (D <= 0 || D > MAX_D) return (int)cudaErrorInvalidValue;
+    if (D <= 0 || D > flash::MAX_D) return (int)cudaErrorInvalidValue;
     return (int)launch_f32(q, k, v, o, l, B, H, Tq, Tk, D, st, scale, s);
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  switch (padded_dim(D)) {
+  switch (flash::padded_dim(D)) {
     case 48: return (int)launch_bf16<48>(q, k, v, o, l, B, H, Tq, Tk, D, st, scale, s);
     case 64: return (int)launch_bf16<64>(q, k, v, o, l, B, H, Tq, Tk, D, st, scale, s);
     case 80: return (int)launch_bf16<80>(q, k, v, o, l, B, H, Tq, Tk, D, st, scale, s);

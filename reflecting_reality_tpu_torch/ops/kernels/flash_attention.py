@@ -1,9 +1,12 @@
-"""Flash-attention forward on Hopper: the port of TPU kernel B1.
+"""Flash attention on Hopper: the ports of TPU kernels B1 (forward), B3 (dQ)
+and B4 (dK/dV).
 
-Replaces `reflecting_reality_tpu/ops/pallas/flash_attention.py::_fwd_kernel`
-(launched by `_flash_fwd`, `pl.pallas_call` at :130).  The kernel is CUDA C++
-for sm_90a in `csrc/flash_attn_fwd.cu`, built by nvcc into a shared library
-with a plain C interface and called through ctypes.
+B1 replaces `reflecting_reality_tpu/ops/pallas/flash_attention.py::_fwd_kernel`
+(launched by `_flash_fwd`, `pl.pallas_call` at :130); B3 and B4 replace
+`_bwd_dq_kernel` and `_bwd_dkv_kernel` (`_flash_bwd`, calls at :234 and
+:250).  The kernels are CUDA C++ for sm_90a in `csrc/flash_attn_fwd.cu` and
+`csrc/flash_attn_bwd.cu`, each built by nvcc into a shared library with a
+plain C interface and called through ctypes.
 
 What bounds it on the H100: at the UNet level-0 self-attention (B=2, T=4096,
 H=8, D=40, bf16) the work is 4·B·H·T²·D ≈ 4.3e10 FLOP against 10.5 MB of
@@ -17,13 +20,31 @@ memory instead of to the TPU's 128 lanes; the softmax runs in the log2
 domain, one exp2 per logit.  wgmma, TMA and a pipelined K/V ring are later
 work.
 
-`flash_attention_fwd` is the wrapper: it checks device, dtype, shape and
-strides, raises on anything the kernel does not take (head dims past 160
-among them: no model of the port meets one), launches, and counts launches
-in `flash_attention_fwd.launches` and, per (shape, dtype) of q, in
-`flash_attention_fwd.launches_by_shape`.  `flash_attention` routes by
-device: CPU tensors go to `attention_plain` (the einsum path of
-`reflecting_reality_tpu/ops/attention.py:69-72`), CUDA tensors to the kernel.
+The backward (B3 + B4) does 7·B·H·Tq·Tk·D multiply-adds (3 products in B3,
+4 in B4) against 4 reads of (B, T, H, D) per kernel and 3 writes: at the
+training shape (4, 4096, 8, 40) bf16 that is 3.0e11 FLOP (0.30 ms at 989
+TFLOP/s) against ~75 MB (22 µs), so it is bound by operations, and at
+D = 40 also by the 2·B·H·T² exponentials of the two recomputations of p.  The design follows B1 (see
+`csrc/flash_attn_bwd.cu`): tensor-core products with operands in shared
+memory padded to the MMA depth, p and dS kept in registers and re-packed as
+operands, JAX's two-kernel split so no atomics are needed.
+
+`flash_attention_fwd`, `flash_attention_bwd_dq` and `flash_attention_bwd_dkv`
+are the wrappers: each checks device, dtype, shape and strides, raises on
+anything its kernel does not take (head dims past 160 among them: no model
+of the port meets one), launches, and counts launches in `.launches` and,
+per (shape, dtype) of q, in `.launches_by_shape`.  `FlashAttention` is the
+`torch.autograd.Function` over them (the `_flash` custom VJP of the JAX
+package, :281-298): B1 forward saving q, k, v, out and lse; backward the
+delta = rowsum(dO∘O) prologue in plain fp32 PyTorch (XLA in JAX, :231),
+then B3 and B4.  `flash_attention_bwd_plain` is the plain version of B3 +
+B4 (fp32 einsums), for the tests and the chip comparison only.
+
+`flash_attention` routes by device and grad mode: CPU tensors go to
+`attention_plain` (the einsum path of `reflecting_reality_tpu/ops/attention.py:69-72`),
+which torch autograd differentiates; CUDA tensors go through `FlashAttention`
+when a gradient is needed, and straight to B1 when not (the pipeline runs
+under `inference_mode`, so serving pays nothing for the backward).
 """
 
 from __future__ import annotations
@@ -39,6 +60,9 @@ from reflecting_reality_tpu_torch.ops.kernels import build
 
 SOURCE = "reflecting_reality_tpu_torch/ops/kernels/csrc/flash_attn_fwd.cu"
 REPLACES = "reflecting_reality_tpu/ops/pallas/flash_attention.py:81"
+BWD_SOURCE = "reflecting_reality_tpu_torch/ops/kernels/csrc/flash_attn_bwd.cu"
+DQ_REPLACES = "reflecting_reality_tpu/ops/pallas/flash_attention.py:164"
+DKV_REPLACES = "reflecting_reality_tpu/ops/pallas/flash_attention.py:191"
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _MAX_D = 160  # MAX_D in csrc/flash_attn_fwd.cu
@@ -61,40 +85,82 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("flash_attn_fwd")
+def _lib(name: str, fns) -> ctypes.CDLL:
+    """The library for `csrc/<name>.cu` with argtypes set on its functions;
+    `fns` maps each function to its number of stride arguments."""
+    lib = build.load(name)
     if not getattr(lib, "_rr_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.rr_flash_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                          ll, ll, ll, ll, ll, ll, ll, ll,
-                                          ctypes.c_float, p]
-        lib.rr_flash_attn_fwd.restype = i
+        for fn, (n_ptr, n_strides) in fns.items():
+            f = getattr(lib, fn)
+            f.argtypes = [p] * n_ptr + [i] * 6 + [ll] * n_strides + [ctypes.c_float, p]
+            f.restype = i
         lib._rr_typed = True
     return lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention_fwd takes CUDA tensors")
-    if not (q.device == k.device == v.device):
+def _fwd_lib() -> ctypes.CDLL:
+    return _lib("flash_attn_fwd", {"rr_flash_attn_fwd": (5, 8)})
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    return _lib("flash_attn_bwd", {"rr_flash_attn_bwd_dq": (7, 10),
+                                   "rr_flash_attn_bwd_dkv": (8, 12)})
+
+
+def _strides(*xs: torch.Tensor):
+    """Batch and token strides of each (B, T, H, D) tensor, in order."""
+    return [s for x in xs for s in (x.stride(0), x.stride(1))]
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor,
+           who: str = "flash_attention_fwd") -> None:
+    """q (B, Tq, H, D), k and v (B, Tk, H, D), and any further tensors shaped
+    like q (dO), all on one CUDA device in one dtype with packed (H, D)."""
+    if not all(x.is_cuda for x in (q, k, v) + more):
+        raise ValueError(f"{who} takes CUDA tensors")
+    if not all(x.device == q.device for x in (k, v) + more):
         raise ValueError("q, k, v must share one device")
-    if q.dtype not in _DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"flash_attention_fwd takes bf16 or fp32 q/k/v, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype not in _DTYPE_CODE or not all(x.dtype == q.dtype for x in (k, v) + more):
+        raise TypeError(f"{who} takes bf16 or fp32 q/k/v, got "
+                        f"{[str(x.dtype) for x in (q, k, v) + more]}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected (B, T, H, D) q and equal k/v, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if any(x.shape != q.shape for x in more):
+        raise ValueError(f"dO {[tuple(x.shape) for x in more]} must be shaped like q "
+                         f"{tuple(q.shape)}")
     b, _, h, d = q.shape
     if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
     if d % 8 or d > _MAX_D:
         raise ValueError(f"head dim {d} not taken (needs D % 8 == 0 and D <= {_MAX_D})")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in (("q", q), ("k", k), ("v", v)) + tuple(("dO", x) for x in more):
         if x.stride(3) != 1 or x.stride(2) != d:
             raise ValueError(f"{name} needs packed (H, D) dims, got strides {x.stride()}")
         if q.dtype == torch.bfloat16 and (
                 x.stride(0) % 8 or x.stride(1) % 8 or x.data_ptr() % 16):
             raise ValueError(f"{name} rows must be 16-byte aligned for the bf16 kernel")
+
+
+def _check_rows(q: torch.Tensor, *rows: torch.Tensor) -> None:
+    """lse and delta: contiguous fp32 (B·H, Tq) on q's device."""
+    b, tq, h, _ = q.shape
+    for x in rows:
+        if x.dtype != torch.float32 or x.shape != (b * h, tq) or not x.is_contiguous() \
+                or x.device != q.device:
+            raise ValueError(f"lse/delta must be contiguous fp32 ({b * h}, {tq}) on "
+                             f"{q.device}, got {x.dtype} {tuple(x.shape)}")
+
+
+def _count(wrapper, q: torch.Tensor) -> None:
+    wrapper.launches += 1
+    wrapper.launches_by_shape[(tuple(q.shape), str(q.dtype)[6:])] += 1
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
@@ -105,30 +171,123 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
     tk = k.shape[1]
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
-    lib = _lib()
+    lib = _fwd_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rr_flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _DTYPE_CODE[q.dtype], b, h, tq, tk, d,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+            _DTYPE_CODE[q.dtype], b, h, tq, tk, d, *_strides(q, k, v, out),
             1.0 / math.sqrt(d), stream,
         )
-    if err != 0:
-        raise RuntimeError(f"flash_attn_fwd launch failed: cudaError {err}")
-    flash_attention_fwd.launches += 1
-    flash_attention_fwd.launches_by_shape[(tuple(q.shape), str(q.dtype)[6:])] += 1
+    _raise_on(err, "flash_attn_fwd")
+    _count(flash_attention_fwd, q)
     return out, lse
 
 
-flash_attention_fwd.launches = 0
-flash_attention_fwd.launches_by_shape = Counter()
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           do: torch.Tensor, lse: torch.Tensor,
+                           delta: torch.Tensor) -> torch.Tensor:
+    """Kernel B3 on (B, T, H, D) CUDA tensors -> dq in q.dtype."""
+    _check(q, k, v, do, who="flash_attention_bwd_dq")
+    _check_rows(q, lse, delta)
+    b, tq, h, d = q.shape
+    dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        err = lib.rr_flash_attn_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), _DTYPE_CODE[q.dtype], b, h, tq, k.shape[1], d,
+            *_strides(q, k, v, do, dq), 1.0 / math.sqrt(d),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "flash_attn_bwd_dq")
+    _count(flash_attention_bwd_dq, q)
+    return dq
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor,
+                            delta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B4 on (B, T, H, D) CUDA tensors -> (dk, dv) in q.dtype."""
+    _check(q, k, v, do, who="flash_attention_bwd_dkv")
+    _check_rows(q, lse, delta)
+    b, tq, h, d = q.shape
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        err = lib.rr_flash_attn_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, h, tq,
+            k.shape[1], d, *_strides(q, k, v, do, dk, dv), 1.0 / math.sqrt(d),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "flash_attn_bwd_dkv")
+    _count(flash_attention_bwd_dkv, q)
+    return dk, dv
+
+
+for _wrapper in (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv):
+    _wrapper.launches = 0
+    _wrapper.launches_by_shape = Counter()
+
+
+def flash_attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO∘O) in fp32, as (B·H, Tq) (XLA in JAX, `_flash_bwd` :231)."""
+    b, tq, h, _ = out.shape
+    delta = (do.float() * out.float()).sum(-1)                # (B, Tq, H)
+    return delta.permute(0, 2, 1).reshape(b * h, tq).contiguous()
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor):
+    """The plain version of B3 + B4: p recomputed from lse, in fp32 einsums ->
+    (dq, dk, dv) in q.dtype."""
+    b, tq, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    qh, kh, vh, doh = (x.permute(0, 2, 1, 3).float() for x in (q, k, v, do))   # (B, H, T, D)
+    s = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * scale
+    p = torch.exp(s - lse.reshape(b, h, tq, 1))
+    delta = flash_attention_delta(out, do).reshape(b, h, tq, 1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, doh)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", doh, vh) - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kh) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qh) * scale
+    return tuple(x.permute(0, 2, 1, 3).to(q.dtype) for x in (dq, dk, dv))
+
+
+def _packed(x: torch.Tensor) -> torch.Tensor:
+    """x itself when its (H, D) dims are packed, else a contiguous copy (the
+    kernels read batch and token strides, not head or channel strides)."""
+    return x if x.stride(3) == 1 and x.stride(2) == x.shape[3] else x.contiguous()
+
+
+class FlashAttention(torch.autograd.Function):
+    """B1 forward, B3 + B4 backward (the JAX package's `_flash` custom VJP)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, q, k, v):
+        out, lse = flash_attention_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = _packed(do)
+        delta = flash_attention_delta(out, do)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+        return dq, dk, dv
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Attention over (B, T, H, D): the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """Attention over (B, T, H, D): the plain version for CPU tensors; for
+    CUDA tensors `FlashAttention` when a gradient is needed, else B1 alone."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v)
     return flash_attention_fwd(q, k, v)[0]

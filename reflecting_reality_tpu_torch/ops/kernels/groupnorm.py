@@ -38,8 +38,16 @@ contiguity, raises on anything the kernel does not take, launches, and
 counts calls that launch (one per fused kernel or stats+apply pair) in
 `group_norm_silu_fwd.launches` and, per (shape, dtype, SiLU), in
 `group_norm_silu_fwd.launches_by_shape`.
-`group_norm_silu` routes by device: CPU tensors go to `group_norm_plain`,
-CUDA tensors to the kernel.
+
+`GroupNormSiLU` is the `torch.autograd.Function` for training: B2 forward,
+and a backward in plain fp32 PyTorch (`group_norm_bwd_plain`, the closed
+form, group statistics recomputed from the saved input).  The JAX package
+has no GroupNorm backward kernel (its Pallas GN has no VJP and training
+takes the jnp norm), so there is none to port; a Triton backward is
+performance work.
+`group_norm_silu` routes by device and grad mode: CPU tensors go to
+`group_norm_plain` (torch autograd differentiates it), CUDA tensors to
+`GroupNormSiLU` when a gradient is needed and straight to B2 when not.
 """
 
 from __future__ import annotations
@@ -241,10 +249,59 @@ group_norm_silu_fwd.launches = 0
 group_norm_silu_fwd.launches_by_shape = Counter()
 
 
+def group_norm_bwd_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                         dy: torch.Tensor, num_groups: int, eps: float,
+                         apply_silu: bool = False):
+    """Closed-form gradient of `group_norm_plain` -> (dx, dweight, dbias) in
+    the dtypes of x, weight and bias; fp32 throughout, the group statistics
+    (two-pass variance) recomputed from x."""
+    b, c = x.shape[:2]
+    shape = (1, c) + (1,) * (x.dim() - 2)
+    xg = x.reshape(b, num_groups, -1).float()
+    mean = xg.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((xg - mean).square().mean(dim=-1, keepdim=True) + eps)
+    xhat = ((xg - mean) * rstd).reshape(x.shape)
+    w = weight.float().reshape(shape)
+    dz = dy.float()
+    if apply_silu:
+        z = xhat * w + bias.float().reshape(shape)
+        sig = torch.sigmoid(z)
+        dz = dz * sig * (1.0 + z * (1.0 - sig))
+    reduce_dims = (0,) + tuple(range(2, x.dim()))
+    dweight = (dz * xhat).sum(dim=reduce_dims)
+    dbias = dz.sum(dim=reduce_dims)
+    dxhat = (dz * w).reshape(b, num_groups, -1)
+    xhat_g = xhat.reshape(b, num_groups, -1)
+    dx = rstd * (dxhat - dxhat.mean(dim=-1, keepdim=True)
+                 - xhat_g * (dxhat * xhat_g).mean(dim=-1, keepdim=True))
+    return dx.reshape(x.shape).to(x.dtype), dweight.to(weight.dtype), dbias.to(bias.dtype)
+
+
+class GroupNormSiLU(torch.autograd.Function):
+    """B2 forward, closed-form plain backward (see the module docstring)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, weight, bias, num_groups, eps, apply_silu):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.cfg = (num_groups, eps, apply_silu)
+        return group_norm_silu_fwd(x, weight, bias, num_groups, eps, apply_silu)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dy):
+        x, weight, bias = ctx.saved_tensors
+        dx, dweight, dbias = group_norm_bwd_plain(x, weight, bias, dy, *ctx.cfg)
+        return dx, dweight, dbias, None, None, None
+
+
 def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                     num_groups: int, eps: float, apply_silu: bool = False) -> torch.Tensor:
-    """GroupNorm(+SiLU): the kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    """GroupNorm(+SiLU): the plain version for CPU tensors; for CUDA tensors
+    `GroupNormSiLU` when a gradient is needed, else B2 alone."""
     if x.device.type == "cpu":
         return group_norm_plain(x, weight, bias, num_groups, eps, apply_silu)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return GroupNormSiLU.apply(x, weight, bias, num_groups, eps, apply_silu)
     return group_norm_silu_fwd(x, weight, bias, num_groups, eps, apply_silu)

@@ -77,6 +77,8 @@ def test_cpu_tensors_take_the_plain_versions():
     from reflecting_reality_tpu_torch.ops.kernels import groupnorm as gn
     from reflecting_reality_tpu_torch.ops.attention import dot_product_attention
 
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+                gn.group_norm_silu_fwd)
     before = (fa.flash_attention_fwd.launches, gn.group_norm_silu_fwd.launches)
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.standard_normal((1, 8, 4, 4)).astype(np.float32))
@@ -88,6 +90,13 @@ def test_cpu_tensors_take_the_plain_versions():
                                rtol=0, atol=0)
     torch.testing.assert_close(dot_product_attention(q, q, q), fa.attention_plain(q, q, q),
                                rtol=0, atol=0)
+    # with gradients: torch autograd of the plain versions, no autograd Function
+    xg, qg = x.clone().requires_grad_(True), q[:, :64].clone().requires_grad_(True)
+    y = gn.group_norm_silu(xg, w, b, 4, 1e-5, True)
+    o = fa.flash_attention(qg, qg, qg)
+    assert not isinstance(y.grad_fn, gn.GroupNormSiLU._backward_cls)
+    assert not isinstance(o.grad_fn, fa.FlashAttention._backward_cls)
+    (y.sum() + o.sum()).backward()
+    assert xg.grad is not None and qg.grad is not None
     assert (fa.flash_attention_fwd.launches, gn.group_norm_silu_fwd.launches) == before == (0, 0)
-    assert not fa.flash_attention_fwd.launches_by_shape
-    assert not gn.group_norm_silu_fwd.launches_by_shape
+    assert all(fn.launches == 0 and not fn.launches_by_shape for fn in wrappers)

@@ -14,6 +14,18 @@ one element by an ulp, the relative L2 error is held under 1e-2 (1e-4 in
 fp32).  GroupNorm: fp32 at 1e-5 of the output scale; bf16 rounds the same
 fp32 value on both sides, so a last-bit difference in the statistics flips
 at most a rounding boundary: 2 bf16 ulps (2^-6 relative).
+
+The flash backward kernels (B3 dQ, B4 dK/dV) are held to
+`flash_attention_bwd_plain` on the same q/k/v/dO and the kernel's own out
+and lse, with the forward's tolerances applied to each of dq, dk and dv
+(4 bf16 ulps at the gradient's max and a relative L2 error under 1e-2;
+fp32 1e-4 of the max and L2 under 1e-4): the kernels round p and dS to
+bf16 before the products, as the Pallas kernels do, which moves each
+gradient by a few tenths of a per cent.  The autograd Functions are held to
+torch autograd of the plain versions at the same tolerances.  A tiny UNet +
+BrushNet loss, fp32 with TF32 off, has the same BrushNet gradients on the
+card (through the Functions) as on the CPU (plain paths, torch autograd):
+1e-4 of the largest gradient, summation order through ~30 layers and back.
 """
 
 import math
@@ -79,6 +91,154 @@ def test_flash_reads_fused_qkv_slices(cuda):
     out, _ = fa.flash_attention_fwd(q, k, v)
     ref = fa.attention_plain(q, k, v)
     assert_flash_close(out, ref, torch.bfloat16)
+
+
+def _randn(cuda, shape, dtype, seed=0):
+    g = torch.Generator(cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=cuda, dtype=dtype) for _ in range(4)]
+
+
+def _bwd(q, k, v, do):
+    """B1, then B3 and B4, -> (kernel grads, plain grads)."""
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    delta = fa.flash_attention_delta(out, do)
+    got = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+           *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+    return got, fa.flash_attention_bwd_plain(q, k, v, out, lse, do)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 4096, 8, 40), torch.bfloat16),
+    ((1, 4608, 2, 40), torch.bfloat16),
+    ((1, 2056, 2, 40), torch.bfloat16),
+    ((1, 2048, 2, 80), torch.bfloat16),
+    ((1, 2048, 2, 160), torch.bfloat16),
+    ((1, 72, 1, 64), torch.bfloat16),
+    ((1, 2056, 2, 40), torch.float32),
+    ((1, 2048, 1, 160), torch.float32),
+])
+def test_flash_bwd_matches_plain(cuda, shape, dtype):
+    q, k, v, do = _randn(cuda, shape, dtype)
+    before = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+    got, ref = _bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert_flash_close(a, b, dtype)
+    assert (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    key = (shape, str(dtype)[6:])
+    assert fa.flash_attention_bwd_dq.launches_by_shape[key] >= 1
+    assert fa.flash_attention_bwd_dkv.launches_by_shape[key] >= 1
+
+
+def test_flash_bwd_reads_strided_slices(cuda):
+    """q/k/v as column slices of one fused qkv projection and dO as a column
+    slice of a wider tensor, all read in place."""
+    b, t, h, d = 2, 2048, 4, 40
+    qkv = torch.randn(b, t, 3 * h * d, device=cuda, dtype=torch.bfloat16)
+    q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    do = torch.randn(b, t, 2 * h * d, device=cuda, dtype=torch.bfloat16)[..., :h * d]
+    do = do.unflatten(-1, (h, d))
+    assert not do.is_contiguous() and not q.is_contiguous()
+    got, ref = _bwd(q, k, v, do)
+    for a, r in zip(got, ref):
+        assert_flash_close(a, r, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_function_grads_match_plain_autograd(cuda, dtype):
+    shape = (1, 2048, 2, 40)
+    q, k, v, do = _randn(cuda, shape, dtype, seed=1)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    counts = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    out = fa.flash_attention(*leaves)
+    assert out.grad_fn is not None
+    out.backward(do)
+    fa.attention_plain(*plain).backward(do)
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    for a, b in zip(leaves, plain):
+        assert_flash_close(a.grad, b.grad, dtype)
+    with torch.no_grad():
+        assert fa.flash_attention(*leaves).grad_fn is None
+    assert fa.flash_attention_bwd_dq.launches == counts[1] + 1
+
+
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_groupnorm_function_grads_match_plain_autograd(cuda, dtype, silu):
+    g = torch.Generator(cuda).manual_seed(2)
+    x = torch.randn(2, 64, 16, 16, generator=g, device=cuda, dtype=dtype) * 2.0 + 0.5
+    w = (1.0 + 0.1 * torch.randn(64, generator=g, device=cuda)).to(dtype)
+    b = (0.1 * torch.randn(64, generator=g, device=cuda)).to(dtype)
+    dy = torch.randn(x.shape, generator=g, device=cuda, dtype=dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    plain = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    before = gn.group_norm_silu_fwd.launches
+    y = gn.group_norm_silu(*leaves, 32, 1e-5, silu)
+    assert y.grad_fn is not None and gn.group_norm_silu_fwd.launches == before + 1
+    y.backward(dy)
+    gn.group_norm_plain(*plain, 32, 1e-5, silu).backward(dy)
+    for a, r in zip(leaves, plain):
+        scale = max(1.0, r.grad.float().abs().max().item())
+        # fp32: one pass of group sums; bf16: the gradient rounds once to bf16
+        # on each side from fp32 values that differ in the last bits
+        tol = 1e-4 * scale if dtype == torch.float32 else 2 * 2.0 ** -7 * scale
+        torch.testing.assert_close(a.grad.float(), r.grad.float(), rtol=0, atol=tol)
+
+
+def test_unet_brushnet_gradient_on_card_matches_cpu(cuda):
+    """Before the autograd Functions, the card's wrappers returned tensors
+    without a grad_fn, so every gradient path through attention and
+    GroupNorm was silently dropped; now the card's BrushNet gradients equal
+    the CPU's."""
+    from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
+    from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        torch.manual_seed(0)
+        unet = UNet2DConditionModel(
+            sample_size=64, block_out_channels=(16, 32), attention_head_dim=2,
+            cross_attention_dim=16, norm_num_groups=4, layers_per_block=1,
+            down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+            up_block_types=("UpBlock2D", "CrossAttnUpBlock2D")).requires_grad_(False)
+        brushnet = BrushNetModel.from_unet(unet, conditioning_channels=5)
+        with torch.no_grad():
+            for conv in (list(brushnet.brushnet_down_blocks) + [brushnet.brushnet_mid_block]
+                         + list(brushnet.brushnet_up_blocks)):
+                conv.weight.normal_(0, 0.1)
+                conv.bias.normal_(0, 0.1)
+        g = torch.Generator().manual_seed(1)
+        x, cond = torch.randn(1, 4, 64, 64, generator=g), torch.randn(1, 5, 64, 64, generator=g)
+        ehs, target = torch.randn(1, 7, 16, generator=g), torch.randn(1, 4, 64, 64, generator=g)
+        t = torch.tensor([321])
+
+        def grads(device):
+            u, bn = unet.to(device), brushnet.to(device)
+            bn.zero_grad(set_to_none=True)
+            args = [a.to(device) for a in (x, t, ehs, cond)]
+            down, mid, up = bn(*args)
+            pred = u(args[0], args[1], args[2], down_block_add_samples=down,
+                     mid_block_add_sample=mid, up_block_add_samples=up)
+            ((pred - target.to(device)) ** 2).mean().backward()
+            return {n: p.grad.detach().cpu().clone() for n, p in bn.named_parameters()}
+
+        counts = (fa.flash_attention_bwd_dq.launches, gn.group_norm_silu_fwd.launches)
+        on_card = grads(cuda)
+        # 3 self-attentions at 64x64: down block 0 has one, up block 1 two
+        assert fa.flash_attention_bwd_dq.launches == counts[0] + 3
+        assert gn.group_norm_silu_fwd.launches > counts[1]
+        on_cpu = grads(torch.device("cpu"))
+        tol = 1e-4 * max(v.abs().max().item() for v in on_cpu.values())
+        for n in on_cpu:
+            torch.testing.assert_close(on_card[n], on_cpu[n], rtol=0, atol=tol, msg=n)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
 def test_flash_wrapper_raises_on_what_it_does_not_take(cuda):

@@ -4,9 +4,13 @@ Tolerances: fp32 on both sides; the two frameworks sum in different orders
 (convolution algorithms, reductions), which moves results by a few ulps per
 layer, so single ops are held at rtol/atol 1e-5 and blocks of several layers
 at 1e-4.  Attention is held at the flash-kernel parity tolerance of
-tests/test_flash_attention.py, rtol/atol 2e-5.
+tests/test_flash_attention.py, rtol/atol 2e-5, and its gradients at the
+flash VJP tolerance of tests/test_flash_attention.py:49, rtol/atol 1e-4.
+The GroupNorm gradients (closed form against jax.vjp of the jnp norm) are
+held at rtol/atol 1e-5 of the forward: one fp32 pass of group sums.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,13 +27,22 @@ from reflecting_reality_tpu_torch.ops import attention as t_attn
 from reflecting_reality_tpu_torch.ops import embeddings as t_emb
 from reflecting_reality_tpu_torch.ops import resnet as t_resnet
 from reflecting_reality_tpu_torch.ops import transformer as t_tr
-from reflecting_reality_tpu_torch.ops.kernels.flash_attention import flash_attention
+from reflecting_reality_tpu_torch.ops.kernels.flash_attention import (
+    attention_plain,
+    flash_attention,
+    flash_attention_bwd_plain,
+)
+from reflecting_reality_tpu_torch.ops.kernels.groupnorm import (
+    group_norm_bwd_plain,
+    group_norm_plain,
+)
 from reflecting_reality_tpu_torch.ops.norms import group_norm
 from tests.test_torch_helpers import init_jax, nchw_to_nhwc, nhwc_to_nchw, randn, to_torch
 
 OP_TOL = dict(rtol=1e-5, atol=1e-5)
 BLOCK_TOL = dict(rtol=1e-4, atol=1e-4)
 ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
+VJP_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("apply_silu", [False, True])
@@ -57,6 +70,52 @@ def test_attention_matches_jax_flash(b, t, h, d):
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
     np.testing.assert_allclose(flash_attention(tq, tk, tv).numpy(), ref, **ATTN_TOL)
     np.testing.assert_allclose(t_attn.dot_product_attention(tq, tk, tv).numpy(), ref, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("b,t,h,d", [(1, 256, 2, 40), (1, 264, 2, 40)])
+def test_flash_backward_matches_jax_vjp(b, t, h, d):
+    """`flash_attention_bwd_plain` (the plain version of kernels B3 + B4) and
+    torch autograd of the plain attention, both against the VJP of the JAX
+    Pallas flash kernel in TPU interpret mode; T=264 is ragged for 64-row tiles."""
+    q, k, v, do = (randn(s, b, t, h, d) for s in (0, 1, 2, 3))
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda *a: j_flash(*a, block_q=128, block_k=128),
+                         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        ref = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = attention_plain(tq, tk, tv, return_lse=True)
+    for got, want in zip(flash_attention_bwd_plain(tq, tk, tv, out, lse, tdo), ref):
+        np.testing.assert_allclose(got.numpy(), want, **VJP_TOL)
+
+    leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    t_attn.dot_product_attention(*leaves).backward(tdo)
+    for leaf, want in zip(leaves, ref):
+        np.testing.assert_allclose(leaf.grad.numpy(), want, **VJP_TOL)
+
+
+@pytest.mark.parametrize("apply_silu", [False, True])
+@pytest.mark.parametrize("shape,groups", [((2, 8, 8, 32), 4), ((1, 5, 7, 12), 3)])
+def test_group_norm_backward_matches_jax_vjp(shape, groups, apply_silu):
+    """The closed-form backward (the one kernel B2's autograd Function runs)
+    and torch autograd of the plain norm against jax.vjp of the jnp norm."""
+    x = randn(0, *shape) * 3.0 + 1.5
+    c = shape[-1]
+    w, b, dy = randn(1, c), randn(2, c), randn(3, *shape)
+    _, vjp = jax.vjp(lambda x_, w_, b_: j_group_norm(x_, w_, b_, groups, 1e-5,
+                                                     apply_silu=apply_silu),
+                     jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    rdx, rdw, rdb = (np.asarray(g) for g in vjp(jnp.asarray(dy)))
+    tx, tw, tb = nhwc_to_nchw(x), torch.from_numpy(w), torch.from_numpy(b)
+    dx, dw, db = group_norm_bwd_plain(tx, tw, tb, nhwc_to_nchw(dy), groups, 1e-5, apply_silu)
+    np.testing.assert_allclose(nchw_to_nhwc(dx), rdx, **OP_TOL)
+    np.testing.assert_allclose(dw.numpy(), rdw, **OP_TOL)
+    np.testing.assert_allclose(db.numpy(), rdb, **OP_TOL)
+
+    leaves = [t.clone().requires_grad_(True) for t in (tx, tw, tb)]
+    group_norm_plain(*leaves, groups, 1e-5, apply_silu).backward(nhwc_to_nchw(dy))
+    for leaf, want in zip(leaves, (rdx, rdw, rdb)):
+        got = leaf.grad if leaf.dim() == 1 else torch.from_numpy(nchw_to_nhwc(leaf.grad))
+        np.testing.assert_allclose(got.numpy(), want, **OP_TOL)
 
 
 def test_flash_routing_rule():
