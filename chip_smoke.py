@@ -4,20 +4,31 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  1. env     torch/CUDA versions, device name and compute capability, and
-             `nvidia-smi --query-gpu=name,power.limit`.
-  2. build   nvcc builds the two CUDA kernel libraries (flash forward;
-             flash backward) from reflecting_reality_tpu_torch/ops/kernels/csrc,
-             one nvcc each, all started together, while the Triton kernels
-             compile; seconds for each and ptxas's register/spill lines.
+  1. env     torch/CUDA versions, device name and compute capability,
+             `nvidia-smi --query-gpu=name,power.limit` and clocks.max.sm.
+  2. build   nvcc builds the three CUDA kernel libraries (flash forward;
+             flash backward; GroupNorm) from
+             reflecting_reality_tpu_torch/ops/kernels/csrc, one nvcc each, all
+             started together; seconds for each, ptxas's register/spill lines,
+             and the count of wgmma (HGMMA), TMA-load (UTMALDG) and
+             cluster-barrier (UCGABAR) instructions in each library's SASS
+             (`cuobjdump -sass`): the flash forward must hold HGMMA and
+             UTMALDG, the GroupNorm library cluster barriers.
   3. kernels every kernel against its plain PyTorch version on the card, at
-             the shapes the main path and the training step give it and a
-             few they meet elsewhere (1024², 576x512, fp32 parity): max abs
-             error in the working dtype and against fp32 and the relative L2
-             error, each with its tolerance; kernel, plain and library times;
-             the roofline bound.  The flash backward kernels (B3 dQ, B4
-             dK/dV) are held to `flash_attention_bwd_plain` on B1's own out
-             and lse; their library time is SDPA's backward.
+             the shapes the main path and the training step give it (every
+             GroupNorm shape of a denoise step, recorded from the full-width
+             modules on the meta device) and a few they meet elsewhere
+             (1024², 576x512, fp32 parity, and the self-attention shapes the
+             routing rule sends to the plain path): max abs error in the
+             working dtype and against fp32 and the relative L2 error, each
+             with its tolerance; kernel, plain and library times (20
+             back-to-back calls, host launch cost included), the kernel's
+             device time (a CUDA graph of the same 20 calls), the roofline
+             bound and, for flash, the exponential bound (one exp2 per logit
+             at 16 per clock per SM, at nvidia-smi's clocks.max.sm).  The
+             flash backward kernels (B3 dQ, B4 dK/dV) are held to
+             `flash_attention_bwd_plain` on B1's own out and lse; their
+             library time is SDPA's backward.
   4. slice   full-width SD-1.5 UNet + BrushNet(conditioning_channels=6), one
              denoise step's forward at 64x64 latents, batch 2, fp32 with TF32
              off: the card (kernels) against the CPU (plain versions).
@@ -26,7 +37,8 @@ Phases, each printing one JSON line:
              4- and 8-step runs in turns, MAIN_REPEATS of each (medians;
              s/step is their two-point difference).  In every run the flash
              kernel must launch exactly 5 x steps times and the GroupNorm
-             kernel at least once.
+             kernel at least once, and every GroupNorm shape of a denoise
+             step must take the single-pass (cluster) regime.
   6. profile one traced 4-step call: device busy time, idle share, device
              time by kind of kernel and the top kernels (torch.profiler).
   7. train_parity  full-width UNet + BrushNet (`from_unet`, seeded zero
@@ -57,6 +69,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -71,6 +84,7 @@ MAIN_REPEATS = 5                    # timed 4- and 8-step calls of each count
 TRAIN_REPEATS = 5                   # timed training steps
 TRAIN_BATCH = 4                     # the training CLI's --train_batch_size default
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+SMS = 132                           # H100 SXM streaming multiprocessors
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core bf16
               "float32": 67e12}     # fp32 outside the tensor cores
 
@@ -86,6 +100,15 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@functools.lru_cache(maxsize=None)
+def max_sm_clock_hz() -> float:
+    """nvidia-smi's clocks.max.sm, in Hz (the clock the exponential bound uses)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn() over `iters` back-to-back calls (CUDA events)."""
     for _ in range(warmup):
@@ -96,6 +119,26 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 20) -> float:
+    """Device time of fn() without host launch cost: `iters` calls captured
+    in one CUDA graph, one replay timed with CUDA events, divided by iters."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -114,13 +157,32 @@ def bf16_ulp(x: float) -> float:
 
 # ---------------------------------------------------------------- phase 2
 
+SASS_COUNTS = ("HGMMA", "UTMALDG", "UCGABAR")   # wgmma, TMA tensor load, cluster barrier
+SASS_WANT = {"flash_attn_fwd": ("HGMMA", "UTMALDG"), "groupnorm": ("UCGABAR",)}
+
+
+def cuobjdump() -> str:
+    """The toolkit's cuobjdump, or the copy Triton's package carries."""
+    import shutil
+
+    from reflecting_reality_tpu_torch.ops.kernels import build
+
+    for c in (os.path.join(os.path.dirname(build.nvcc()), "cuobjdump"), shutil.which("cuobjdump")):
+        if c and os.path.exists(c):
+            return c
+    import triton
+    c = os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin", "cuobjdump")
+    if os.path.exists(c):
+        return c
+    raise RuntimeError("cuobjdump not found")
+
+
 def phase_build(torch):
     from concurrent.futures import ThreadPoolExecutor
 
     from reflecting_reality_tpu_torch.ops.kernels import build
-    from reflecting_reality_tpu_torch.ops.kernels.groupnorm import group_norm_silu_fwd
 
-    names = ("flash_attn_fwd", "flash_attn_bwd")
+    names = ("flash_attn_fwd", "flash_attn_bwd", "groupnorm")
     built_now = {n: not build.library_path(n).exists() for n in names}
     t0 = time.perf_counter()
 
@@ -128,27 +190,25 @@ def phase_build(torch):
         build.load(name)
         return time.perf_counter() - t0
 
-    # one nvcc per source, all started together; Triton compiles its variants
-    # (dtype x SiLU x fused/split) meanwhile
+    # one nvcc per source, all started together
     with ThreadPoolExecutor(len(names)) as pool:
-        nvcc_done = {n: pool.submit(nvcc_build, n) for n in names}
-        for dtype in (torch.bfloat16, torch.float32):
-            for shape in ((2, 64, 8, 8), (1, 64, 256, 256)):
-                x = torch.randn(shape, device="cuda", dtype=dtype)
-                w = torch.ones(64, device="cuda", dtype=dtype)
-                for silu in (False, True):
-                    group_norm_silu_fwd(x, w, w, 32, 1e-5, silu)
-        torch.cuda.synchronize()
-        t_triton = time.perf_counter() - t0
-        t_nvcc = {n: f.result() for n, f in nvcc_done.items()}
-    ptxas = {}
+        t_nvcc = {n: f.result() for n, f in
+                  {n: pool.submit(nvcc_build, n) for n in names}.items()}
+    ptxas, sass = {}, {}
+    tool = cuobjdump()
     for n in names:
-        log = build.library_path(n).with_suffix(".log")
+        lib = build.library_path(n)
+        log = lib.with_suffix(".log")
         ptxas[n] = [ln.strip() for ln in (log.read_text().splitlines() if log.exists() else [])
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln or "C75" in ln]
+        text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        sass[n] = {op: sum(ln.count(op) for ln in text.splitlines()) for op in SASS_COUNTS}
     emit({"phase": "build", "nvcc_s": {n: round(t, 2) for n, t in t_nvcc.items()},
-          "built_now": built_now, "groupnorm_triton_compile_s": round(t_triton, 2),
-          "ptxas": ptxas})
+          "built_now": built_now, "sass_counts": sass, "ptxas": ptxas})
+    missing = {n: op for n, ops in SASS_WANT.items() for op in ops if sass[n][op] == 0}
+    if missing:
+        raise AssertionError(f"the SASS lacks the instructions of its design: {missing}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -204,12 +264,15 @@ def bench_flash(torch, shape, dtype) -> dict:
     }
     qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
     entry["ms"] = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v))
+    entry["device_ms"] = graph_ms(torch, lambda: fa.flash_attention_fwd(q, k, v))
     entry["plain_ms"] = cuda_ms(torch, lambda: fa.attention_plain(q, k, v), iters=5)
     entry["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qs, ks, vs))
     itemsize = q.element_size()
     nbytes = 4 * b * t * h * d * itemsize + b * h * t * 4
     entry["bound_ms"], entry["bound_by"] = bound(4.0 * b * h * t * t * d, nbytes,
                                                  entry["dtype"])
+    # one exp2 per logit on the multi-function units: 16 per clock per SM
+    entry["exp_bound_ms"] = b * h * t * t / (SMS * 16 * max_sm_clock_hz()) * 1e3
     return entry
 
 
@@ -267,12 +330,14 @@ def bench_flash_bwd(torch, shape, dtype):
         e["max_abs_err"] = max(e[f"{n}_max_abs_err"] for n in names)
         e["rel_l2_err_max"] = max(e[f"{n}_rel_l2_err"] for n in names)
         e["ms"] = cuda_ms(torch, run)
+        e["device_ms"] = graph_ms(torch, run)
         e["plain_ms"] = plain_ms      # the plain backward computes dq, dk and dv together
         e["library_ms"] = library_ms  # so does SDPA's
         # products of 2·B·H·T²·D each; q, k, v, dO, lse, delta read, grads written
         nbytes = (4 + len(names)) * tensor_bytes + rows_bytes
         e["bound_ms"], e["bound_by"] = bound(2.0 * products * b * h * t * t * d, nbytes,
                                              e["dtype"])
+        e["exp_bound_ms"] = b * h * t * t / (SMS * 16 * max_sm_clock_hz()) * 1e3  # p recomputed
         entries.append(e)
     return entries
 
@@ -314,6 +379,8 @@ def bench_groupnorm(torch, shape, dtype, silu) -> dict:
         return F.silu(out) if silu else out
 
     entry["ms"] = cuda_ms(torch, lambda: gn.group_norm_silu_fwd(x, w, bb, 32, 1e-5, silu))
+    entry["device_ms"] = graph_ms(torch, lambda: gn.group_norm_silu_fwd(x, w, bb, 32, 1e-5, silu))
+    entry["regime"] = gn.launch_plan(tuple(shape), 32).regime
     entry["plain_ms"] = cuda_ms(torch, lambda: gn.group_norm_plain(x, w, bb, 32, 1e-5, silu))
     entry["library_ms"] = cuda_ms(torch, library)
     n = x.numel()
@@ -324,12 +391,55 @@ def bench_groupnorm(torch, shape, dtype, silu) -> dict:
 
 FLASH_SHAPES = [((2, 4096, 8, 40), "bfloat16"), ((4, 4096, 8, 40), "bfloat16"),
                 ((2, 4096, 8, 80), "bfloat16"), ((2, 4608, 8, 40), "bfloat16"),
-                ((1, 2048, 8, 160), "bfloat16"), ((2, 4096, 8, 40), "float32")]
+                ((1, 2048, 8, 160), "bfloat16"), ((2, 4096, 8, 40), "float32"),
+                # the UNet's other self-attentions, which the routing rule sends
+                # to the plain path: B1 against it, for the crossover
+                ((2, 1024, 8, 80), "bfloat16"), ((2, 256, 8, 160), "bfloat16"),
+                ((2, 64, 8, 160), "bfloat16")]
 FLASH_BWD_SHAPES = [((4, 4096, 8, 40), "bfloat16"), ((2, 4096, 8, 40), "bfloat16"),
                     ((2, 4608, 8, 40), "bfloat16"), ((1, 2048, 8, 160), "bfloat16"),
                     ((2, 4096, 8, 40), "float32")]
 GN_SHAPES = [(2, 320, 64, 64), (4, 320, 64, 64), (2, 2560, 16, 16), (2, 1280, 8, 8),
              (1, 512, 64, 64), (1, 128, 512, 512), (4, 128, 512, 512)]
+
+
+def main_path_groupnorms(torch):
+    """The GroupNorms of the main path, recorded from forwards of the
+    full-width modules on the meta device (no data, no time) -> two Counters
+    of (shape, SiLU): one denoise step (BrushNet at batch 1, UNet at CFG batch
+    2, 64x64 latents) and the VAE's encode + decode at 512²."""
+    from collections import Counter
+    from unittest import mock
+
+    from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
+    from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
+    from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+    from reflecting_reality_tpu_torch.ops import norms
+    from reflecting_reality_tpu_torch.ops.embeddings import precompute_time_embeddings
+    from reflecting_reality_tpu_torch.ops.kernels import groupnorm as gn
+
+    seen = []
+
+    def record(x, w, b, groups, eps, apply_silu=False):
+        seen.append((tuple(x.shape), bool(apply_silu)))
+        return gn.group_norm_plain(x, w, b, groups, eps, apply_silu)
+
+    with torch.device("meta"), mock.patch.object(norms, "group_norm_silu", record), \
+            torch.no_grad():
+        unet, brushnet = UNet2DConditionModel(), BrushNetModel(conditioning_channels=6)
+        lat, cond = torch.empty(1, 4, 64, 64), torch.empty(1, 6, 64, 64)
+        ehs = torch.empty(2, 77, 768)
+        tb, tu = (precompute_time_embeddings(m, [500]) for m in (brushnet, unet))
+        down, mid, up = brushnet(lat, None, ehs[1:], cond, temb=tb)
+        unet(torch.cat([lat, lat]), None, ehs,
+             down_block_add_samples=[torch.cat([x, x]) for x in down],
+             mid_block_add_sample=torch.cat([mid, mid]),
+             up_block_add_samples=[torch.cat([x, x]) for x in up], temb=tu)
+        step = len(seen)
+        vae = AutoencoderKL()
+        vae.encode(torch.empty(1, 3, 512, 512))
+        vae.decode(lat)
+    return Counter(seen[:step]), Counter(seen[step:])
 
 
 def phase_kernels(torch):
@@ -346,13 +456,13 @@ def phase_kernels(torch):
                                (fa.DQ_REPLACES, fa.DKV_REPLACES)):
             e.update(kernel=e["key"][0], route="cuda", source=fa.BWD_SOURCE, replaces=replaces)
             entries.append(e)
-    for shape in GN_SHAPES:
-        for dt in (torch.bfloat16, torch.float32):
-            for silu in (False, True):
-                e = bench_groupnorm(torch, shape, dt, silu)
-                e.update(kernel="groupnorm", route="triton", source=gn.SOURCE,
-                         replaces=gn.REPLACES)
-                entries.append(e)
+    gn_cases = {(shape, dt, silu) for shape in GN_SHAPES for dt in (torch.bfloat16, torch.float32)
+                for silu in (False, True)}
+    gn_cases |= {(shape, torch.bfloat16, silu) for shape, silu in main_path_groupnorms(torch)[0]}
+    for shape, dt, silu in sorted(gn_cases, key=str):
+        e = bench_groupnorm(torch, shape, dt, silu)
+        e.update(kernel="groupnorm", route="cuda", source=gn.SOURCE, replaces=gn.REPLACES)
+        entries.append(e)
     for e in entries:
         check(e)
     emit({"phase": "kernels", "checked": len(entries), "all_within_tolerance": True})
@@ -512,6 +622,13 @@ def phase_main(torch, gpu_line: str):
             runs[steps].update(launches=launched,
                                max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
             by_shape[steps] = read_counters_by_shape()
+    from reflecting_reality_tpu_torch.ops.kernels import groupnorm as gn
+
+    step_norms = [key for (kern, key), n in by_shape[8].items()
+                  if kern == "groupnorm" and n > by_shape[4].get((kern, key), 0)]
+    not_single = [key for key in step_norms if gn.launch_plan(key[0], 32).regime != "cluster"]
+    if not step_norms or not_single:
+        raise AssertionError(f"denoise-step GroupNorms outside the cluster regime: {not_single}")
     for r in runs.values():
         r["s"] = statistics.median(r["s_each"])
     s_step = (runs[8]["s"] - runs[4]["s"]) / 4
@@ -522,6 +639,7 @@ def phase_main(torch, gpu_line: str):
           "s_per_step": s_step, "s_per_image_8_steps": runs[8]["s"],
           "s_per_image_50_steps_two_point_estimate": runs[4]["s"] + 46 * s_step,
           "launches_per_step": per_step,
+          "groupnorm_step_shapes_single_pass": len(step_norms),
           "launches_by_shape_8_steps": [
               {"kernel": kern, "key": list(key), "launches": n,
                "per_step": (n - by_shape[4].get((kern, key), 0)) / 4}
@@ -531,7 +649,7 @@ def phase_main(torch, gpu_line: str):
 
 
 KINDS = (("flash_attn_fwd", ("flash_fwd",)), ("flash_attn_bwd_dq", ("flash_bwd_dq",)),
-         ("flash_attn_bwd_dkv", ("flash_bwd_dkv",)), ("groupnorm", ("_gn_",)),
+         ("flash_attn_bwd_dkv", ("flash_bwd_dkv",)), ("groupnorm", ("gn_kernel",)),
          ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
          ("matmul", ("gemm", "cublas", "cutlass")))
 
@@ -771,15 +889,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(
-        ROOT, "reflecting_reality_tpu_torch", "ops", "kernels", "_build", "triton"))
     import reflecting_reality_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     gpu_line = nvidia_smi()
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability(0)),
-          "device_count": torch.cuda.device_count(), "nvidia_smi": gpu_line})
+          "device_count": torch.cuda.device_count(), "nvidia_smi": gpu_line,
+          "clocks_max_sm_mhz": max_sm_clock_hz() / 1e6})
     phase_build(torch)
     entries = phase_kernels(torch)
     phase_slice(torch)

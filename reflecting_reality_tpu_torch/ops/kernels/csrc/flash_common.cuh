@@ -1,6 +1,7 @@
-// Shared pieces of the flash-attention kernels (flash_attn_fwd.cu, flash_attn_bwd.cu):
-// the mma.sync / ldmatrix / cp.async wrappers, the shared-memory tile loader
-// and the head-dim padding rule.
+// Shared pieces of the flash-attention kernels: the head-dim padding rule,
+// the constants and the bf16 packing both flash_attn_fwd.cu and
+// flash_attn_bwd.cu use, and the backward's mma.sync / ldmatrix / cp.async
+// wrappers and shared-memory tile loader.
 #pragma once
 
 #include <cuda_runtime.h>

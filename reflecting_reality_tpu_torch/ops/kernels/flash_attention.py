@@ -12,13 +12,18 @@ What bounds it on the H100: at the UNet level-0 self-attention (B=2, T=4096,
 H=8, D=40, bf16) the work is 4·B·H·T²·D ≈ 4.3e10 FLOP against 10.5 MB of
 q/k/v/o, so the tensor cores (989 TFLOP/s) bind, not memory (about 43 µs
 against 3 µs).  With D=40 the exponentials (B·H·T² = 2.7e8) are the other
-wall: the MUFU unit does far fewer of them per cycle than the tensor cores
-do MACs.  What the design does about it: Q Kᵀ and P V run on the tensor
-cores (mma.sync m16n8k16, bf16 in, fp32 accumulate) and the logits never
-leave registers; D pads only to the MMA depth (40 -> 48) inside shared
-memory instead of to the TPU's 128 lanes; the softmax runs in the log2
-domain, one exp2 per logit.  wgmma, TMA and a pipelined K/V ring are later
-work.
+wall, and the higher one: the multi-function unit does 16 exp2 per clock
+per SM, ~64 µs at the H100's top SM clock.  What the design does about it
+(see `csrc/flash_attn_fwd.cu`): a warp-specialised kernel, one producer warp
+issuing TMA loads of K/V tiles into a ring of mbarrier-guarded stages and
+two consumer warpgroups (128 query rows per CTA) running Q Kᵀ and P V as
+wgmma with P kept in registers; a tile's softmax runs while the previous
+tile's P V is in the tensor cores, and the two warpgroups take turns at the
+softmax, so the exponentials overlap the products.  q/k/v are read in place through 4-D
+tensor maps (D, H, T, B) whose 16-column boxes pad D only to 48 (zeros past
+D come from TMA's out-of-bounds fill).  `tma_geometry` is the map's
+geometry (dims, byte strides, box) with TMA's alignment rules, checked here
+before every launch.
 
 The backward (B3 + B4) does 7·B·H·Tq·Tk·D multiply-adds (3 products in B3,
 4 in B4) against 4 reads of (B, T, H, D) per kernel and 3 writes: at the
@@ -65,7 +70,34 @@ DQ_REPLACES = "reflecting_reality_tpu/ops/pallas/flash_attention.py:164"
 DKV_REPLACES = "reflecting_reality_tpu/ops/pallas/flash_attention.py:191"
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-_MAX_D = 160  # MAX_D in csrc/flash_attn_fwd.cu
+_MAX_D = 160  # MAX_D in csrc/flash_common.cuh
+TMA_SLAB = 16   # head-dim columns per TMA box (SLAB in csrc/flash_attn_fwd.cu)
+TMA_ROWS = 128  # query rows per CTA (CTA_BM); K/V boxes are 128 or 64 keys
+
+
+def tma_geometry(shape, strides, data_ptr: int, itemsize: int = 2,
+                 rows: int = TMA_ROWS) -> dict:
+    """The 4-D TMA tensor map of one (B, T, H, D) operand with element
+    `strides`: dims (D, H, T, B) innermost first, byte strides of H, T and B,
+    and a box of `TMA_SLAB` columns x `rows` tokens of one head.  Raises
+    ValueError on what TMA cannot take: (H, D) not packed, a base address or
+    a byte stride that is not a multiple of 16, a stride of 2^40 bytes or
+    more, a box wider than 256 rows."""
+    b, t, h, d = shape
+    sb, st, sh, sd = strides
+    if sd != 1 or sh != d:
+        raise ValueError(f"the tensor map needs packed (H, D) dims, got strides {tuple(strides)}")
+    if data_ptr % 16:
+        raise ValueError(f"TMA needs a 16-byte aligned base, got address {data_ptr:#x}")
+    byte_strides = (sh * itemsize, st * itemsize, sb * itemsize)
+    for name, s in zip(("head", "token", "batch"), byte_strides):
+        if s % 16 or not 0 < s < 2 ** 40:
+            raise ValueError(f"TMA needs {name} strides that are positive multiples of 16 "
+                             f"bytes below 2^40, got {s}")
+    if not 0 < rows <= 256:
+        raise ValueError(f"a TMA box takes 1 to 256 rows, got {rows}")
+    return {"dims": (d, h, t, b), "strides_bytes": byte_strides,
+            "box": (TMA_SLAB, 1, rows, 1)}
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -138,9 +170,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tenso
     for name, x in (("q", q), ("k", k), ("v", v)) + tuple(("dO", x) for x in more):
         if x.stride(3) != 1 or x.stride(2) != d:
             raise ValueError(f"{name} needs packed (H, D) dims, got strides {x.stride()}")
-        if q.dtype == torch.bfloat16 and (
-                x.stride(0) % 8 or x.stride(1) % 8 or x.data_ptr() % 16):
-            raise ValueError(f"{name} rows must be 16-byte aligned for the bf16 kernel")
+        if q.dtype == torch.bfloat16:
+            # the forward reads q/k/v through TMA; the backward's 16-byte
+            # copies need the same alignment
+            tma_geometry(tuple(x.shape), x.stride(), x.data_ptr(), x.element_size())
 
 
 def _check_rows(q: torch.Tensor, *rows: torch.Tensor) -> None:
@@ -171,14 +204,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
     tk = k.shape[1]
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
-    lib = _fwd_lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rr_flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _DTYPE_CODE[q.dtype], b, h, tq, tk, d, *_strides(q, k, v, out),
-            1.0 / math.sqrt(d), stream,
-        )
+    err = build.launch(
+        _fwd_lib().rr_flash_attn_fwd, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        _DTYPE_CODE[q.dtype], b, h, tq, tk, d, *_strides(q, k, v, out), 1.0 / math.sqrt(d))
     _raise_on(err, "flash_attn_fwd")
     _count(flash_attention_fwd, q)
     return out, lse
@@ -192,14 +221,11 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_rows(q, lse, delta)
     b, tq, h, d = q.shape
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
-    lib = _bwd_lib()
-    with torch.cuda.device(q.device):
-        err = lib.rr_flash_attn_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), _DTYPE_CODE[q.dtype], b, h, tq, k.shape[1], d,
-            *_strides(q, k, v, do, dq), 1.0 / math.sqrt(d),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    err = build.launch(
+        _bwd_lib().rr_flash_attn_bwd_dq, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), _DTYPE_CODE[q.dtype], b, h, tq, k.shape[1], d,
+        *_strides(q, k, v, do, dq), 1.0 / math.sqrt(d))
     _raise_on(err, "flash_attn_bwd_dq")
     _count(flash_attention_bwd_dq, q)
     return dq
@@ -214,14 +240,11 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, tq, h, d = q.shape
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
-    lib = _bwd_lib()
-    with torch.cuda.device(q.device):
-        err = lib.rr_flash_attn_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, h, tq,
-            k.shape[1], d, *_strides(q, k, v, do, dk, dv), 1.0 / math.sqrt(d),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    err = build.launch(
+        _bwd_lib().rr_flash_attn_bwd_dkv, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, h, tq,
+        k.shape[1], d, *_strides(q, k, v, do, dk, dv), 1.0 / math.sqrt(d))
     _raise_on(err, "flash_attn_bwd_dkv")
     _count(flash_attention_bwd_dkv, q)
     return dk, dv

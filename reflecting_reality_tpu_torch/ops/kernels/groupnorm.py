@@ -1,7 +1,10 @@
-"""GroupNorm(+SiLU) on Hopper in Triton: the port of TPU kernel B2.
+"""GroupNorm(+SiLU) on Hopper in CUDA C++: the port of TPU kernel B2.
 
 Replaces `reflecting_reality_tpu/ops/pallas/groupnorm.py::_gn_kernel`
-(launched by `group_norm_silu_pallas`, `pl.pallas_call` at :95).
+(launched by `group_norm_silu_pallas`, `pl.pallas_call` at :95).  The kernel
+is `csrc/groupnorm.cu`, built by nvcc into a shared library with a plain C
+interface and called through ctypes (a few microseconds of host time per
+launch, where the earlier Triton kernels' launcher took tens).
 
 What bounds it on the H100: bytes.  The work is about ten operations per
 element against two bytes read and two written (bf16), far below the ~295
@@ -10,32 +13,26 @@ time is one read of x and one write of y at 3.35 TB/s (the UNet's
 (2, 320, 64, 64) bf16 activation: 5.2 MB, about 1.6 µs; the VAE decoder's
 (1, 128, 512, 512): 67 MB, about 20 µs).
 
-What the design does about it.  The TPU kernel stages a whole sample in VMEM
-and runs one grid step per sample; on the card that would leave most of the
-132 SMs idle, since a (b, group) span of the contiguous NCHW input is up to
-~1M elements.  So the statistics are split:
-
-1. `_gn_stats_kernel`, grid (B·G, chunks): each program reads one chunk of a
-   group's span and keeps per-lane Welford (count, mean, M2) in fp32, merged
-   across lanes with Chan's rule, and writes one (mean, M2) partial.  The
-   TPU kernel's E[x²] − mean² would lose digits on million-element groups
-   and would not match `ops/norms.py`'s two-pass variance.
-2. `_gn_apply_kernel`, the same grid: each program merges its group's
-   partials (Chan's rule again), folds mean, rstd and the affine into one
-   per-channel multiply-add, applies it (+SiLU) in fp32 and stores in x's
-   dtype.
-
-x is read twice (the second read of a chunk often hits L2) and y written
-once.  A group of at most `_FUSED_MAX` elements (every UNet and BrushNet
-norm at 512², whose (b, group) spans are at most 40960 elements, and the
-VAE's up to 64²) instead takes `_gn_fused_kernel`, grid (B·G,): one program
-does both passes over its group, so one launch replaces two; at those sizes
-the launch, not the bytes, is the cost.  Fusing into the following conv is
-later work.
+What the design does about it (see the source note): a (b, group) span of
+the contiguous NCHW input is N = (C / G) · H · W elements.
+- Single-pass regime, N ≤ `CLUSTER_MAX` · `SLICE_MAX` = 131072: every UNet
+  and BrushNet norm at 512² (the largest, the up-blocks' 960- and
+  640-channel resnet inputs at 64², are 122880 and 81920 elements).  The
+  span is cut into at most 8 slices, one CTA each, forming one thread-block
+  cluster; each CTA reads its slice once into shared memory, forms a
+  (count, mean, M2) partial, the partials are merged by Chan's rule in rank
+  order through distributed shared memory, and each CTA writes its slice of
+  y.  One launch, x read once.
+- Split regime, longer spans (most of the VAE's groups at 128² and up): slices of
+  `SLICE_MAX` elements as independent CTAs, a statistics launch writing the
+  partials and an apply launch merging them (Chan's rule, slice order) and
+  writing y; x read twice.
+`launch_plan` picks the regime, the cluster size and the slice bounds from
+the shape alone; the C entry point takes its numbers.
 
 `group_norm_silu_fwd` is the wrapper: it checks device, dtype, shape and
 contiguity, raises on anything the kernel does not take, launches, and
-counts calls that launch (one per fused kernel or stats+apply pair) in
+counts calls that launch (one per norm, whatever the regime) in
 `group_norm_silu_fwd.launches` and, per (shape, dtype, SiLU), in
 `group_norm_silu_fwd.launches_by_shape`.
 
@@ -43,7 +40,7 @@ counts calls that launch (one per fused kernel or stats+apply pair) in
 and a backward in plain fp32 PyTorch (`group_norm_bwd_plain`, the closed
 form, group statistics recomputed from the saved input).  The JAX package
 has no GroupNorm backward kernel (its Pallas GN has no VJP and training
-takes the jnp norm), so there is none to port; a Triton backward is
+takes the jnp norm), so there is none to port; a backward kernel is
 performance work.
 `group_norm_silu` routes by device and grad mode: CPU tensors go to
 `group_norm_plain` (torch autograd differentiates it), CUDA tensors to
@@ -52,18 +49,25 @@ performance work.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
 from collections import Counter
+from typing import NamedTuple, Tuple
 
 import torch
 
-SOURCE = "reflecting_reality_tpu_torch/ops/kernels/groupnorm.py"
+from reflecting_reality_tpu_torch.ops.kernels import build
+
+SOURCE = "reflecting_reality_tpu_torch/ops/kernels/csrc/groupnorm.cu"
 REPLACES = "reflecting_reality_tpu/ops/pallas/groupnorm.py:33"
 
-_DTYPES = (torch.float32, torch.bfloat16)
-_BLOCK = 1024
-_CHUNK = 8192
-_FUSED_MAX = 65536
-_KERNELS = {}
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+SLICE_MAX = 16384      # elements one CTA stages in shared memory (SLICE_MAX in the source)
+CLUSTER_MAX = 8        # the portable thread-block cluster size
+SLICE_TARGET = 2048    # elements per CTA the single-pass regime aims for
+_VEC = 8               # elements per 16-byte load in bf16 (4 in fp32): slice alignment
+_MAX_GROUP_CHANNELS = 8192  # the kernel's per-channel table (SMEM_ATTR in the source)
 
 
 def group_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -82,166 +86,97 @@ def group_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return out.to(x.dtype)
 
 
-def _kernels():
-    """The Triton kernels, defined on first use (this module must import where
-    Triton is absent)."""
-    if _KERNELS:
-        return _KERNELS
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def _gn_stats_kernel(x_ptr, mean_ptr, m2_ptr, N, n_chunks,
-                         CHUNK: tl.constexpr, BLOCK: tl.constexpr):
-        pid_g = tl.program_id(0)
-        pid_c = tl.program_id(1)
-        base = pid_g.to(tl.int64) * N
-        start = pid_c * CHUNK
-        cnt = tl.zeros([BLOCK], dtype=tl.float32)
-        mean = tl.zeros([BLOCK], dtype=tl.float32)
-        m2 = tl.zeros([BLOCK], dtype=tl.float32)
-        for off in range(0, CHUNK, BLOCK):
-            idx = start + off + tl.arange(0, BLOCK)
-            mask = idx < N
-            x = tl.load(x_ptr + base + idx, mask=mask, other=0.0).to(tl.float32)
-            cnt_new = cnt + mask.to(tl.float32)
-            delta = x - mean
-            mean = mean + tl.where(mask, delta / tl.maximum(cnt_new, 1.0), 0.0)
-            m2 = m2 + tl.where(mask, delta * (x - mean), 0.0)
-            cnt = cnt_new
-        n = tl.sum(cnt, axis=0)
-        mean_c = tl.sum(cnt * mean, axis=0) / n
-        dm = mean - mean_c
-        m2_c = tl.sum(m2, axis=0) + tl.sum(cnt * dm * dm, axis=0)
-        out = pid_g * n_chunks + pid_c
-        tl.store(mean_ptr + out, mean_c)
-        tl.store(m2_ptr + out, m2_c)
-
-    @triton.jit
-    def _gn_apply_kernel(x_ptr, y_ptr, w_ptr, b_ptr, mean_ptr, m2_ptr,
-                         N, HW, CG, G, n_chunks, eps,
-                         CHUNK: tl.constexpr, BLOCK: tl.constexpr,
-                         NC_POW2: tl.constexpr, APPLY_SILU: tl.constexpr):
-        pid_g = tl.program_id(0)
-        pid_c = tl.program_id(1)
-        g = pid_g % G
-        ci = tl.arange(0, NC_POW2)
-        cm = ci < n_chunks
-        pm = tl.load(mean_ptr + pid_g * n_chunks + ci, mask=cm, other=0.0)
-        pm2 = tl.load(m2_ptr + pid_g * n_chunks + ci, mask=cm, other=0.0)
-        pn = tl.where(cm, tl.minimum(N - ci * CHUNK, CHUNK).to(tl.float32), 0.0)
-        n = tl.sum(pn, axis=0)
-        mean = tl.sum(pn * pm, axis=0) / n
-        dm = pm - mean
-        var = (tl.sum(pm2, axis=0) + tl.sum(pn * dm * dm, axis=0)) / n
-        rstd = 1.0 / tl.sqrt(var + eps)
-        base = pid_g.to(tl.int64) * N
-        start = pid_c * CHUNK
-        for off in range(0, CHUNK, BLOCK):
-            idx = start + off + tl.arange(0, BLOCK)
-            mask = idx < N
-            c = g * CG + idx // HW
-            w = tl.load(w_ptr + c, mask=mask, other=0.0).to(tl.float32)
-            b = tl.load(b_ptr + c, mask=mask, other=0.0).to(tl.float32)
-            mul = rstd * w
-            add = b - mean * mul
-            x = tl.load(x_ptr + base + idx, mask=mask, other=0.0).to(tl.float32)
-            y = x * mul + add
-            if APPLY_SILU:
-                y = y * tl.sigmoid(y)
-            tl.store(y_ptr + base + idx, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    @triton.jit
-    def _gn_fused_kernel(x_ptr, y_ptr, w_ptr, b_ptr, N, HW, CG, G, eps,
-                         BLOCK: tl.constexpr, APPLY_SILU: tl.constexpr):
-        pid_g = tl.program_id(0)
-        g = pid_g % G
-        base = pid_g.to(tl.int64) * N
-        cnt = tl.zeros([BLOCK], dtype=tl.float32)
-        mean = tl.zeros([BLOCK], dtype=tl.float32)
-        m2 = tl.zeros([BLOCK], dtype=tl.float32)
-        for off in range(0, N, BLOCK):
-            idx = off + tl.arange(0, BLOCK)
-            mask = idx < N
-            x = tl.load(x_ptr + base + idx, mask=mask, other=0.0).to(tl.float32)
-            cnt_new = cnt + mask.to(tl.float32)
-            delta = x - mean
-            mean = mean + tl.where(mask, delta / tl.maximum(cnt_new, 1.0), 0.0)
-            m2 = m2 + tl.where(mask, delta * (x - mean), 0.0)
-            cnt = cnt_new
-        n = tl.sum(cnt, axis=0)
-        mean_g = tl.sum(cnt * mean, axis=0) / n
-        dm = mean - mean_g
-        var = (tl.sum(m2, axis=0) + tl.sum(cnt * dm * dm, axis=0)) / n
-        rstd = 1.0 / tl.sqrt(var + eps)
-        for off in range(0, N, BLOCK):
-            idx = off + tl.arange(0, BLOCK)
-            mask = idx < N
-            c = g * CG + idx // HW
-            w = tl.load(w_ptr + c, mask=mask, other=0.0).to(tl.float32)
-            b = tl.load(b_ptr + c, mask=mask, other=0.0).to(tl.float32)
-            mul = rstd * w
-            add = b - mean_g * mul
-            x = tl.load(x_ptr + base + idx, mask=mask, other=0.0).to(tl.float32)
-            y = x * mul + add
-            if APPLY_SILU:
-                y = y * tl.sigmoid(y)
-            tl.store(y_ptr + base + idx, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    _KERNELS.update(stats=_gn_stats_kernel, apply=_gn_apply_kernel, fused=_gn_fused_kernel)
-    return _KERNELS
+class LaunchPlan(NamedTuple):
+    """How B2 covers each (b, group) span of `span` elements: `regime`
+    "cluster" (one launch, the `slices` CTAs of a span form one cluster) or
+    "split" (statistics + apply launches); `slice_len` elements per CTA,
+    `bounds` the [start, end) of each slice within the span; `vec` whether
+    the kernel takes 16-byte loads (span and spatial size multiples of 8)."""
+    regime: str
+    slices: int
+    slice_len: int
+    bounds: Tuple[Tuple[int, int], ...]
+    vec: bool
+    span: int
+    hw: int
 
 
-def _next_pow2(n: int) -> int:
-    return 1 << max(0, (n - 1).bit_length())
+def launch_plan(shape, num_groups: int) -> LaunchPlan:
+    """The regime, cluster size and slice bounds of B2 for a (B, C, *spatial)
+    input; pure (no device), the C entry point takes its numbers."""
+    c = shape[1]
+    hw = math.prod(shape[2:])
+    n = (c // num_groups) * hw
+    if n <= CLUSTER_MAX * SLICE_MAX:
+        regime = "cluster"
+        want = min(CLUSTER_MAX, max(2, -(-n // SLICE_TARGET)), -(-n // _VEC))
+        slice_len = -(-(-(-n // want)) // _VEC) * _VEC
+    else:
+        regime = "split"
+        slice_len = SLICE_MAX
+    slices = -(-n // slice_len)          # no empty slice
+    bounds = tuple((r * slice_len, min(n, (r + 1) * slice_len)) for r in range(slices))
+    return LaunchPlan(regime, slices, slice_len, bounds, n % _VEC == 0 and hw % _VEC == 0, n, hw)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("groupnorm")
+    if not getattr(lib, "_rr_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rr_group_norm_fwd.argtypes = [p] * 5 + [i] * 12 + [ctypes.c_float, p]
+        lib.rr_group_norm_fwd.restype = i
+        lib._rr_typed = True
+    return lib
 
 
 def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int) -> None:
     if not x.is_cuda:
         raise ValueError("group_norm_silu_fwd takes CUDA tensors")
-    if x.dtype not in _DTYPES:
+    if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"group_norm_silu_fwd takes fp32/bf16, got {x.dtype}")
     if x.dim() < 3:
         raise ValueError(f"expected (B, C, *spatial), got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError("group_norm_silu_fwd takes a contiguous (NCHW) tensor")
     c = x.shape[1]
-    if c % num_groups:
-        raise ValueError(f"{c} channels do not split into {num_groups} groups")
+    if c % num_groups or c // num_groups > _MAX_GROUP_CHANNELS:
+        raise ValueError(f"{c} channels do not split into {num_groups} groups of at most "
+                         f"{_MAX_GROUP_CHANNELS}")
     for name, p in (("weight", weight), ("bias", bias)):
         if p.shape != (c,) or not p.is_contiguous() or p.device != x.device:
             raise ValueError(f"{name} must be a contiguous ({c},) tensor on {x.device}")
+        if p.dtype not in _DTYPE_CODE:
+            raise TypeError(f"group_norm_silu_fwd takes fp32/bf16 {name}, got {p.dtype}")
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_args(shape, num_groups: int):
+    """The plan of a shape and the integers the C entry point takes from it."""
+    plan = launch_plan(shape, num_groups)
+    return plan, (shape[0] * num_groups, num_groups, plan.span, plan.hw,
+                  0 if plan.regime == "cluster" else 1, plan.slices, plan.slice_len)
 
 
 def group_norm_silu_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                         num_groups: int, eps: float, apply_silu: bool = False) -> torch.Tensor:
     """Kernel B2 on a contiguous (B, C, *spatial) CUDA tensor."""
     _check(x, weight, bias, num_groups)
-    k = _kernels()
-    b, c = x.shape[:2]
-    hw = x[0, 0].numel()
-    cg = c // num_groups
-    n = cg * hw
-    bg = b * num_groups
+    shape = tuple(x.shape)
+    plan, args = _launch_args(shape, num_groups)
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        if n <= _FUSED_MAX:
-            k["fused"][(bg,)](x, y, weight, bias, n, hw, cg, num_groups, float(eps),
-                              BLOCK=_BLOCK, APPLY_SILU=bool(apply_silu), num_warps=8)
-        else:
-            n_chunks = -(-n // _CHUNK)
-            mean = torch.empty(bg * n_chunks, dtype=torch.float32, device=x.device)
-            m2 = torch.empty_like(mean)
-            grid = (bg, n_chunks)
-            k["stats"][grid](x, mean, m2, n, n_chunks, CHUNK=_CHUNK, BLOCK=_BLOCK,
-                             num_warps=4)
-            k["apply"][grid](x, y, weight, bias, mean, m2, n, hw, cg, num_groups, n_chunks,
-                             float(eps), CHUNK=_CHUNK, BLOCK=_BLOCK,
-                             NC_POW2=_next_pow2(n_chunks), APPLY_SILU=bool(apply_silu),
-                             num_warps=4)
+    partials = (torch.empty((args[0], plan.slices, 2), dtype=torch.float32, device=x.device)
+                if plan.regime == "split" else None)
+    lib = _lib()
+    ptr = x.data_ptr()
+    launch = (ptr, y.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+              partials.data_ptr() if partials is not None else None,
+              _DTYPE_CODE[x.dtype], _DTYPE_CODE[weight.dtype], _DTYPE_CODE[bias.dtype], *args,
+              int(plan.vec and ptr % 16 == 0), int(bool(apply_silu)), float(eps))
+    err = build.launch(lib.rr_group_norm_fwd, x.device, *launch)
+    if err != 0:
+        raise RuntimeError(f"groupnorm launch failed: cudaError {err}")
     group_norm_silu_fwd.launches += 1
-    group_norm_silu_fwd.launches_by_shape[(tuple(x.shape), str(x.dtype)[6:],
-                                           bool(apply_silu))] += 1
+    group_norm_silu_fwd.launches_by_shape[(shape, str(x.dtype)[6:], bool(apply_silu))] += 1
     return y
 
 

@@ -4,7 +4,8 @@
 Routing is by the tensor's device, never by a process global: CPU tensors
 take the plain PyTorch version (fp32 statistics, two-pass variance, output in
 x.dtype — the JAX numerics), which torch autograd differentiates; CUDA
-tensors take the Triton kernel (`ops/kernels/groupnorm.py`, kernel B2),
+tensors take the CUDA kernel (`ops/kernels/csrc/groupnorm.cu` through
+`ops/kernels/groupnorm.py`, kernel B2),
 through its autograd Function (plain closed-form backward) when a gradient
 is needed.  On the card every GroupNorm of the UNet, BrushNet, VAE and
 Transformer2D goes through that kernel.

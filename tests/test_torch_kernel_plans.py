@@ -1,0 +1,203 @@
+"""The CPU-side geometry of the port's Hopper kernels: the GroupNorm (B2)
+launch plan and its statistics merge, and the flash-forward (B1) TMA tensor
+map.  The kernels run only on the card; what surrounds them is pure Python
+and is held here.
+
+- `launch_plan` must cover every (b, group) span exactly once with slices of
+  at most `SLICE_MAX` elements that start on 16-byte boundaries, and must put
+  every GroupNorm of the main path (the full-width SD-1.5 UNet at CFG batch 2
+  and BrushNet at half batch, 512², shapes recorded by chip_smoke.py from a
+  forward of the port's own modules on the meta device) in the single-pass
+  cluster regime with 1-8 CTAs per cluster.  The VAE's long spans take the
+  split regime.
+- A numpy emulation of the kernel's statistics (per-slice two-pass mean and
+  M2 in fp32, merged by Chan's rule in the kernel's order: rank order in a
+  cluster, a warp's lanes and then a shuffle tree in the split regime; the
+  affine folded into a per-channel multiply-add) matches `group_norm_plain` and the JAX
+  `ops/norms.py` path on the same inputs to 1e-6 of the output's largest
+  magnitude (fp32 rounding through a different summation order).
+- `tma_geometry` accepts the q/k/v column slices of a fused qkv projection
+  and rejects a stride or a base address TMA cannot take.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from reflecting_reality_tpu.ops.norms import group_norm as j_group_norm
+from reflecting_reality_tpu_torch.ops.kernels import groupnorm as gn
+from reflecting_reality_tpu_torch.ops.kernels.flash_attention import tma_geometry
+from tests.test_torch_kernels_cuda import MAIN_PATH_GN_SHAPES
+
+@functools.lru_cache(maxsize=None)
+def main_path_norms():
+    """chip_smoke.py's record of the main path's GroupNorms: Counters of
+    (shape, SiLU) for one denoise step and for the VAE at 512²."""
+    import chip_smoke
+
+    return chip_smoke.main_path_groupnorms(torch)
+
+
+def assert_covers(plan):
+    starts = [s for s, _ in plan.bounds]
+    assert plan.bounds[0][0] == 0 and plan.bounds[-1][1] == plan.span
+    assert all(a[1] == b[0] for a, b in zip(plan.bounds, plan.bounds[1:]))  # no gap, no overlap
+    assert all(0 < e - s <= min(plan.slice_len, gn.SLICE_MAX) for s, e in plan.bounds)
+    assert all(s % 8 == 0 for s in starts)
+    assert len(plan.bounds) == plan.slices
+
+
+def test_launch_plan_puts_every_main_path_norm_in_one_cluster():
+    step = main_path_norms()[0]
+    assert sum(step.values()) == 105          # the launches chip_smoke counts per step
+    # the card tests cover exactly these shapes
+    assert {shape for shape, _ in step} == set(MAIN_PATH_GN_SHAPES)
+    spans = set()
+    for shape, _ in step:
+        plan = gn.launch_plan(shape, 32)
+        assert_covers(plan)
+        assert plan.regime == "cluster" and 1 <= plan.slices <= gn.CLUSTER_MAX, (shape, plan)
+        assert plan.vec
+        spans.add(plan.span)
+    # the up-blocks' 960- and 640-channel resnet inputs at 64x64
+    assert max(spans) == 122880 and 81920 in spans
+
+
+def test_launch_plan_splits_the_vae_long_spans():
+    vae = main_path_norms()[1]
+    regimes = {}
+    for shape, _ in vae:
+        plan = gn.launch_plan(shape, 32)
+        assert_covers(plan)
+        regimes[shape] = plan.regime
+        assert plan.regime == ("cluster" if plan.span <= gn.CLUSTER_MAX * gn.SLICE_MAX
+                               else "split")
+    assert regimes[(1, 512, 64, 64)] == "cluster"
+    assert regimes[(1, 128, 512, 512)] == "split"
+
+
+@pytest.mark.parametrize("shape", [(1, 96, 5, 7), (3, 64, 1, 1), (1, 32, 1, 1), (2, 64, 3, 3),
+                                   (4, 128, 512, 512), (1, 2560, 8, 8), (1, 32, 3, 4, 5)])
+def test_launch_plan_covers_odd_shapes(shape):
+    plan = gn.launch_plan(shape, 32)
+    assert_covers(plan)
+    assert plan.vec == (plan.span % 8 == 0 and plan.hw % 8 == 0)
+
+
+def chan(a, b):
+    """Chan's rule on fp32 (n, mean, M2) partials, as the kernel folds b into a."""
+    n, mean, m2 = a
+    nb, mb, m2b = b
+    if nb == 0:
+        return a
+    nn = n + nb
+    d = mb - mean
+    return (nn, np.float32(mean + d * (nb / nn)), np.float32(m2 + m2b + d * d * (n * nb / nn)))
+
+
+def merge_like_kernel(parts, regime):
+    """The kernel's merge order: rank order in a cluster; in the split regime
+    lane l of one warp folds slices l, l + 32, ... and a shuffle-down tree
+    folds the lanes into lane 0."""
+    zero = (np.float32(0), np.float32(0), np.float32(0))
+    if regime == "cluster":
+        acc = zero
+        for p in parts:
+            acc = chan(acc, p)
+        return acc
+    lanes = [zero] * 32
+    for k, p in enumerate(parts):
+        lanes[k % 32] = chan(lanes[k % 32], p)
+    off = 16
+    while off:
+        lanes = [chan(lanes[i], lanes[i + off]) if i + off < 32 else lanes[i] for i in range(32)]
+        off //= 2
+    return lanes[0]
+
+
+def emulate_kernel(x, weight, bias, groups, eps, apply_silu):
+    """numpy fp32 emulation of B2: per-slice two-pass (mean, M2), merged by
+    Chan's rule in the kernel's order, the per-channel multiply-add."""
+    b, c = x.shape[:2]
+    plan = gn.launch_plan(x.shape, groups)
+    xs = x.reshape(b, groups, -1).astype(np.float32)
+    out = np.empty_like(xs)
+    cg = c // groups
+    one = np.float32(1)
+    for i in range(b):
+        for g in range(groups):
+            span = xs[i, g]
+            parts = []
+            for s, e in plan.bounds:
+                sl = span[s:e]
+                nb = np.float32(e - s)
+                mb = np.float32(sl.sum(dtype=np.float32) / nb)
+                parts.append((nb, mb, np.float32(np.square(sl - mb).sum(dtype=np.float32))))
+            n, mean, m2 = merge_like_kernel(parts, plan.regime)
+            rstd = one / np.sqrt(np.float32(m2 / n + np.float32(eps)))
+            mul = (rstd * weight[g * cg:(g + 1) * cg]).astype(np.float32)
+            add = (bias[g * cg:(g + 1) * cg] - mean * mul).astype(np.float32)
+            y = span.reshape(cg, -1) * mul[:, None] + add[:, None]
+            if apply_silu:
+                y = y / (one + np.exp(-y))
+            out[i, g] = y.reshape(-1)
+    return out.reshape(x.shape)
+
+
+@pytest.mark.parametrize("shape,silu", [((1, 960, 64, 64), True), ((2, 320, 64, 64), False),
+                                        ((1, 2560, 8, 8), True), ((1, 96, 5, 7), False),
+                                        ((1, 128, 256, 256), True)])
+def test_kernel_statistics_emulation_matches_plain_and_jax(shape, silu):
+    rng = np.random.RandomState(0)
+    x = (rng.randn(*shape) * 3.0 + 1.5).astype(np.float32)
+    c = shape[1]
+    w = (1.0 + 0.1 * rng.randn(c)).astype(np.float32)
+    b = (0.1 * rng.randn(c)).astype(np.float32)
+    got = emulate_kernel(x, w, b, 32, 1e-5, silu)
+    plain = gn.group_norm_plain(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+                                32, 1e-5, silu).numpy()
+    ref = np.asarray(j_group_norm(jnp.asarray(np.moveaxis(x, 1, -1)), jnp.asarray(w),
+                                  jnp.asarray(b), 32, 1e-5, apply_silu=silu))
+    ref = np.moveaxis(ref, -1, 1)
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got, plain, rtol=0, atol=1e-6 * scale)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * scale)
+
+
+def fused_qkv(b=2, t=4096, h=8, d=40):
+    qkv = torch.zeros(b, t, 3 * h * d, dtype=torch.bfloat16)
+    return [x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1)]
+
+
+def test_tma_geometry_accepts_fused_qkv_slices():
+    for x in fused_qkv():
+        geo = tma_geometry(tuple(x.shape), x.stride(), x.data_ptr(), x.element_size())
+        assert geo["dims"] == (40, 8, 4096, 2)
+        # 80 B per head, 1920 B per token (3 * 8 * 40 bf16), a sample per batch
+        assert geo["strides_bytes"] == (80, 1920, 4096 * 1920)
+        assert geo["box"] == (16, 1, 128, 1)
+    for d in (64, 80, 160):
+        q = fused_qkv(b=1, t=64, h=2, d=d)[2]
+        assert tma_geometry(tuple(q.shape), q.stride(), q.data_ptr(), 2, rows=64)["dims"][0] == d
+
+
+@pytest.mark.parametrize("case", ["token_stride", "base", "head_dim", "unpacked", "rows"])
+def test_tma_geometry_rejects_what_tma_cannot_take(case):
+    q = fused_qkv()[0]
+    shape, stride, ptr = tuple(q.shape), list(q.stride()), q.data_ptr()
+    rows = 128
+    if case == "token_stride":     # 964 bf16 = 1928 B per token: not a multiple of 16
+        stride[1] = 964
+    elif case == "base":           # one element past an aligned base
+        ptr += 2
+    elif case == "head_dim":       # D = 36: 72 B per head
+        shape, stride = (2, 4096, 8, 36), [4096 * 288, 288, 36, 1]
+    elif case == "unpacked":
+        stride[2] = 48
+    else:
+        rows = 512
+    with pytest.raises(ValueError):
+        tma_geometry(shape, tuple(stride), ptr, 2, rows=rows)

@@ -13,7 +13,9 @@ and, since a wrong P V fragment or 1/l moves the whole output rather than
 one element by an ulp, the relative L2 error is held under 1e-2 (1e-4 in
 fp32).  GroupNorm: fp32 at 1e-5 of the output scale; bf16 rounds the same
 fp32 value on both sides, so a last-bit difference in the statistics flips
-at most a rounding boundary: 2 bf16 ulps (2^-6 relative).
+at most a rounding boundary: 2 bf16 ulps (2^-6 relative).  GroupNorm is
+checked at every shape of a denoise step (the single-pass cluster regime),
+in the split regime and on ragged spans.
 
 The flash backward kernels (B3 dQ, B4 dK/dV) are held to
 `flash_attention_bwd_plain` on the same q/k/v/dO and the kernel's own out
@@ -266,6 +268,46 @@ def test_groupnorm_matches_plain(cuda, shape, dtype, silu):
     scale = max(1.0, ref.float().abs().max().item())
     tol = 1e-5 * scale if dtype == torch.float32 else 2 * 2.0 ** -7 * scale
     torch.testing.assert_close(y.float(), ref.float(), rtol=0, atol=tol)
+
+
+# every GroupNorm shape of a denoise step at 512² (BrushNet at batch 1, UNet at
+# CFG batch 2; tests/test_torch_kernel_plans.py records them from the modules)
+MAIN_PATH_GN_SHAPES = [
+    (b, c, s, s) for b in (1, 2) for c, s in (
+        (320, 32), (320, 64), (640, 16), (640, 32), (640, 64), (960, 32), (960, 64),
+        (1280, 8), (1280, 16), (1280, 32), (1920, 16), (1920, 32), (2560, 8), (2560, 16))]
+
+
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("shape", MAIN_PATH_GN_SHAPES + [(1, 128, 256, 256), (1, 96, 5, 7),
+                                                         (1, 64, 3, 3)])
+def test_groupnorm_matches_plain_at_main_path_shapes(cuda, shape, silu):
+    """bf16 at every main-path shape (single-pass cluster regime), a VAE shape
+    (split regime) and ragged spans (scalar loads); run twice, bit-identical
+    (the cluster merges its partials in a fixed rank order)."""
+    g = torch.Generator(cuda).manual_seed(3)
+    x = torch.randn(shape, generator=g, device=cuda, dtype=torch.bfloat16) * 3.0 + 1.5
+    c = shape[1]
+    w = (1.0 + 0.1 * torch.randn(c, generator=g, device=cuda)).to(torch.bfloat16)
+    b = (0.1 * torch.randn(c, generator=g, device=cuda)).to(torch.bfloat16)
+    plan = gn.launch_plan(shape, 32)
+    assert plan.regime == ("split" if shape == (1, 128, 256, 256) else "cluster")
+    y = gn.group_norm_silu_fwd(x, w, b, 32, 1e-5, silu)
+    assert torch.equal(y, gn.group_norm_silu_fwd(x, w, b, 32, 1e-5, silu))
+    ref = gn.group_norm_plain(x, w, b, 32, 1e-5, silu)
+    scale = max(1.0, ref.float().abs().max().item())
+    torch.testing.assert_close(y.float(), ref.float(), rtol=0, atol=2 * 2.0 ** -7 * scale)
+
+
+def test_groupnorm_takes_fp32_weights_with_bf16_input(cuda):
+    """Under autocast the input is bf16 and the affine parameters fp32."""
+    x = torch.randn(2, 320, 64, 64, device=cuda, dtype=torch.bfloat16)
+    w = torch.rand(320, device=cuda) + 0.5
+    b = torch.randn(320, device=cuda)
+    y = gn.group_norm_silu_fwd(x, w, b, 32, 1e-6, True)
+    ref = gn.group_norm_plain(x, w, b, 32, 1e-6, True)
+    scale = max(1.0, ref.float().abs().max().item())
+    torch.testing.assert_close(y.float(), ref.float(), rtol=0, atol=2 * 2.0 ** -7 * scale)
 
 
 def test_groupnorm_wrapper_raises_on_non_contiguous(cuda):
