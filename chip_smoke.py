@@ -9,11 +9,15 @@ Phases, each printing one JSON line:
   2. build   nvcc builds the three CUDA kernel libraries (flash forward;
              flash backward; GroupNorm) from
              reflecting_reality_tpu_torch/ops/kernels/csrc, one nvcc each, all
-             started together; seconds for each, ptxas's register/spill lines,
-             and the count of wgmma (HGMMA), TMA-load (UTMALDG) and
-             cluster-barrier (UCGABAR) instructions in each library's SASS
-             (`cuobjdump -sass`): the flash forward must hold HGMMA and
-             UTMALDG, the GroupNorm library cluster barriers.
+             started together; seconds for each, ptxas's registers and spills
+             of every kernel instance, and the count of wgmma (HGMMA),
+             TMA-load (UTMALDG) and cluster-barrier (UCGABAR) instructions in
+             each library's SASS (`cuobjdump -sass`): both flash libraries
+             must hold HGMMA and UTMALDG, the GroupNorm library cluster
+             barriers; no wgmma instance of the flash backward may spill,
+             ptxas may give neither flash library a performance warning
+             (C75xx: wgmmas serialised, setmaxnreg ignored), and the
+             backward library's tiling must be `bwd_plan`'s.
   3. kernels every kernel against its plain PyTorch version on the card, at
              the shapes the main path and the training step give it (every
              GroupNorm shape of a denoise step, recorded from the full-width
@@ -27,7 +31,8 @@ Phases, each printing one JSON line:
              bound and, for flash, the exponential bound (one exp2 per logit
              at 16 per clock per SM, at nvidia-smi's clocks.max.sm).  The
              flash backward kernels (B3 dQ, B4 dK/dV) are held to
-             `flash_attention_bwd_plain` on B1's own out and lse; their
+             `flash_attention_bwd_plain` on B1's own out and lse, and two
+             launches of each on the same inputs must be bit-identical; their
              library time is SDPA's backward.
   4. slice   full-width SD-1.5 UNet + BrushNet(conditioning_channels=6), one
              denoise step's forward at 64x64 latents, batch 2, fp32 with TF32
@@ -73,6 +78,7 @@ import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -158,7 +164,33 @@ def bf16_ulp(x: float) -> float:
 # ---------------------------------------------------------------- phase 2
 
 SASS_COUNTS = ("HGMMA", "UTMALDG", "UCGABAR")   # wgmma, TMA tensor load, cluster barrier
-SASS_WANT = {"flash_attn_fwd": ("HGMMA", "UTMALDG"), "groupnorm": ("UCGABAR",)}
+SASS_WANT = {"flash_attn_fwd": ("HGMMA", "UTMALDG"), "flash_attn_bwd": ("HGMMA", "UTMALDG"),
+             "groupnorm": ("UCGABAR",)}
+NO_SPILLS = {"flash_attn_bwd": "wgmma"}    # library: the instances that may not spill
+NO_C75 = ("flash_attn_fwd", "flash_attn_bwd")  # libraries ptxas may not warn about
+
+
+def ptxas_kernels(log: str) -> dict:
+    """{kernel instance: {"registers", "spill_stores", "spill_loads"}} from
+    nvcc's `-Xptxas -v` report; instances are named `function<template arg>`
+    from the mangled name."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+        if m:
+            # the kernel's identifier runs to the first upper-case letter of
+            # the mangling (an earlier match is the file's anonymous namespace)
+            fns = re.findall(r"(flash_(?:fwd|bwd)_[a-z0-9_]+|gn_[a-z0-9_]+)(?:ILi(\d+)E)?",
+                             m.group(1))
+            name = (f"{fns[-1][0]}<{fns[-1][1]}>" if fns and fns[-1][1] else
+                    fns[-1][0] if fns else m.group(1)[:60])
+            out.setdefault(name, {})
+        elif name and "spill stores" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+            out[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return out
 
 
 def cuobjdump() -> str:
@@ -194,21 +226,41 @@ def phase_build(torch):
     with ThreadPoolExecutor(len(names)) as pool:
         t_nvcc = {n: f.result() for n, f in
                   {n: pool.submit(nvcc_build, n) for n in names}.items()}
-    ptxas, sass = {}, {}
+    from reflecting_reality_tpu_torch.ops.kernels import flash_attention as fa
+
+    ptxas, warnings, sass = {}, {}, {}
     tool = cuobjdump()
     for n in names:
         lib = build.library_path(n)
         log = lib.with_suffix(".log")
-        ptxas[n] = [ln.strip() for ln in (log.read_text().splitlines() if log.exists() else [])
-                    if "registers" in ln or "spill" in ln or "C75" in ln]
+        text = log.read_text() if log.exists() else ""
+        ptxas[n] = ptxas_kernels(text)
+        warnings[n] = [ln.strip() for ln in text.splitlines() if "C75" in ln]
         text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                               timeout=300, check=True).stdout
         sass[n] = {op: sum(ln.count(op) for ln in text.splitlines()) for op in SASS_COUNTS}
+    # the backward library's tiling against its Python mirror, per head dim
+    plans = {d: {k: (p.tile, p.stages, p.smem) for k, p in fa.bwd_plan(d).items()}
+             for d in (40, 64, 80, 160)}
+    lib_plans = {d: fa.library_bwd_plan(d) for d in plans}
     emit({"phase": "build", "nvcc_s": {n: round(t, 2) for n, t in t_nvcc.items()},
-          "built_now": built_now, "sass_counts": sass, "ptxas": ptxas})
+          "built_now": built_now, "sass_counts": sass, "ptxas": ptxas,
+          "ptxas_warnings": warnings,
+          "bwd_plan": {d: {k: list(v) for k, v in p.items()} for d, p in lib_plans.items()}})
     missing = {n: op for n, ops in SASS_WANT.items() for op in ops if sass[n][op] == 0}
     if missing:
         raise AssertionError(f"the SASS lacks the instructions of its design: {missing}")
+    checked = {f"{n} {k}": v for n, sub in NO_SPILLS.items() for k, v in ptxas[n].items()
+               if sub in k}
+    spills = {k: v for k, v in checked.items() if v.get("spill_stores") or v.get("spill_loads")}
+    if spills or len(checked) != 8:
+        raise AssertionError(f"flash-backward wgmma instances ({len(checked)} of 8 reported) "
+                             f"spill: {spills}")
+    warned = {n: warnings[n] for n in NO_C75 if warnings[n]}
+    if warned:
+        raise AssertionError(f"ptxas performance warnings: {warned}")
+    if lib_plans != plans:
+        raise AssertionError(f"the library's B3/B4 tiling {lib_plans} is not bwd_plan's {plans}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -291,7 +343,14 @@ def bench_flash_bwd(torch, shape, dtype):
     got = {"dq": fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)}
     got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
     ref = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_plain(q, k, v, out, lse, do)))
+    # each output element is summed by one CTA in a fixed order: a second
+    # launch on the same inputs gives the same bits
+    again = {"dq": fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)}
+    again["dk"], again["dv"] = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
     torch.cuda.synchronize()
+    same = {n: torch.equal(got[n], again[n]) for n in got}
+    if not all(same.values()):
+        raise AssertionError(f"flash backward at {shape} {dtype}: not bit-identical {same}")
     bf16 = dtype == torch.bfloat16
 
     # as the forward: 4 bf16 ulps at the gradient's max (the kernels round p
@@ -324,7 +383,8 @@ def bench_flash_bwd(torch, shape, dtype):
              lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))):
         e = {"name": f"flash_attn_bwd_{kind[10:]} {'x'.join(map(str, shape))} {str(dtype)[6:]}",
              "key": (kind, (tuple(shape), str(dtype)[6:])),
-             "shape": list(shape), "dtype": str(dtype)[6:]}
+             "shape": list(shape), "dtype": str(dtype)[6:],
+             "bit_identical_relaunch": all(same[n] for n in names)}
         for n in names:
             e.update(errors(n))
         e["max_abs_err"] = max(e[f"{n}_max_abs_err"] for n in names)

@@ -4,35 +4,73 @@
 // Replaces reflecting_reality_tpu/ops/pallas/flash_attention.py::_bwd_dq_kernel
 // (pallas_call at :234) and ::_bwd_dkv_kernel (pallas_call at :250).  Both
 // recompute the probabilities from the forward's logsumexp instead of storing
-// them: p = exp(s - lse) with s = q.k / sqrt(D).  With dP = dO V^T and the
-// row term delta = rowsum(dO * O) (computed by the caller, as XLA does at
-// :231):
+// them: p = exp(s - lse) with s = q.k / sqrt(D) (the true head dim D).  With
+// dP = dO V^T and the row term delta = rowsum(dO * O) (computed by the
+// caller, as XLA does at :231):
 //   dS = p * (dP - delta),  dQ = dS K / sqrt(D),  dK = dS^T Q / sqrt(D),
-//   dV = p^T dO.
-// The JAX package's two-kernel split is kept, so no atomics are needed: the
-// dQ kernel owns a tile of query rows and walks the keys, the dK/dV kernel
-// owns a tile of keys and walks the queries.
+//   dV = p^T dO,
+// with p and dS rounded to bf16 before they multiply dO, K or Q, as the
+// Pallas kernels cast them to the input dtype.  The JAX package's two-kernel
+// split is kept: the dQ kernel owns a tile of query rows and walks the keys,
+// the dK/dV kernel owns a tile of keys and walks the queries, so every output
+// element is written by one CTA after a sum in a fixed order: the result is
+// deterministic and needs no atomics.
 //
 // Layout as the forward: q/k/v/dO/dQ/dK/dV are (B, T, H, D) with (H, D)
-// packed and batch/token strides passed in; lse and delta are fp32 (B*H, Tq).
+// packed and batch/token strides passed in; lse and delta are fp32 rows, one
+// per (b, h), of Tq values (B4 takes their row stride, a multiple of 4).
 //
-// bf16 path (training): 4 warps per CTA, 16 rows per warp, every product on
-// the tensor cores (mma.sync.m16n8k16, bf16 in, fp32 accumulate), D padded to
-// the MMA depth in shared memory with 8 bf16 of row padding (conflict-free
-// ldmatrix), double-buffered cp.async tiles, exponentials in the log2 domain
-// with the true-D scale.  p and dS are rounded to bf16 before they multiply
-// dO, K or Q, as the Pallas kernels cast them to the input dtype.
-//   dQ:   S = Q K^T and dP = dO V^T share the Q and dO fragments; dS stays in
-//         registers and is re-packed as the A fragment of dS K (K through
-//         ldmatrix.trans).  Keys past Tk get p = 0.
-//   dK/dV: each warp computes its 16 keys' rows of the transposed products,
-//         S^T = K Q^T and dP^T = V dO^T, so that p^T and dS^T are accumulator
-//         fragments that re-pack as A fragments of p^T dO and dS^T Q (dO and Q
-//         through ldmatrix.trans); lse and delta of the query tile are
-//         per-column and come from shared memory.  The dK and dV accumulators
-//         both live in registers; for D = 160 the query tile is 32 wide to
-//         leave room for them.  Query rows past Tq are zero-filled with
-//         lse = delta = 0, which makes their p^T dO and dS^T terms exactly 0.
+// What bounds it.  The two kernels do 7 products of 2*B*H*Tq*Tk*D FLOP (3 in
+// B3: S, dP, dQ; 4 in B4: S^T, dP^T, dV, dK) and 2*B*H*Tq*Tk exponentials
+// (each kernel recomputes p).  At the training shape (4, 4096, 8, 40) bf16
+// that is 3.0e11 FLOP, 0.30 ms at 989 TFLOP/s (0.36 ms with D padded to 48),
+// and 1.07e9 exponentials, 0.26 ms at 16 per clock per SM on the
+// multi-function unit at 1.98 GHz, against ~75 MB of operands (22 us at
+// 3.35 TB/s).  So operations bind, the tensor cores and the exponentials
+// about equally at D = 40; bytes do not matter.
+//
+// bf16 path (every head dim, D % 8 == 0, D <= 160; instances at the padded
+// widths 48, 64, 80, 160), the design of the forward (flash_attn_fwd.cu):
+// one CTA of three warpgroups owns CTA_BM = 128 rows (query rows in B3, keys
+// in B4), 64 per consumer warpgroup, so every tile brought from L2 serves 128
+// rows.
+//  - Producer warpgroup (setmaxnreg 24): one thread issues TMA loads, the
+//    CTA's own operands once (Q and dO in B3, K and V in B4) and the streamed
+//    tiles (K and V of BN keys in B3; Q and dO of BQ queries with that tile's
+//    lse and delta in B4) into a ring of mbarrier-guarded stages.  One full
+//    barrier per stage counts all of its bytes; the empty barrier takes an
+//    arrival from each of the 256 consumer threads once the stage's products
+//    have completed.
+//  - Consumer warpgroups (setmaxnreg 240).  Each tile is two wgmma_ss
+//    products with both operands K-major as they lie in shared memory (S and
+//    dP in B3; S^T = K Q^T and dP^T = V dO^T in B4, so that p^T and dS^T come
+//    out as accumulators), then p and dS in registers, then wgmma_rs products
+//    whose A operand is that accumulator rounded to bf16 (the accumulator
+//    layout is already the A-register fragment) and whose B operand is read
+//    MN-major (transposed) from the same shared tile: dQ += dS K in B3, dV +=
+//    p^T dO and dK += dS^T Q in B4.  lse and delta are per row in B3 (held in
+//    registers) and per column in B4 (read from the stage).
+//  - Overlap: each iteration issues tile j's S and dP, then tile j - 1's
+//    accumulating products (dQ, or dV and dK) behind them, waits for S and
+//    dP only and computes tile j's p and dS while those products run (the
+//    forward's order); the two consumer warpgroups also take turns at the
+//    exponentials on named barriers, so one group's exponentials run while
+//    the other group's products are in the tensor cores.  No wgmma is in
+//    flight across the loop's back edge: with the accumulating products
+//    retired only at the next tile's wait, ptxas serialised every wgmma
+//    (C7515), and no register an in-flight wgmma reads or writes is
+//    touched before its wait.
+//  - Reads in place, padding without copies: 4-D tensor maps (D, H, T, B)
+//    over the strided q/k/v/dO with boxes of 16 columns (32-byte swizzle);
+//    columns past D and rows past T come from TMA's zero fill, so D = 40 pads
+//    to 48.  Keys past Tk get p = 0 in B3.  In B4, query rows past Tq read
+//    zeros for Q and dO and lse = delta = 0 (the 2-D map's zero fill), so
+//    s = 0, p = 1, dP = 0, dS = 1 * (0 - 0) = 0: their p^T dO and dS^T Q
+//    terms are exactly 0.
+//  - Tiles: B3 streams 128 keys a tile for DP <= 64 and 64 for DP = 80 and
+//    160 (registers: S and dP of 64 x BN plus the dQ accumulator and the
+//    in-flight dS fragments); B4 streams 64 queries a tile, 32 for DP = 160
+//    (the dK and dV accumulators alone take 160 registers there).
 //
 // fp32 path (parity runs): CUDA-core FMAs, one warp per 4 rows, 32-wide tiles
 // with one key (dQ) or one query (dK/dV) per lane for the dot products and
@@ -45,57 +83,49 @@ namespace {
 using namespace flash;
 using bf16 = __nv_bfloat16;
 
-constexpr int BM = 64;  // rows per CTA: query rows (dQ) or key rows (dK/dV), 16 per warp
-constexpr int BN = 64;  // keys per K/V tile of the dQ kernel
+// ------------------------------------------------------------- bf16 path
 
-// ldmatrix row offsets inside a [rows][DP + PADH] tile, lane-dependent:
-// a B fragment whose n index runs along the tile's rows (K in Q K^T) ...
-__device__ __forceinline__ int b_rows_off(int lane, int LD) {
-  const int lm = lane >> 3, lr = lane & 7;
-  return ((lm >> 1) * 8 + lr) * LD + (lm & 1) * 8;
-}
-// ... a B fragment whose k index runs along the tile's rows (K in dS K, .trans) ...
-__device__ __forceinline__ int b_trans_off(int lane, int LD) {
-  const int lm = lane >> 3, lr = lane & 7;
-  return ((lm & 1) * 8 + lr) * LD + (lm >> 1) * 8;
-}
-// ... and the A fragment of this warp's 16 rows.
-__device__ __forceinline__ int a_off(int warp, int lane, int LD) {
-  const int lm = lane >> 3, lr = lane & 7;
-  return (warp * 16 + (lm & 1) * 8 + lr) * LD + (lm >> 1) * 8;
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&c)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
-}
-
-// Rows [row0, row0 + N) of an fp32 (., T) vector into shared memory; zero past n.
-template <int N>
-__device__ __forceinline__ void load_vec(float* s, const float* g, int row0, int n) {
-  for (int i = threadIdx.x; i < N; i += THREADS) {
-    const bool ok = row0 + i < n;
-    cp_async4(s + i, ok ? g + row0 + i : g, ok ? 4 : 0);
-  }
-}
-
-// Rows g and g + 8 of one 16-row accumulator block, scaled, stored as bf16.
+// B3: CTA_BM query rows; K and V tiles of BN keys through a ring of STAGES.
 template <int DP>
-__device__ __forceinline__ void store_rows(bf16* out, long long st, const float (&acc)[DP / 8][4],
-                                           int row_g, int nrows, int D, float mul) {
-  const int tq = threadIdx.x & 3;
+struct DqCfg {
+  static constexpr int BN = DP <= 64 ? 128 : 64;
+  static constexpr int STAGES = DP == 160 ? 3 : 4;
+  static constexpr int NSLAB = DP / SLAB;
+  static constexpr int Q_BYTES = CTA_BM * DP * 2;  // Q (and dO)
+  static constexpr int KV_BYTES = BN * DP * 2;     // one K (or V) tile
+  // operands, then the mbarriers; 1 KB of slack to align the base to 1 KB
+  static constexpr int SMEM = 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 256 + 1024;
+};
+
+// B4: CTA_BM keys; Q and dO tiles of BQ queries, with their lse and delta,
+// through a ring of STAGES.
+template <int DP>
+struct DkvCfg {
+  static constexpr int BQ = DP == 160 ? 32 : 64;
+  static constexpr int STAGES = 4;
+  static constexpr int NSLAB = DP / SLAB;
+  static constexpr int KV_BYTES = CTA_BM * DP * 2;  // K (and V)
+  static constexpr int T_BYTES = BQ * DP * 2;       // one Q (or dO) tile
+  static constexpr int R_BYTES = BQ * 4;            // one tile's lse (or delta)
+  static constexpr int SMEM = 2 * KV_BYTES + STAGES * (2 * T_BYTES + 2 * R_BYTES) + 256 + 1024;
+};
+
+// Rows row0 + g and row0 + g + 8 of a 64 x DP accumulator, scaled, stored as bf16.
+template <int DP>
+__device__ __forceinline__ void store_rows(bf16* out, long long st, const float (&acc)[DP / 2],
+                                           int row0, int nrows, int D, int g, int tq4,
+                                           float mul) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = row_g + r * 8;
+    const int row = row0 + g + r * 8;
     if (row >= nrows) continue;
     bf16* orow = out + (long long)row * st;
 #pragma unroll
-    for (int i = 0; i < DP / 8; ++i) {
-      const int col = i * 8 + tq * 2;
+    for (int n = 0; n < DP / 8; ++n) {
+      const int col = n * 8 + tq4 * 2;
       if (col < D)
         *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-            __floats2bfloat162_rn(acc[i][2 * r] * mul, acc[i][2 * r + 1] * mul);
+            __floats2bfloat162_rn(acc[4 * n + 2 * r] * mul, acc[4 * n + 2 * r + 1] * mul);
     }
   }
 }
@@ -103,250 +133,304 @@ __device__ __forceinline__ void store_rows(bf16* out, long long st, const float 
 // ------------------------------------------------------------ B3: dQ, bf16
 
 template <int DP>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  bf16* __restrict__ dq, int H, int Tq, int Tk, int D,
-                  long long q_sb, long long q_st, long long k_sb, long long k_st,
-                  long long v_sb, long long v_st, long long do_sb, long long do_st,
-                  long long dq_sb, long long dq_st, float scale, float scale_log2) {
-  constexpr int LD = DP + PADH;
-  constexpr int BUF = BN * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // [Q: BM rows][dO: BM rows][K buffers 0, 1][V buffers 0, 1]
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + BM * LD;
-  bf16* Ks = dOs + BM * LD;
-  bf16* Vs = Ks + 2 * BUF;
+__global__ void __launch_bounds__(CTA_THREADS, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   bf16* __restrict__ dq, int H, int Tq, int Tk, int D, long long dq_sb,
+                   long long dq_st, float scale, float scale_log2) {
+  using C = DqCfg<DP>;
+  constexpr int BN = C::BN, STAGES = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = align_1k(smem_raw);
+  unsigned char* dos = qs + C::Q_BYTES;
+  unsigned char* ks = dos + C::Q_BYTES;  // stage st at ks + st * KV_BYTES
+  unsigned char* vs = ks + STAGES * C::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * C::KV_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BM;
-  const bf16* qg = q + b * q_sb + (long long)h * D;
-  const bf16* kg = k + b * k_sb + (long long)h * D;
-  const bf16* vg = v + b * v_sb + (long long)h * D;
-  const bf16* dog = dout + b * do_sb + (long long)h * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-
-  load_tile<DP>(Qs, qg, q_st, q0, Tq, D);
-  load_tile<DP>(dOs, dog, do_st, q0, Tq, D);
-  load_tile<DP>(Ks, kg, k_st, 0, Tk, D);
-  load_tile<DP>(Vs, vg, v_st, 0, Tk, D);
-  cp_async_commit();
-
-  // lse (log2 domain) and delta of rows g and g + 8; rows past Tq read 0
-  float lse2[2], dlt[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + r * 8;
-    const bool ok = row < Tq;
-    lse2[r] = ok ? lse[(long long)bh * Tq + row] * LOG2E : 0.f;
-    dlt[r] = ok ? delta[(long long)bh * Tq + row] : 0.f;
-  }
-
-  float acc[DP / 8][4];
-  zero(acc);
-  const bf16* qa = Qs + a_off(warp, lane, LD);
-  const bf16* doa = dOs + a_off(warp, lane, LD);
-  const int nb = b_rows_off(lane, LD), tb = b_trans_off(lane, LD);
-
+  const int q0 = blockIdx.x * CTA_BM;
   const int ntiles = (Tk + BN - 1) / BN;
-  for (int j = 0; j < ntiles; ++j) {
-    const int k0 = j * BN, buf = j & 1;
-    if (j + 1 < ntiles) {
-      load_tile<DP>(Ks + (buf ^ 1) * BUF, kg, k_st, k0 + BN, Tk, D);
-      load_tile<DP>(Vs + (buf ^ 1) * BUF, vg, v_st, k0 + BN, Tk, D);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Kt = Ks + buf * BUF;
-    const bf16* Vt = Vs + buf * BUF;
+  const int wg = threadIdx.x / WG_THREADS;
 
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
-    float s[BN / 8][4], dp[BN / 8][4];
-    zero(s);
-    zero(dp);
-#pragma unroll
-    for (int kc = 0; kc < DP / 16; ++kc) {
-      uint32_t a[4], da[4];
-      ldsm_x4(a, qa + kc * 16);
-      ldsm_x4(da, doa + kc * 16);
-#pragma unroll
-      for (int n = 0; n < BN / 8; n += 2) {
-        uint32_t kb[4], vb[4];  // b0, b1 of key groups n and n + 1
-        ldsm_x4(kb, Kt + n * 8 * LD + kc * 16 + nb);
-        mma_16816(s[n], a, kb[0], kb[1]);
-        mma_16816(s[n + 1], a, kb[2], kb[3]);
-        ldsm_x4(vb, Vt + n * 8 * LD + kc * 16 + nb);
-        mma_16816(dp[n], da, vb[0], vb[1]);
-        mma_16816(dp[n + 1], da, vb[2], vb[3]);
-      }
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      hopper::mbar_init(full + st, 1);
+      hopper::mbar_init(empty + st, 2 * WG_THREADS);
     }
-
-    // dS = p (dP - delta), p = exp2(s * scale_log2 - lse2); keys past Tk: p = 0
-    const bool tail = k0 + BN > Tk;
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(fmaf(s[n][e], scale_log2, -lse2[e >> 1]));
-        if (tail && k0 + n * 8 + tq * 2 + (e & 1) >= Tk) p = 0.f;
-        s[n][e] = p * (dp[n][e] - dlt[e >> 1]);
-      }
-    }
-
-    // dQ += dS K: dS of key groups 2kk, 2kk+1 is the A fragment of key chunk kk
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int i = 0; i < DP / 8; i += 2) {
-        uint32_t kb[4];  // b0, b1 of head-dim groups i and i + 1
-        ldsm_x4_trans(kb, Kt + kk * 16 * LD + i * 8 + tb);
-        mma_16816(acc[i], a, kb[0], kb[1]);
-        mma_16816(acc[i + 1], a, kb[2], kb[3]);
-      }
-    }
-    __syncthreads();  // this buffer is refilled at iteration j + 1
+    hopper::mbar_fence_init();
   }
+  __syncthreads();
 
-  bf16* dqg = dq + b * dq_sb + (long long)h * D;
-  store_rows<DP>(dqg, dq_st, acc, q0 + warp * 16 + g, Tq, D, scale);
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch_desc(&tm_q);
+      hopper::tma_prefetch_desc(&tm_k);
+      hopper::tma_prefetch_desc(&tm_v);
+      hopper::tma_prefetch_desc(&tm_do);
+      hopper::mbar_arrive_expect_tx(q_full, 2 * C::Q_BYTES);
+      for (int c = 0; c < C::NSLAB; ++c) {
+        hopper::tma_load_4d(qs + c * CTA_BM * SLAB_BYTES, &tm_q, q_full, c * SLAB, h, q0, b);
+        hopper::tma_load_4d(dos + c * CTA_BM * SLAB_BYTES, &tm_do, q_full, c * SLAB, h, q0, b);
+      }
+      for (int j = 0; j < ntiles; ++j) {
+        const int st = j % STAGES;
+        if (j >= STAGES) hopper::mbar_wait(empty + st, (j / STAGES - 1) & 1);
+        hopper::mbar_arrive_expect_tx(full + st, 2 * C::KV_BYTES);
+        for (int c = 0; c < C::NSLAB; ++c) {
+          const int off = st * C::KV_BYTES + c * BN * SLAB_BYTES;
+          hopper::tma_load_4d(ks + off, &tm_k, full + st, c * SLAB, h, j * BN, b);
+          hopper::tma_load_4d(vs + off, &tm_v, full + st, c * SLAB, h, j * BN, b);
+        }
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    hopper::setmaxnreg_inc<240>();
+    const int cw = wg - 1;
+    const int local = threadIdx.x - wg * WG_THREADS;
+    const int warp = local >> 5, lane = local & 31;
+    const int g = lane >> 2, tq4 = lane & 3;
+    const int row0 = q0 + cw * WG_BM + warp * 16;  // this warp's 16 query rows
+
+    // lse (log2 domain) and delta of rows g and g + 8; rows past Tq read 0
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + g + r * 8;
+      const bool ok = row < Tq;
+      lse2[r] = ok ? lse[(long long)bh * Tq + row] * LOG2E : 0.f;
+      dlt[r] = ok ? delta[(long long)bh * Tq + row] : 0.f;
+    }
+    float s[BN / 2], dp[BN / 2], acc[DP / 2];
+    uint32_t ds[BN / 16][4];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    const unsigned char* qw = qs + cw * WG_BM * SLAB_BYTES;
+    const unsigned char* dow = dos + cw * WG_BM * SLAB_BYTES;
+
+    // The two consumers take turns at the exponentials (named barriers 1, 2;
+    // consumer 0 first); consumer 1 skips its last hand-over, so both
+    // barriers end with as many arrivals as waits.
+    const int me = BAR_PING + cw, other = BAR_PING + (cw ^ 1);
+    hopper::mbar_wait(q_full, 0);
+    if (cw == 1) hopper::named_arrive<2 * WG_THREADS>(BAR_PING);
+    const unsigned char* k_prev = ks;  // the stage of tile j - 1
+    for (int j = 0; j < ntiles; ++j) {
+      const int st = j % STAGES;
+      const unsigned char* kt = ks + st * C::KV_BYTES;
+      hopper::mbar_wait(full + st, (j / STAGES) & 1);
+      // S_j = Q K_j^T and dP_j = dO V_j^T, then dQ += dS_{j-1} K_{j-1}
+      // behind them: it runs while this warpgroup computes dS_j
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      hopper::wgmma_fence();
+      issue_abt<DP, BN>(s, qw, kt);
+      issue_abt<DP, BN>(dp, dow, vs + st * C::KV_BYTES);
+      hopper::wgmma_commit();
+      if (j > 0) {
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+        issue_ab<DP, BN>(acc, ds, k_prev);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // S_j and dP_j done, the dQ product may still run
+      } else {
+        hopper::wgmma_wait<0>();
+      }
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+
+      // dS = p (dP - delta), p = exp2(s * scale_log2 - lse2); keys past Tk: p = 0
+      hopper::named_sync<2 * WG_THREADS>(me);
+      const int k0 = j * BN;
+      const bool tail = k0 + BN > Tk;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = ex2(fmaf(s[i], scale_log2, -lse2[r]));
+        if (tail && k0 + (i / 4) * 8 + tq4 * 2 + (i & 1) >= Tk) p = 0.f;
+        s[i] = p * (dp[i] - dlt[r]);
+      }
+      if (!(cw == 1 && j == ntiles - 1)) hopper::named_arrive<2 * WG_THREADS>(other);
+      hopper::wgmma_wait<0>();  // dQ += dS_{j-1} K_{j-1} done: stage j - 1 is free
+      hopper::fence_regs(acc);
+      if (j > 0) hopper::mbar_arrive(empty + (j - 1) % STAGES);
+      to_a_fragments<BN>(ds, s);
+      k_prev = kt;
+    }
+    // the last tile's dQ += dS K
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+    issue_ab<DP, BN>(acc, ds, k_prev);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    store_rows<DP>(dq + b * dq_sb + (long long)h * D, dq_st, acc, row0, Tq, D, g, tq4, scale);
+  }
 }
 
 // ------------------------------------------------------- B4: dK/dV, bf16
 
-template <int DP, int BQ>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Tq, int Tk, int D,
-                   long long q_sb, long long q_st, long long k_sb, long long k_st,
-                   long long v_sb, long long v_st, long long do_sb, long long do_st,
-                   long long dk_sb, long long dk_st, long long dv_sb, long long dv_st,
-                   float scale, float scale_log2) {
-  constexpr int LD = DP + PADH;
-  constexpr int BUF = BQ * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // [K: BM rows][V: BM rows][Q buffers 0, 1][dO buffers 0, 1][lse 0, 1][delta 0, 1]
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + BM * LD;
-  bf16* Qs = Vs + BM * LD;
-  bf16* dOs = Qs + 2 * BUF;
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * BUF);
-  float* Dl = Ls + 2 * BQ;
+template <int DP>
+__global__ void __launch_bounds__(CTA_THREADS, 1)
+flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_lse,
+                    const __grid_constant__ CUtensorMap tm_delta, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int H, int Tq, int Tk, int D, long long dk_sb,
+                    long long dk_st, long long dv_sb, long long dv_st, float scale,
+                    float scale_log2) {
+  using C = DkvCfg<DP>;
+  constexpr int BQ = C::BQ, STAGES = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = align_1k(smem_raw);
+  unsigned char* vs = ks + C::KV_BYTES;
+  unsigned char* qs = vs + C::KV_BYTES;  // stage st at qs + st * T_BYTES
+  unsigned char* dos = qs + STAGES * C::T_BYTES;
+  float* ls = reinterpret_cast<float*>(dos + STAGES * C::T_BYTES);  // stage st at ls + st * BQ
+  float* dls = ls + STAGES * BQ;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(dls + STAGES * BQ);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * BM;
-  const bf16* qg = q + b * q_sb + (long long)h * D;
-  const bf16* kg = k + b * k_sb + (long long)h * D;
-  const bf16* vg = v + b * v_sb + (long long)h * D;
-  const bf16* dog = dout + b * do_sb + (long long)h * D;
-  const float* lg = lse + (long long)bh * Tq;
-  const float* dg = delta + (long long)bh * Tq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-
-  load_tile<DP, BM>(Ks, kg, k_st, k0, Tk, D);
-  load_tile<DP, BM>(Vs, vg, v_st, k0, Tk, D);
-  load_tile<DP, BQ>(Qs, qg, q_st, 0, Tq, D);
-  load_tile<DP, BQ>(dOs, dog, do_st, 0, Tq, D);
-  load_vec<BQ>(Ls, lg, 0, Tq);
-  load_vec<BQ>(Dl, dg, 0, Tq);
-  cp_async_commit();
-
-  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];
-  zero(dk_acc);
-  zero(dv_acc);
-  const bf16* ka = Ks + a_off(warp, lane, LD);
-  const bf16* va = Vs + a_off(warp, lane, LD);
-  const int nb = b_rows_off(lane, LD), tb = b_trans_off(lane, LD);
-
+  const int k0 = blockIdx.x * CTA_BM;
   const int ntiles = (Tq + BQ - 1) / BQ;
-  for (int j = 0; j < ntiles; ++j) {
-    const int qt0 = j * BQ, buf = j & 1;
-    if (j + 1 < ntiles) {
-      load_tile<DP, BQ>(Qs + (buf ^ 1) * BUF, qg, q_st, qt0 + BQ, Tq, D);
-      load_tile<DP, BQ>(dOs + (buf ^ 1) * BUF, dog, do_st, qt0 + BQ, Tq, D);
-      load_vec<BQ>(Ls + (buf ^ 1) * BQ, lg, qt0 + BQ, Tq);
-      load_vec<BQ>(Dl + (buf ^ 1) * BQ, dg, qt0 + BQ, Tq);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Qt = Qs + buf * BUF;
-    const bf16* Dt = dOs + buf * BUF;
-    const float* Lt = Ls + buf * BQ;
-    const float* Dlt = Dl + buf * BQ;
+  const int wg = threadIdx.x / WG_THREADS;
 
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BQ queries
-    float s[BQ / 8][4], dp[BQ / 8][4];
-    zero(s);
-    zero(dp);
-#pragma unroll
-    for (int kc = 0; kc < DP / 16; ++kc) {
-      uint32_t a[4], av[4];
-      ldsm_x4(a, ka + kc * 16);
-      ldsm_x4(av, va + kc * 16);
-#pragma unroll
-      for (int n = 0; n < BQ / 8; n += 2) {
-        uint32_t qb[4], ob[4];  // b0, b1 of query groups n and n + 1
-        ldsm_x4(qb, Qt + n * 8 * LD + kc * 16 + nb);
-        mma_16816(s[n], a, qb[0], qb[1]);
-        mma_16816(s[n + 1], a, qb[2], qb[3]);
-        ldsm_x4(ob, Dt + n * 8 * LD + kc * 16 + nb);
-        mma_16816(dp[n], av, ob[0], ob[1]);
-        mma_16816(dp[n + 1], av, ob[2], ob[3]);
-      }
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      hopper::mbar_init(full + st, 1);
+      hopper::mbar_init(empty + st, 2 * WG_THREADS);
     }
-
-    // p^T = exp2(s^T * scale_log2 - lse2[query]) and dS^T = p^T (dP^T - delta[query]);
-    // element e of group n is query column n * 8 + tq * 2 + (e & 1)
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-      const float2 l = *reinterpret_cast<const float2*>(Lt + n * 8 + tq * 2);
-      const float2 dl = *reinterpret_cast<const float2*>(Dlt + n * 8 + tq * 2);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float lc = (e & 1) ? l.y : l.x;
-        const float dc = (e & 1) ? dl.y : dl.x;
-        const float p = exp2f(fmaf(s[n][e], scale_log2, -lc * LOG2E));
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - dc);
-      }
-    }
-
-    // dV += p^T dO and dK += dS^T Q over query chunk kk
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-      acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int i = 0; i < DP / 8; i += 2) {
-        uint32_t ob[4], qb[4];  // b0, b1 of head-dim groups i and i + 1
-        ldsm_x4_trans(ob, Dt + kk * 16 * LD + i * 8 + tb);
-        mma_16816(dv_acc[i], pa, ob[0], ob[1]);
-        mma_16816(dv_acc[i + 1], pa, ob[2], ob[3]);
-        ldsm_x4_trans(qb, Qt + kk * 16 * LD + i * 8 + tb);
-        mma_16816(dk_acc[i], da, qb[0], qb[1]);
-        mma_16816(dk_acc[i + 1], da, qb[2], qb[3]);
-      }
-    }
-    __syncthreads();  // this buffer is refilled at iteration j + 1
+    hopper::mbar_fence_init();
   }
+  __syncthreads();
 
-  const int row_g = k0 + warp * 16 + g;
-  store_rows<DP>(dk + b * dk_sb + (long long)h * D, dk_st, dk_acc, row_g, Tk, D, scale);
-  store_rows<DP>(dv + b * dv_sb + (long long)h * D, dv_st, dv_acc, row_g, Tk, D, 1.f);
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch_desc(&tm_q);
+      hopper::tma_prefetch_desc(&tm_k);
+      hopper::tma_prefetch_desc(&tm_v);
+      hopper::tma_prefetch_desc(&tm_do);
+      hopper::tma_prefetch_desc(&tm_lse);
+      hopper::tma_prefetch_desc(&tm_delta);
+      hopper::mbar_arrive_expect_tx(kv_full, 2 * C::KV_BYTES);
+      for (int c = 0; c < C::NSLAB; ++c) {
+        hopper::tma_load_4d(ks + c * CTA_BM * SLAB_BYTES, &tm_k, kv_full, c * SLAB, h, k0, b);
+        hopper::tma_load_4d(vs + c * CTA_BM * SLAB_BYTES, &tm_v, kv_full, c * SLAB, h, k0, b);
+      }
+      for (int j = 0; j < ntiles; ++j) {
+        const int st = j % STAGES;
+        if (j >= STAGES) hopper::mbar_wait(empty + st, (j / STAGES - 1) & 1);
+        hopper::mbar_arrive_expect_tx(full + st, 2 * C::T_BYTES + 2 * C::R_BYTES);
+        for (int c = 0; c < C::NSLAB; ++c) {
+          const int off = st * C::T_BYTES + c * BQ * SLAB_BYTES;
+          hopper::tma_load_4d(qs + off, &tm_q, full + st, c * SLAB, h, j * BQ, b);
+          hopper::tma_load_4d(dos + off, &tm_do, full + st, c * SLAB, h, j * BQ, b);
+        }
+        hopper::tma_load_2d(ls + st * BQ, &tm_lse, full + st, j * BQ, bh);
+        hopper::tma_load_2d(dls + st * BQ, &tm_delta, full + st, j * BQ, bh);
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    hopper::setmaxnreg_inc<240>();
+    const int cw = wg - 1;
+    const int local = threadIdx.x - wg * WG_THREADS;
+    const int warp = local >> 5, lane = local & 31;
+    const int g = lane >> 2, tq4 = lane & 3;
+
+    float s[BQ / 2], dp[BQ / 2], dk_acc[DP / 2], dv_acc[DP / 2];
+    uint32_t pf[BQ / 16][4], df[BQ / 16][4];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    const unsigned char* kw = ks + cw * WG_BM * SLAB_BYTES;
+    const unsigned char* vw = vs + cw * WG_BM * SLAB_BYTES;
+
+    // turns at the exponentials as in B3
+    const int me = BAR_PING + cw, other = BAR_PING + (cw ^ 1);
+    hopper::mbar_wait(kv_full, 0);
+    if (cw == 1) hopper::named_arrive<2 * WG_THREADS>(BAR_PING);
+    const unsigned char *q_prev = qs, *o_prev = dos;  // the stage of tile j - 1
+    for (int j = 0; j < ntiles; ++j) {
+      const int st = j % STAGES;
+      const unsigned char* qt = qs + st * C::T_BYTES;
+      const unsigned char* ot = dos + st * C::T_BYTES;
+      hopper::mbar_wait(full + st, (j / STAGES) & 1);
+      // S^T = K Q_j^T and dP^T = V dO_j^T, then dV += p^T_{j-1} dO_{j-1} and
+      // dK += dS^T_{j-1} Q_{j-1} behind them (dO and Q read MN-major): they
+      // run while this warpgroup computes p^T_j and dS^T_j
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      hopper::wgmma_fence();
+      issue_abt<DP, BQ>(s, kw, qt);
+      issue_abt<DP, BQ>(dp, vw, ot);
+      hopper::wgmma_commit();
+      if (j > 0) {
+        hopper::fence_regs(dk_acc);
+        hopper::fence_regs(dv_acc);
+        hopper::wgmma_fence();
+        issue_ab<DP, BQ>(dv_acc, pf, o_prev);
+        issue_ab<DP, BQ>(dk_acc, df, q_prev);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // S^T and dP^T done, the dV/dK products may still run
+      } else {
+        hopper::wgmma_wait<0>();
+      }
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+
+      // p^T = exp2(s^T * scale_log2 - lse2[query]) and dS^T = p^T (dP^T -
+      // delta[query]); element 4n + e is query column 8n + 2 tq4 + (e & 1)
+      hopper::named_sync<2 * WG_THREADS>(me);
+      const float* lt = ls + st * BQ;
+      const float* dt = dls + st * BQ;
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n) {
+        const float2 l = *reinterpret_cast<const float2*>(lt + n * 8 + tq4 * 2);
+        const float2 dl = *reinterpret_cast<const float2*>(dt + n * 8 + tq4 * 2);
+        const float l2[2] = {l.x * LOG2E, l.y * LOG2E};
+        const float dc[2] = {dl.x, dl.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(fmaf(s[4 * n + e], scale_log2, -l2[e & 1]));
+          s[4 * n + e] = p;
+          dp[4 * n + e] = p * (dp[4 * n + e] - dc[e & 1]);
+        }
+      }
+      if (!(cw == 1 && j == ntiles - 1)) hopper::named_arrive<2 * WG_THREADS>(other);
+      hopper::wgmma_wait<0>();  // the products of tile j - 1 done: its stage is free
+      hopper::fence_regs(dk_acc);
+      hopper::fence_regs(dv_acc);
+      if (j > 0) hopper::mbar_arrive(empty + (j - 1) % STAGES);
+      to_a_fragments<BQ>(pf, s);
+      to_a_fragments<BQ>(df, dp);
+      q_prev = qt;
+      o_prev = ot;
+    }
+    // the last tile's dV and dK products
+    hopper::fence_regs(dk_acc);
+    hopper::fence_regs(dv_acc);
+    hopper::wgmma_fence();
+    issue_ab<DP, BQ>(dv_acc, pf, o_prev);
+    issue_ab<DP, BQ>(dk_acc, df, q_prev);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dk_acc);
+    hopper::fence_regs(dv_acc);
+    const int row0 = k0 + cw * WG_BM + warp * 16;  // this warp's 16 keys
+    store_rows<DP>(dk + b * dk_sb + (long long)h * D, dk_st, dk_acc, row0, Tk, D, g, tq4, scale);
+    store_rows<DP>(dv + b * dv_sb + (long long)h * D, dv_st, dv_acc, row0, Tk, D, g, tq4, 1.f);
+  }
 }
 
 template <typename K>
@@ -359,18 +443,21 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const vo
                            const float* lse, const float* delta, void* dq, int B, int H,
                            int Tq, int Tk, int D, const long long* st, float scale,
                            cudaStream_t stream) {
-  const int smem = (2 * BM + 4 * BN) * (DP + PADH) * (int)sizeof(bf16);
+  using C = DqCfg<DP>;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t e;
+  if ((e = operand_map(&mq, q, B, Tq, H, D, st[0], st[1], CTA_BM)) != cudaSuccess) return e;
+  if ((e = operand_map(&mk, k, B, Tk, H, D, st[2], st[3], C::BN)) != cudaSuccess) return e;
+  if ((e = operand_map(&mv, v, B, Tk, H, D, st[4], st[5], C::BN)) != cudaSuccess) return e;
+  if ((e = operand_map(&mdo, dout, B, Tq, H, D, st[6], st[7], CTA_BM)) != cudaSuccess) return e;
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = set_smem(flash_bwd_dq_bf16<DP>, smem);
-    if (e != cudaSuccess) return e;
+    if ((e = set_smem(flash_bwd_dq_wgmma<DP>, C::SMEM)) != cudaSuccess) return e;
     attr_set = true;
   }
-  dim3 grid((Tq + BM - 1) / BM, B * H);
-  flash_bwd_dq_bf16<DP><<<grid, THREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dq,
-      H, Tq, Tk, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      scale, scale * LOG2E);
+  dim3 grid((Tq + CTA_BM - 1) / CTA_BM, B * H);
+  flash_bwd_dq_wgmma<DP><<<grid, CTA_THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, mdo, lse, delta, (bf16*)dq, H, Tq, Tk, D, st[8], st[9], scale, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -379,21 +466,46 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const v
                             const float* lse, const float* delta, void* dk, void* dv, int B,
                             int H, int Tq, int Tk, int D, const long long* st, float scale,
                             cudaStream_t stream) {
-  constexpr int BQ = DP >= 128 ? 32 : 64;
-  const int smem = (2 * BM + 4 * BQ) * (DP + PADH) * (int)sizeof(bf16) +
-                   4 * BQ * (int)sizeof(float);
+  using C = DkvCfg<DP>;
+  CUtensorMap mq, mk, mv, mdo, ml, md;
+  cudaError_t e;
+  if ((e = operand_map(&mq, q, B, Tq, H, D, st[0], st[1], C::BQ)) != cudaSuccess) return e;
+  if ((e = operand_map(&mk, k, B, Tk, H, D, st[2], st[3], CTA_BM)) != cudaSuccess) return e;
+  if ((e = operand_map(&mv, v, B, Tk, H, D, st[4], st[5], CTA_BM)) != cudaSuccess) return e;
+  if ((e = operand_map(&mdo, dout, B, Tq, H, D, st[6], st[7], C::BQ)) != cudaSuccess) return e;
+  const uint64_t row_bytes = (uint64_t)st[12] * 4;
+  if ((e = hopper_host::encode_f32_2d(&ml, lse, Tq, (uint64_t)B * H, row_bytes, C::BQ)) !=
+      cudaSuccess)
+    return e;
+  if ((e = hopper_host::encode_f32_2d(&md, delta, Tq, (uint64_t)B * H, row_bytes, C::BQ)) !=
+      cudaSuccess)
+    return e;
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = set_smem(flash_bwd_dkv_bf16<DP, BQ>, smem);
-    if (e != cudaSuccess) return e;
+    if ((e = set_smem(flash_bwd_dkv_wgmma<DP>, C::SMEM)) != cudaSuccess) return e;
     attr_set = true;
   }
-  dim3 grid((Tk + BM - 1) / BM, B * H);
-  flash_bwd_dkv_bf16<DP, BQ><<<grid, THREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dk,
-      (bf16*)dv, H, Tq, Tk, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], scale, scale * LOG2E);
+  dim3 grid((Tk + CTA_BM - 1) / CTA_BM, B * H);
+  flash_bwd_dkv_wgmma<DP><<<grid, CTA_THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, mdo, ml, md, (bf16*)dk, (bf16*)dv, H, Tq, Tk, D, st[8], st[9], st[10], st[11],
+      scale, scale * LOG2E);
   return cudaGetLastError();
+}
+
+template <int DP>
+int plan(int kernel, int* out) {
+  if (kernel == 0) {
+    out[0] = DqCfg<DP>::BN;
+    out[1] = DqCfg<DP>::STAGES;
+    out[2] = DqCfg<DP>::SMEM;
+  } else if (kernel == 1) {
+    out[0] = DkvCfg<DP>::BQ;
+    out[1] = DkvCfg<DP>::STAGES;
+    out[2] = DkvCfg<DP>::SMEM;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return 0;
 }
 
 // ------------------------------------------------------------- fp32 path
@@ -665,20 +777,23 @@ int rr_flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void
 }
 
 // B4.  strides (elements): q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st,
-// dk_sb, dk_st, dv_sb, dv_st.  Otherwise as rr_flash_attn_bwd_dq.
+// dk_sb, dk_st, dv_sb, dv_st, and rows_st, the row stride of lse and delta
+// (bf16: a multiple of 4, for their TMA map; fp32: Tq).  Otherwise as
+// rr_flash_attn_bwd_dq.
 int rr_flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                           const void* lse, const void* delta, void* dk, void* dv, int dtype,
                           int B, int H, int Tq, int Tk, int D, long long q_sb, long long q_st,
                           long long k_sb, long long k_st, long long v_sb, long long v_st,
                           long long do_sb, long long do_st, long long dk_sb, long long dk_st,
-                          long long dv_sb, long long dv_st, float scale, void* stream) {
-  const long long st[12] = {q_sb,  q_st,  k_sb,  k_st,  v_sb,  v_st,
-                            do_sb, do_st, dk_sb, dk_st, dv_sb, dv_st};
+                          long long dv_sb, long long dv_st, long long rows_st, float scale,
+                          void* stream) {
+  const long long st[13] = {q_sb,  q_st,  k_sb,  k_st,  v_sb,  v_st,   do_sb,
+                            do_st, dk_sb, dk_st, dv_sb, dv_st, rows_st};
   cudaStream_t s = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   const float* dl = (const float*)delta;
   if (dtype == 1) {
-    if (D <= 0 || D > flash::MAX_D) return (int)cudaErrorInvalidValue;
+    if (D <= 0 || D > flash::MAX_D || rows_st != Tq) return (int)cudaErrorInvalidValue;
     const int smem = f32_smem(D);
     cudaError_t e = set_smem(flash_bwd_dkv_f32, smem);
     if (e != cudaSuccess) return (int)e;
@@ -689,12 +804,27 @@ int rr_flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const voi
         st[7], st[8], st[9], st[10], st[11], scale);
     return (int)cudaGetLastError();
   }
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 || rows_st < Tq || rows_st % 4) return (int)cudaErrorInvalidValue;
   switch (flash::padded_dim(D)) {
     case 48: return (int)launch_dkv_bf16<48>(q, k, v, dout, l, dl, dk, dv, B, H, Tq, Tk, D, st, scale, s);
     case 64: return (int)launch_dkv_bf16<64>(q, k, v, dout, l, dl, dk, dv, B, H, Tq, Tk, D, st, scale, s);
     case 80: return (int)launch_dkv_bf16<80>(q, k, v, dout, l, dl, dk, dv, B, H, Tq, Tk, D, st, scale, s);
     case 160: return (int)launch_dkv_bf16<160>(q, k, v, dout, l, dl, dk, dv, B, H, Tq, Tk, D, st, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The tiling of the bf16 instance that takes head dim D, for the Python
+// mirror (`bwd_plan` in ops/kernels/flash_attention.py): kernel 0 = B3 (keys
+// per K/V tile), 1 = B4 (queries per Q/dO tile); out = {tile, stages,
+// dynamic shared memory bytes}.  cudaErrorInvalidValue for a head dim no
+// instance takes.
+int rr_flash_attn_bwd_plan(int kernel, int D, int* out) {
+  switch (flash::padded_dim(D)) {
+    case 48: return plan<48>(kernel, out);
+    case 64: return plan<64>(kernel, out);
+    case 80: return plan<80>(kernel, out);
+    case 160: return plan<160>(kernel, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

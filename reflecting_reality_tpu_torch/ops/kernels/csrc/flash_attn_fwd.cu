@@ -67,14 +67,6 @@ namespace {
 
 using namespace flash;
 
-constexpr int CTA_BM = 128;      // query rows per CTA (64 per consumer warpgroup)
-constexpr int WG_BM = 64;
-constexpr int WG_THREADS = 128;
-constexpr int CTA_THREADS = 3 * WG_THREADS;
-constexpr int SLAB = 16;         // head-dim columns per 32-byte swizzled slab
-constexpr int SLAB_BYTES = 32;
-constexpr int BAR_PING = 1;      // named barriers 1, 2: consumer 0's and 1's turn
-
 template <int DP>
 struct Cfg {
   static constexpr int BN = DP <= 80 ? 128 : 64;
@@ -85,12 +77,6 @@ struct Cfg {
   // operands, then the mbarriers; 1 KB of slack to align the base to 1 KB
   static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 256 + 1024;
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // One consumer warpgroup's view of the K/V ring and its softmax state.
 template <int DP>
@@ -113,14 +99,7 @@ struct Consumer {
     hopper::mbar_wait(k_full + st, (j / C::STAGES) & 1);
     hopper::fence_regs(s);
     hopper::wgmma_fence();
-#pragma unroll
-    for (int c = 0; c < C::NSLAB; ++c) {
-      const uint64_t a = hopper::make_desc(qs + c * CTA_BM * SLAB_BYTES, 16, 256,
-                                           hopper::SWIZZLE_32B);
-      const uint64_t b = hopper::make_desc(ks + st * C::KV_BYTES + c * BN * SLAB_BYTES, 16,
-                                           256, hopper::SWIZZLE_32B);
-      hopper::wgmma_ss<BN>(s, a, b, c > 0);
-    }
+    issue_abt<DP, BN>(s, qs, ks + st * C::KV_BYTES);
     hopper::wgmma_commit();
   }
 
@@ -131,12 +110,7 @@ struct Consumer {
     hopper::mbar_wait(v_full + st, (j / C::STAGES) & 1);
     hopper::fence_regs(o);
     hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint64_t b = hopper::make_desc(vs + st * C::KV_BYTES + kk * 16 * SLAB_BYTES,
-                                           BN * SLAB_BYTES, 256, hopper::SWIZZLE_32B);
-      hopper::wgmma_rs<DP>(o, p[kk], b);
-    }
+    issue_ab<DP, BN>(o, p, vs + st * C::KV_BYTES);
     hopper::wgmma_commit();
   }
 
@@ -189,19 +163,6 @@ struct Consumer {
   }
 };
 
-// Key groups 2kk and 2kk+1 of the S accumulator form the A fragment of
-// chunk kk of P V.
-template <int BN>
-__device__ __forceinline__ void to_a_fragments(uint32_t (&p)[BN / 16][4], const float (&s)[BN / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    p[kk][0] = pack_f32(s[8 * kk + 0], s[8 * kk + 1]);
-    p[kk][1] = pack_f32(s[8 * kk + 2], s[8 * kk + 3]);
-    p[kk][2] = pack_f32(s[8 * kk + 4], s[8 * kk + 5]);
-    p[kk][3] = pack_f32(s[8 * kk + 6], s[8 * kk + 7]);
-  }
-}
-
 template <int R>
 __device__ __forceinline__ void rescale(float (&o)[R], const float (&corr)[2]) {
 #pragma unroll
@@ -217,8 +178,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   using C = Cfg<DP>;
   constexpr int BN = C::BN, STAGES = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* qs = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = align_1k(smem_raw);
   unsigned char* ks = qs + C::Q_BYTES;          // stage st at ks + st * KV_BYTES
   unsigned char* vs = ks + STAGES * C::KV_BYTES;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * C::KV_BYTES);
@@ -349,16 +309,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       if (tq4 == 0) lse[(long long)bh * Tq + row] = c.m_run[r] * LN2 + logf(l_safe);
     }
   }
-}
-
-// The tensor map of one (B, T, H, D) operand: dims (D, H, T, B), byte
-// strides of H, T and B, a box of 16 columns x `rows` tokens of one head.
-inline cudaError_t operand_map(CUtensorMap* map, const void* base, int B, int T, int H, int D,
-                               long long sb, long long st, int rows) {
-  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)T, (uint64_t)B};
-  const uint64_t strides[3] = {(uint64_t)D * 2, (uint64_t)st * 2, (uint64_t)sb * 2};
-  const uint32_t box[4] = {SLAB, 1, (uint32_t)rows, 1};
-  return hopper_host::encode_bf16_4d(map, base, dims, strides, box);
 }
 
 template <int DP>

@@ -1,7 +1,10 @@
-// Shared pieces of the flash-attention kernels: the head-dim padding rule,
-// the constants and the bf16 packing both flash_attn_fwd.cu and
-// flash_attn_bwd.cu use, and the backward's mma.sync / ldmatrix / cp.async
-// wrappers and shared-memory tile loader.
+// Shared pieces of the flash-attention kernels (flash_attn_fwd.cu and
+// flash_attn_bwd.cu): the head-dim padding rule, the CTA shape of the
+// warp-specialised wgmma kernels (one producer and two consumer
+// warpgroups), the 16-column swizzled slabs their operands live in with
+// the two wgmma products over them, the accumulator -> A-fragment packing,
+// and the host helper that encodes the 4-D tensor map of one (B, T, H, D)
+// operand.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,90 +12,96 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace flash {
 
-constexpr int PADH = 8;     // bf16 of row padding in shared memory (conflict-free ldmatrix)
-constexpr int THREADS = 128;
 constexpr int MAX_D = 160;  // the largest head dim taken (SD-1.5's level-2 heads)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices; lane l gives the address of row (l % 8) of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
+constexpr int CTA_BM = 128;  // rows a CTA owns (64 per consumer warpgroup)
+constexpr int WG_BM = 64;
+constexpr int WG_THREADS = 128;
+constexpr int CTA_THREADS = 3 * WG_THREADS;
+constexpr int SLAB = 16;     // head-dim columns per 32-byte swizzled slab
+constexpr int SLAB_BYTES = 32;
+constexpr int BAR_PING = 1;  // named barriers 1, 2: consumer 0's and 1's turn
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The A fragment of an m16n8k16 product whose 16-wide k chunk is the two
-// 8-column accumulator fragments c0 (k 0..7) and c1 (k 8..15) of an earlier
-// product: an S or dS tile re-used as an operand without leaving registers.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_f32(c0[0], c0[1]);
-  a[1] = pack_f32(c0[2], c0[3]);
-  a[2] = pack_f32(c1[0], c1[1]);
-  a[3] = pack_f32(c1[2], c1[3]);
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// 16-byte global -> shared copy; src_bytes == 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-
-// 4-byte global -> shared copy; src_bytes == 0 writes a zero.
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
+// Column groups 2kk and 2kk+1 of a 64 x N wgmma accumulator (this thread's
+// rows g and g + 8) form the A-register fragment of k chunk kk of a product
+// that takes the accumulator, rounded to bf16, as its A operand.
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void to_a_fragments(uint32_t (&a)[N / 16][4], const float (&c)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_f32(c[8 * kk + 0], c[8 * kk + 1]);
+    a[kk][1] = pack_f32(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = pack_f32(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = pack_f32(c[8 * kk + 6], c[8 * kk + 7]);
+  }
 }
 
-// Rows [row0, row0 + ROWS) of one head into shared memory [ROWS][DP + PADH];
-// columns >= D and rows >= nrows are zero.  16-byte copies (D % 8 == 0).
-template <int DP, int ROWS = 64>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16* g,
-                                          long long row_stride, int row0, int nrows, int D) {
-  constexpr int CPR = DP / 8;
-  for (int i = threadIdx.x; i < ROWS * CPR; i += THREADS) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const int row = row0 + r;
-    const bool ok = row < nrows && c < D;
-    cp_async16(s + r * (DP + PADH) + c, ok ? g + (long long)row * row_stride + c : g,
-               ok ? 16 : 0);
-  }
+// Descriptor of a K-major operand: a 16-column slab, rows 32 bytes apart,
+// core matrices of 8 rows 256 bytes apart.
+__device__ __forceinline__ uint64_t kmajor(const unsigned char* p) {
+  return hopper::make_desc(p, 16, 256, hopper::SWIZZLE_32B);
+}
+
+// Descriptor of 16 rows of a `rows`-row tile read MN-major (the rows are the
+// product's k, the head-dim columns its n): slabs rows * 32 bytes apart.
+__device__ __forceinline__ uint64_t mnmajor(const unsigned char* p, int rows) {
+  return hopper::make_desc(p, rows * SLAB_BYTES, 256, hopper::SWIZZLE_32B);
+}
+
+// d (64 x N) = A B^T over DP columns: A this warpgroup's 64 rows of a CTA_BM-row
+// tile, B an N-row tile, both K-major.  Not committed.
+template <int DP, int N>
+__device__ __forceinline__ void issue_abt(float (&d)[N / 2], const unsigned char* a,
+                                          const unsigned char* b) {
+#pragma unroll
+  for (int c = 0; c < DP / SLAB; ++c)
+    hopper::wgmma_ss<N>(d, kmajor(a + c * CTA_BM * SLAB_BYTES), kmajor(b + c * N * SLAB_BYTES),
+                        c > 0);
+}
+
+// d (64 x DP) += A B: A in registers (64 x K, bf16 fragments), B a K-row
+// tile read MN-major.  Not committed.
+template <int DP, int K>
+__device__ __forceinline__ void issue_ab(float (&d)[DP / 2], const uint32_t (&a)[K / 16][4],
+                                         const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    hopper::wgmma_rs<DP>(d, a[kk], mnmajor(b + kk * 16 * SLAB_BYTES, K));
+}
+
+// The dynamic shared memory base rounded up to 1 KB (every operand then
+// starts on a whole 32-byte swizzle pattern).
+__device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~uintptr_t(1023));
+}
+
+// The tensor map of one (B, T, H, D) bf16 operand: dims (D, H, T, B), byte
+// strides of H, T and B, a box of 16 columns x `rows` tokens of one head.
+// Columns past D and tokens past T read as zero.
+inline cudaError_t operand_map(CUtensorMap* map, const void* base, int B, int T, int H, int D,
+                               long long sb, long long st, int rows) {
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)T, (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)D * 2, (uint64_t)st * 2, (uint64_t)sb * 2};
+  const uint32_t box[4] = {SLAB, 1, (uint32_t)rows, 1};
+  return hopper_host::encode_bf16_4d(map, base, dims, strides, box);
 }
 
 // Padded head dim of the bf16 instance that takes D (0 if none does): the

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives as inline PTX, for the port's hand-written
 // kernels: mbarriers with a phase bit, TMA tensor loads, wgmma with its
 // shared-memory matrix descriptor and its fence / commit / wait, named
-// barriers and setmaxnreg, plus a host helper that encodes a TMA tensor map
-// through the driver entry point (no -lcuda at link time).
+// barriers and setmaxnreg, plus host helpers that encode TMA tensor maps
+// (4-D bf16 operands, 2-D fp32 rows) through the driver entry point (no
+// -lcuda at link time).
 #pragma once
 
 #include <cuda.h>
@@ -65,6 +66,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* tmap, 
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// A 2-D tile of `tmap` at coordinates (c0 innermost, c1).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* tmap, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -142,6 +153,17 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
 // rows), B in shared memory MN-major (transposed: N contiguous).
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
@@ -271,6 +293,23 @@ inline cudaError_t encode_bf16_4d(CUtensorMap* map, const void* base, const uint
                   (const cuuint32_t*)box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                   CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 2-D fp32 tensor map over `rows` rows of `cols` values, `row_bytes` apart
+// (a multiple of 16), with a box of `box_cols` values of one row; no
+// swizzle, values past `cols` read as zero.
+inline cudaError_t encode_f32_2d(CUtensorMap* map, const void* base, uint64_t cols,
+                                 uint64_t rows, uint64_t row_bytes, uint32_t box_cols) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_cols, 1};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides,
+                  box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

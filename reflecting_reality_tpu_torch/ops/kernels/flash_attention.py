@@ -29,10 +29,17 @@ The backward (B3 + B4) does 7·B·H·Tq·Tk·D multiply-adds (3 products in B3,
 4 in B4) against 4 reads of (B, T, H, D) per kernel and 3 writes: at the
 training shape (4, 4096, 8, 40) bf16 that is 3.0e11 FLOP (0.30 ms at 989
 TFLOP/s) against ~75 MB (22 µs), so it is bound by operations, and at
-D = 40 also by the 2·B·H·T² exponentials of the two recomputations of p.  The design follows B1 (see
-`csrc/flash_attn_bwd.cu`): tensor-core products with operands in shared
-memory padded to the MMA depth, p and dS kept in registers and re-packed as
-operands, JAX's two-kernel split so no atomics are needed.
+D = 40 as much by the 2·B·H·T² exponentials of the two recomputations of p.
+The design is B1's (see `csrc/flash_attn_bwd.cu`): warp-specialised, a TMA
+ring of the streamed tiles (K and V for B3, Q and dO with their lse and
+delta rows for B4), two consumer warpgroups over 128 rows a CTA whose S and
+dP products are wgmma with both operands in shared memory, and whose dQ (B3)
+or dK and dV (B4) products are wgmma with p or dS kept in registers; JAX's
+two-kernel split, so no atomics are needed and the result is deterministic.
+`bwd_plan` is each head-dim instance's tiling (tiles, stages, shared memory,
+wgmma widths, TMA boxes, register split), the mirror of the source's
+`DqCfg` / `DkvCfg` that the CPU tests check and `chip_smoke.py` holds
+against the library.
 
 `flash_attention_fwd`, `flash_attention_bwd_dq` and `flash_attention_bwd_dkv`
 are the wrappers: each checks device, dtype, shape and strides, raises on
@@ -57,7 +64,7 @@ from __future__ import annotations
 import ctypes
 import math
 from collections import Counter
-from typing import Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -71,8 +78,10 @@ DKV_REPLACES = "reflecting_reality_tpu/ops/pallas/flash_attention.py:191"
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _MAX_D = 160  # MAX_D in csrc/flash_common.cuh
-TMA_SLAB = 16   # head-dim columns per TMA box (SLAB in csrc/flash_attn_fwd.cu)
-TMA_ROWS = 128  # query rows per CTA (CTA_BM); K/V boxes are 128 or 64 keys
+TMA_SLAB = 16   # head-dim columns per TMA box (SLAB in csrc/flash_common.cuh)
+TMA_ROWS = 128  # rows a CTA owns (CTA_BM); streamed tiles are 128, 64 or 32 rows
+_PADDED_DIMS = (48, 64, 80, 160)  # the bf16 instances (padded_dim in csrc/flash_common.cuh)
+SMEM_MAX = 232448  # dynamic shared memory a CTA can take on the H100
 
 
 def tma_geometry(shape, strides, data_ptr: int, itemsize: int = 2,
@@ -98,6 +107,55 @@ def tma_geometry(shape, strides, data_ptr: int, itemsize: int = 2,
         raise ValueError(f"a TMA box takes 1 to 256 rows, got {rows}")
     return {"dims": (d, h, t, b), "strides_bytes": byte_strides,
             "box": (TMA_SLAB, 1, rows, 1)}
+
+
+def padded_dim(d: int) -> int:
+    """The padded head dim of the bf16 instance that takes d, 0 if none does."""
+    if d <= 0 or d > _MAX_D or d % 8:
+        return 0
+    return next(c for c in _PADDED_DIMS if c >= d)
+
+
+class BwdPlan(NamedTuple):
+    """One bf16 head-dim instance of B3 ("dq") or B4 ("dkv"), as `DqCfg` /
+    `DkvCfg` in csrc/flash_attn_bwd.cu lay it out: `tile` keys per streamed
+    K/V tile (B3) or queries per Q/dO tile (B4), `stages` in the TMA ring,
+    `smem` bytes of dynamic shared memory, `ss_n` the N of its wgmma_ss
+    products (S and dP, or their transposes), `rs_n` the N of its wgmma_rs
+    products (dQ, or dK and dV), `boxes` the TMA box rows of each operand,
+    and the `threads` and `regs` (setmaxnreg) of the producer and the
+    consumer warpgroups."""
+    kernel: str
+    dp: int
+    tile: int
+    stages: int
+    smem: int
+    ss_n: int
+    rs_n: int
+    boxes: Dict[str, int]
+    threads: Tuple[int, int]
+    regs: Tuple[int, int]
+
+
+def bwd_plan(d: int) -> Dict[str, BwdPlan]:
+    """The tiling of B3 and B4 for head dim d -> {"dq": ..., "dkv": ...};
+    pure (no device).  Raises ValueError for a head dim no instance takes."""
+    dp = padded_dim(d)
+    if not dp:
+        raise ValueError(f"head dim {d} not taken (needs D % 8 == 0 and D <= {_MAX_D})")
+    rows, slack = TMA_ROWS, 256 + 1024   # the mbarriers, and the 1 KB alignment of the base
+    split = dict(threads=(128, 256), regs=(24, 240))
+    bn = 128 if dp <= 64 else 64         # S and dP of 64 x bn beside dQ and dS in registers
+    stages = 3 if dp == 160 else 4
+    dq = BwdPlan("dq", dp, bn, stages, 2 * rows * dp * 2 + 2 * stages * bn * dp * 2 + slack,
+                 bn, dp, {"q": rows, "do": rows, "k": bn, "v": bn}, **split)
+    bq = 32 if dp == 160 else 64         # dK and dV alone take dp registers
+    stages = 4
+    dkv = BwdPlan("dkv", dp, bq, stages,
+                  2 * rows * dp * 2 + stages * (2 * bq * dp * 2 + 2 * bq * 4) + slack,
+                  bq, dp, {"k": rows, "v": rows, "q": bq, "do": bq, "lse": bq, "delta": bq},
+                  **split)
+    return {"dq": dq, "dkv": dkv}
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -137,7 +195,21 @@ def _fwd_lib() -> ctypes.CDLL:
 
 def _bwd_lib() -> ctypes.CDLL:
     return _lib("flash_attn_bwd", {"rr_flash_attn_bwd_dq": (7, 10),
-                                   "rr_flash_attn_bwd_dkv": (8, 12)})
+                                   "rr_flash_attn_bwd_dkv": (8, 13)})
+
+
+def library_bwd_plan(d: int) -> Dict[str, Tuple[int, int, int]]:
+    """(tile, stages, smem) of B3 and B4 for head dim d as the built library
+    lays them out, to hold `bwd_plan` against."""
+    fn = _bwd_lib().rr_flash_attn_bwd_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    plans = {}
+    for code, kernel in enumerate(("dq", "dkv")):
+        _raise_on(fn(code, d, out), "flash_attn_bwd_plan")
+        plans[kernel] = tuple(out)
+    return plans
 
 
 def _strides(*xs: torch.Tensor):
@@ -170,9 +242,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tenso
     for name, x in (("q", q), ("k", k), ("v", v)) + tuple(("dO", x) for x in more):
         if x.stride(3) != 1 or x.stride(2) != d:
             raise ValueError(f"{name} needs packed (H, D) dims, got strides {x.stride()}")
-        if q.dtype == torch.bfloat16:
-            # the forward reads q/k/v through TMA; the backward's 16-byte
-            # copies need the same alignment
+        if q.dtype == torch.bfloat16:   # every bf16 kernel reads them through TMA
             tma_geometry(tuple(x.shape), x.stride(), x.data_ptr(), x.element_size())
 
 
@@ -231,6 +301,18 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq
 
 
+def _tma_rows(x: torch.Tensor) -> torch.Tensor:
+    """lse or delta (B·H, Tq) as rows a TMA map can read: each row a multiple
+    of 16 bytes long from a 16-byte aligned base.  x itself when it is so,
+    else a copy with each row padded to a multiple of 4 values."""
+    tq = x.shape[1]
+    if tq % 4 == 0 and x.data_ptr() % 16 == 0:
+        return x
+    out = x.new_zeros((x.shape[0], -(-tq // 4) * 4))
+    out[:, :tq] = x
+    return out
+
+
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             do: torch.Tensor, lse: torch.Tensor,
                             delta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -238,13 +320,15 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, do, who="flash_attention_bwd_dkv")
     _check_rows(q, lse, delta)
     b, tq, h, d = q.shape
+    if q.dtype == torch.bfloat16:       # B4 reads lse and delta through TMA
+        lse, delta = _tma_rows(lse), _tma_rows(delta)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
     err = build.launch(
         _bwd_lib().rr_flash_attn_bwd_dkv, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, h, tq,
-        k.shape[1], d, *_strides(q, k, v, do, dk, dv), 1.0 / math.sqrt(d))
+        k.shape[1], d, *_strides(q, k, v, do, dk, dv), lse.stride(0), 1.0 / math.sqrt(d))
     _raise_on(err, "flash_attn_bwd_dkv")
     _count(flash_attention_bwd_dkv, q)
     return dk, dv

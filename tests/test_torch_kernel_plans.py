@@ -18,6 +18,14 @@ and is held here.
   magnitude (fp32 rounding through a different summation order).
 - `tma_geometry` accepts the q/k/v column slices of a fused qkv projection
   and rejects a stride or a base address TMA cannot take.
+- `bwd_plan`, the tiling of the flash backward kernels B3 (dQ) and B4
+  (dK/dV) at each bf16 head-dim instance, fits the H100: wgmma widths that
+  are multiples of 8 up to 256, shared memory within a CTA's 232,448 bytes,
+  a register split within the SM's 65,536; its TMA boxes (a strided dO
+  among the operands) are boxes TMA takes.  A numpy emulation of B4's query
+  loop shows that the zero-filled query rows past Tq (lse = delta = 0) add
+  exactly nothing to dK and dV, and the lse/delta rows are padded for B4's
+  map only where TMA needs it.
 """
 
 import functools
@@ -29,6 +37,7 @@ import torch
 
 from reflecting_reality_tpu.ops.norms import group_norm as j_group_norm
 from reflecting_reality_tpu_torch.ops.kernels import groupnorm as gn
+from reflecting_reality_tpu_torch.ops.kernels import flash_attention as fa
 from reflecting_reality_tpu_torch.ops.kernels.flash_attention import tma_geometry
 from tests.test_torch_kernels_cuda import MAIN_PATH_GN_SHAPES
 
@@ -201,3 +210,106 @@ def test_tma_geometry_rejects_what_tma_cannot_take(case):
         rows = 512
     with pytest.raises(ValueError):
         tma_geometry(shape, tuple(stride), ptr, 2, rows=rows)
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_bwd_plan_fits_the_card(d):
+    plans = fa.bwd_plan(d)
+    assert set(plans) == {"dq", "dkv"}
+    for kernel, p in plans.items():
+        assert p.kernel == kernel and p.dp == fa.padded_dim(d) >= d
+        for n in (p.ss_n, p.rs_n):          # wgmma takes M = 64 and N = 8, 16, ..., 256
+            assert n % 8 == 0 and 8 <= n <= 256, (kernel, n)
+        assert p.dp % 16 == 0               # whole k16 steps over the 16-column slabs
+        assert p.tile % 16 == 0 and fa.TMA_ROWS % p.tile == 0
+        assert p.smem <= fa.SMEM_MAX, (kernel, p.smem)
+        assert all(24 <= r <= 256 and r % 8 == 0 for r in p.regs)  # setmaxnreg's range
+        assert p.threads == (128, 256)
+        assert sum(t * r for t, r in zip(p.threads, p.regs)) <= 65536
+        assert all(0 < rows <= 256 for rows in p.boxes.values())
+    dq, dkv = plans["dq"], plans["dkv"]
+    assert dq.ss_n == dq.tile and dkv.ss_n == dkv.tile and dq.rs_n == dkv.rs_n == dq.dp
+    # fp32 accumulators and bf16 fragments a consumer thread holds at once
+    # (64 x N accumulators over 128 threads: N / 2 each), with room for
+    # addresses and indices under setmaxnreg 240
+    assert dq.ss_n + dq.rs_n // 2 + dq.ss_n // 4 <= 200
+    assert dkv.ss_n + dkv.rs_n + dkv.ss_n // 2 <= 216
+
+
+@pytest.mark.parametrize("d", [0, 36, 168, 256])
+def test_bwd_plan_raises_for_a_head_dim_no_instance_takes(d):
+    assert fa.padded_dim(d) == 0
+    with pytest.raises(ValueError, match="head dim"):
+        fa.bwd_plan(d)
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_tma_geometry_accepts_the_bwd_boxes(d):
+    """q/k/v as fused-qkv slices and dO as a column slice of a wider tensor,
+    at every box height the backward instance of head dim d loads."""
+    b, t, h = 1, 256, 2
+    qkv = fused_qkv(b=b, t=t, h=h, d=d)
+    do = torch.zeros(b, t, 2 * h * d, dtype=torch.bfloat16)[..., :h * d].unflatten(-1, (h, d))
+    assert not do.is_contiguous()
+    ops = dict(zip(("q", "k", "v"), qkv), do=do)
+    for p in fa.bwd_plan(d).values():
+        for name, rows in p.boxes.items():
+            if name in ops:
+                x = ops[name]
+                geo = tma_geometry(tuple(x.shape), x.stride(), x.data_ptr(), 2, rows=rows)
+                assert geo["box"] == (16, 1, rows, 1)
+    geo = tma_geometry(tuple(do.shape), do.stride(), do.data_ptr(), 2, rows=fa.bwd_plan(d)["dkv"].tile)
+    assert geo["strides_bytes"] == (2 * d, 2 * 2 * h * d, 2 * 2 * h * d * t)
+
+
+@pytest.mark.parametrize("rows", [0, 257, 512])
+def test_tma_geometry_rejects_a_box_past_256_rows(rows):
+    q = fused_qkv()[0]
+    with pytest.raises(ValueError, match="rows"):
+        tma_geometry(tuple(q.shape), q.stride(), q.data_ptr(), 2, rows=rows)
+
+
+@pytest.mark.parametrize("tq", [301, 302, 303, 304, 4096])
+def test_lse_rows_padded_only_where_tma_needs_it(tq):
+    x = torch.randn(6, tq)
+    out = fa._tma_rows(x)
+    if tq % 4 == 0:
+        assert out is x
+    else:
+        assert out.shape == (6, -(-tq // 4) * 4) and out.stride(0) % 4 == 0
+        assert torch.equal(out[:, :tq], x) and not out[:, tq:].any()
+
+
+def test_dkv_query_tail_adds_exactly_nothing():
+    """B4's tile loop in numpy fp32, query rows past Tq as TMA gives them
+    (Q = dO = 0, lse = delta = 0): p = 1 and dS = 0 exactly, so those rows'
+    terms of p^T dO and dS^T Q are exactly 0, and the padded loop agrees with
+    the loop over the Tq real rows (to fp32 summation order)."""
+    rng = np.random.RandomState(0)
+    tq, tk, d, bq = 150, 64, 40, 64
+    q, do = (rng.randn(tq, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(tk, d).astype(np.float32) for _ in range(2))
+    scale = np.float32(1 / np.sqrt(d))
+    s = q @ k.T * scale
+    lse = (np.log(np.exp(s - s.max(1, keepdims=True)).sum(1)) + s.max(1)).astype(np.float32)
+    delta = (do * (np.exp(s - lse[:, None]) @ v)).sum(1).astype(np.float32)
+    pad = -(-tq // bq) * bq - tq
+    q_p, do_p, lse_p, delta_p = (np.concatenate([x, np.zeros((pad,) + x.shape[1:], np.float32)])
+                                 for x in (q, do, lse, delta))
+
+    def dkv(q, do, lse, delta):
+        dk, dv = np.zeros((tk, d), np.float32), np.zeros((tk, d), np.float32)
+        for j in range(0, len(q), bq):
+            qt, ot = q[j:j + bq], do[j:j + bq]
+            pt = np.exp(k @ qt.T * scale - lse[j:j + bq])          # p^T, keys x queries
+            dst = pt * (v @ ot.T - delta[j:j + bq])
+            if j + bq > tq:                                         # the padded rows
+                tail = slice(tq - j, None)
+                assert (pt[:, tail] == 1).all() and (dst[:, tail] == 0).all()
+                assert not (pt[:, tail] @ ot[tail]).any() and not (dst[:, tail] @ qt[tail]).any()
+            dv += pt @ ot
+            dk += dst @ qt
+        return dk * scale, dv
+
+    for a, b in zip(dkv(q_p, do_p, lse_p, delta_p), dkv(q, do, lse, delta)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6 * np.abs(b).max())

@@ -110,11 +110,13 @@ def _bwd(q, k, v, do):
 
 
 @pytest.mark.parametrize("shape,dtype", [
+    ((4, 4096, 8, 40), torch.bfloat16),     # the training step's shape
     ((2, 4096, 8, 40), torch.bfloat16),
     ((1, 4608, 2, 40), torch.bfloat16),
     ((1, 2056, 2, 40), torch.bfloat16),
     ((1, 2048, 2, 80), torch.bfloat16),
     ((1, 2048, 2, 160), torch.bfloat16),
+    ((1, 2056, 1, 152), torch.bfloat16),    # D = 160 instance, ragged rows and columns
     ((1, 72, 1, 64), torch.bfloat16),
     ((1, 2056, 2, 40), torch.float32),
     ((1, 2048, 1, 160), torch.float32),
@@ -132,6 +134,44 @@ def test_flash_bwd_matches_plain(cuda, shape, dtype):
     key = (shape, str(dtype)[6:])
     assert fa.flash_attention_bwd_dq.launches_by_shape[key] >= 1
     assert fa.flash_attention_bwd_dkv.launches_by_shape[key] >= 1
+
+
+@pytest.mark.parametrize("tq,tk,d,dtype", [
+    (301, 517, 64, torch.bfloat16),   # lse/delta rows padded for B4's TMA map
+    (2048, 1000, 40, torch.bfloat16),
+    (200, 3000, 160, torch.bfloat16),
+    (301, 517, 64, torch.float32),
+])
+def test_flash_bwd_unequal_lengths(cuda, tq, tk, d, dtype):
+    """Tq != Tk: query tails in B3's CTAs and B4's tiles, key tails the other way."""
+    g = torch.Generator(cuda).manual_seed(4)
+    q, do = (torch.randn(1, tq, 2, d, generator=g, device=cuda, dtype=dtype) for _ in range(2))
+    k, v = (torch.randn(1, tk, 2, d, generator=g, device=cuda, dtype=dtype) for _ in range(2))
+    got, ref = _bwd(q, k, v, do)
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape
+        assert_flash_close(a, r, dtype)
+
+
+@pytest.mark.parametrize("shape", [(2, 4096, 8, 40), (1, 2056, 2, 152), (1, 2048, 2, 80)])
+def test_flash_bwd_is_deterministic(cuda, shape):
+    """Each output element is summed by one CTA in a fixed order, so two
+    launches on the same inputs give the same bits."""
+    q, k, v, do = _randn(cuda, shape, torch.bfloat16, seed=5)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    delta = fa.flash_attention_delta(out, do)
+    first = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+             *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+    second = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+              *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_bwd_plan_is_the_library_tiling(cuda):
+    for d in (40, 64, 80, 152, 160):
+        plan = fa.bwd_plan(d)
+        assert fa.library_bwd_plan(d) == {k: (p.tile, p.stages, p.smem) for k, p in plan.items()}
 
 
 def test_flash_bwd_reads_strided_slices(cuda):
