@@ -57,13 +57,33 @@ Phases, each printing one JSON line:
              master weights, 512² batch 4, depth concat, AdamW lr 5e-6 without
              warm-up.  A warm step, then TRAIN_REPEATS timed steps (median
              s/step, samples/s, peak memory), one step with gradient
-             checkpointing, and one traced step (idle share, device time by
-             kind).  Every loss finite, BrushNet moved, UNet/VAE/CLIP
-             bit-identical, and per step B1/B3/B4 launch 5/5/5 (10/5/5 with
-             checkpointing).
+             checkpointing under each policy ("full", "dots"), and one traced
+             step (idle share, device time by kind).  Every loss finite,
+             BrushNet moved, UNet/VAE/CLIP bit-identical, and per step
+             B1/B3/B4 launch 5/5/5 (10/5/5 with checkpointing under either
+             policy).
+  9. train_cli  the training CLI (`cli.train.main`) end to end: a base
+             folder at full SD-1.5 width from seeded weights in bf16
+             safetensors (written by the port's `save_pretrained`), a
+             16-sample 512² latent-moments cache and its train.csv; 8 steps
+             (bf16, batch 4, depth concat, checkpoints every 4, total limit
+             1), a resume to step 10, 4 steps with --device_cache and 4 with
+             --steps_per_dispatch 2 and --async_save; then
+             `StableDiffusionBrushNetPipeline.from_pretrained` on
+             checkpoint-8 with the safetensors package blocked and a 4-step
+             512² call.  Checks: finite losses, BrushNet moved, frozen modules
+             bit-identical to the folder, checkpoint-4 pruned, the resume
+             bit-identical (BrushNet, AdamW moments, step 8), 5/5/5 launches
+             per CLI step, the first batch the step sees equal to the host
+             batch cast to bf16, no h5py/pandas/PIL/safetensors/msgpack
+             imported.  Prints s/step beside train_main's, the loader's share
+             of a step, H2D per batch (in the loop, and the packed copy
+             alone, back-to-back), checkpoint and resume seconds and GB,
+             peak memory and the phase's wall time.
 Then `kernels_detail` (every measured kernel and shape with the launches
-each path gave that shape: the main path's 8-step call and the timed
-training steps, 0 where none), the `{"kernels": [...]}` summary line (the
+each path gave that shape: the main path's 8-step call, the timed training
+steps and the CLI's first 8 steps, 0 where none), the `{"kernels": [...]}`
+summary line (the
 kernels and shapes the paths launched), the nvidia-smi name/power-limit
 line, and last `{"ok": true, "device": {...}}`.  Any failed check raises and
 the script exits non-zero; without a CUDA device it exits non-zero at once.
@@ -75,6 +95,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import importlib.util
 import json
 import math
 import os
@@ -859,6 +880,10 @@ def phase_train_main(torch, gpu_line: str) -> dict:
     step_ckpt, _ = make_train_step(unet, brushnet, vae, text,
                                    dataclasses.replace(config, gradient_checkpointing=True),
                                    dtype=torch.bfloat16)
+    step_dots, _ = make_train_step(unet, brushnet, vae, text,
+                                   dataclasses.replace(config, gradient_checkpointing=True,
+                                                       gradient_checkpointing_policy="dots"),
+                                   dtype=torch.bfloat16)
     state = init_state()
 
     rng = np.random.RandomState(SEED)
@@ -912,6 +937,13 @@ def phase_train_main(torch, gpu_line: str) -> dict:
     t_ckpt = time.perf_counter() - t0
     ckpt = {"s": t_ckpt, "launches": read_counters(),
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    run(step_dots)
+    torch.cuda.synchronize()
+    dots = {"s": time.perf_counter() - t0, "launches": read_counters(),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
     traced = trace(torch, lambda: run(step))
 
     moved = {k: (bn_params[k].detach() - before[k]).abs().max().item() for k in watched}
@@ -925,18 +957,374 @@ def phase_train_main(torch, gpu_line: str) -> dict:
           "max_memory_allocated_bytes": peak, "launches_per_step": per_step,
           "losses": losses, "last_grad_norm": float(m["grad_norm"]),
           "brushnet_max_abs_change": moved, "frozen_bit_identical": frozen_same,
-          "gradient_checkpointing_step": ckpt, "trace": traced})
+          "gradient_checkpointing_step": ckpt, "gradient_checkpointing_dots_step": dots,
+          "trace": traced})
     if not all(v > 0 for v in moved.values()) or not all(frozen_same.values()):
         raise AssertionError(f"train step moved {moved}, frozen unchanged {frozen_same}")
     want = {"flash": 5, "flash_bwd_dq": 5, "flash_bwd_dkv": 5}
     if any(per_step[k] != v for k, v in want.items()) or per_step["groupnorm"] == 0:
         raise AssertionError(f"train step launches per step {per_step}, want {want}")
-    got_ckpt = ckpt["launches"]
-    if (got_ckpt["flash"], got_ckpt["flash_bwd_dq"], got_ckpt["flash_bwd_dkv"]) != (10, 5, 5):
-        raise AssertionError(f"checkpointed step launches {got_ckpt}, want 10/5/5")
+    # under either policy the flash forward (an opaque autograd Function) is
+    # recomputed with the rest of the forward: 10/5/5
+    for policy, got in (("full", ckpt["launches"]), ("dots", dots["launches"])):
+        if (got["flash"], got["flash_bwd_dq"], got["flash_bwd_dkv"]) != (10, 5, 5):
+            raise AssertionError(f"checkpointed ({policy}) step launches {got}, want 10/5/5")
     del state, unet, brushnet, vae, text
     torch.cuda.empty_cache()
-    return by_shape
+    return by_shape, s_step
+
+
+# ---------------------------------------------------------------- phase 9
+
+CLI_SAMPLES = 16                    # latent-cache samples of the train_cli phase
+CLI_PX = 512                        # their resolution (latents CLI_PX / 8)
+ABSENT_MODULES = ("h5py", "pandas", "PIL", "safetensors", "msgpack")
+
+
+def write_base_folder(torch, base: str) -> dict:
+    """A diffusers-layout SD-1.5 folder at full width from seeded weights,
+    in bf16 safetensors, written by the port's own writers -> {subfolder:
+    seconds}."""
+    from reflecting_reality_tpu_torch.core.io import cast_floating, save_pretrained, save_safetensors
+    from reflecting_reality_tpu_torch.data.tokenizer import write_byte_vocab
+    from reflecting_reality_tpu_torch.models.clip_text import CLIPTextModel
+    from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
+    from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+
+    torch.manual_seed(SEED)
+    took = {}
+    for sub, cls in (("unet", UNet2DConditionModel), ("vae", AutoencoderKL),
+                     ("text_encoder", CLIPTextModel)):
+        t0 = time.perf_counter()
+        with torch.device("cuda"):
+            module = cls()
+        state = cast_floating(module.state_dict(), torch.bfloat16)
+        folder = os.path.join(base, sub)
+        if sub == "text_encoder":         # the transformers layout
+            module.save_config(folder)
+            save_safetensors(state, os.path.join(folder, "model.safetensors"))
+        else:
+            save_pretrained(module, folder, state)
+        del module, state
+        took[sub] = time.perf_counter() - t0
+    write_byte_vocab(os.path.join(base, "tokenizer"))
+    torch.cuda.empty_cache()
+    return took
+
+
+def write_latent_cache(data: str, cache: str, n: int) -> None:
+    """`n` samples at CLI_PX² in the precompute tool's .npz layout, fp16
+    moments, and a train.csv written with `csv`."""
+    import csv
+
+    import numpy as np
+
+    from reflecting_reality_tpu_torch.data.latent_cache import cache_name
+
+    rng = np.random.RandomState(SEED)
+    hl = CLI_PX // 8
+
+    def moments():                      # mean ‖ logvar
+        return np.concatenate([rng.standard_normal((hl, hl, 4)),
+                               rng.uniform(-6.0, -2.0, (hl, hl, 4))], axis=-1).astype(np.float16)
+
+    os.makedirs(cache)
+    rows = [{"uid": f"uid{i}", "path": f"obj/{i}.hdf5",
+             "auto_caption": f"a framed mirror on a wall, scene {i}"} for i in range(n)]
+    with open(os.path.join(data, "train.csv"), "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    mask = np.zeros((hl, hl, 1), np.float32)
+    mask[hl // 4: 3 * hl // 4, hl // 3: 2 * hl // 3] = 1.0
+    for i, row in enumerate(rows):
+        np.savez(os.path.join(cache, cache_name(row, i)), latent_moments=moments(),
+                 cond_latent_moments=moments(), masks=mask,
+                 depths=rng.uniform(-1.0, 1.0, (hl, hl, 1)).astype(np.float32))
+
+
+def read_metrics(out: str) -> list:
+    with open(os.path.join(out, "logs", "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_train_cli(torch, gpu_line: str, train_main_s_step: float) -> dict:
+    """The training CLI end to end at full width on the card -> {(kernel,
+    key): launches} over its first run's 8 steps."""
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+
+    from reflecting_reality_tpu_torch.cli import train as cli
+    from reflecting_reality_tpu_torch.core.io import WEIGHTS_NAME, load_safetensors
+    from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
+        StableDiffusionBrushNetPipeline,
+    )
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="train_cli_")
+    try:
+        base, data = os.path.join(tmp, "base"), os.path.join(tmp, "data")
+        cache = os.path.join(tmp, "cache")
+        os.makedirs(data)
+        t0 = time.perf_counter()
+        folder_s = write_base_folder(torch, base)
+        folder_gb = sum(os.path.getsize(os.path.join(d, f))
+                        for d, _, fs in os.walk(base) for f in fs) / 1e9
+        write_latent_cache(data, cache, CLI_SAMPLES)
+        setup_s = time.perf_counter() - t0
+
+        def argv(out, *extra):
+            return ["--pretrained_model_name_or_path", base, "--train_data_dir", data,
+                    "--output_dir", out, "--logging_dir", os.path.join(out, "logs"),
+                    "--mixed_precision", "bf16", "--train_batch_size", str(TRAIN_BATCH),
+                    "--depth_conditioning_mode", "concat", "--learning_rate", "5e-6",
+                    "--lr_warmup_steps", "0", "--precomputed_latents_dir", cache,
+                    "--dataloader_num_workers", "4", "--log_every", "1",
+                    "--validation_steps", "0", "--report_to", "none", "--seed", "0", *extra]
+
+        # instrumentation: the initial BrushNet, the first host batch, the
+        # first batch the step sees, and the state right after a resume
+        seen = {}
+        real_load_models, real_prefetch = cli.load_models, cli.prefetch_to_device
+        real_make_step, real_load_state = cli.make_train_step, cli.ckpt.load_state
+
+        def load_models(args):
+            out = real_load_models(args)
+            seen.setdefault("brushnet0", {k: v.clone() for k, v in out[1].state_dict().items()})
+            return out
+
+        def prefetch(iterator, *a, **kw):
+            def tee():
+                for b in iterator:
+                    seen.setdefault("host_batch", {k: v.copy() for k, v in b.items()})
+                    yield b
+            return real_prefetch(tee(), *a, **kw)
+
+        def make_train_step(*a, **kw):
+            step, init = real_make_step(*a, **kw)
+
+            def recording(state, batch, generator, **k2):
+                seen.setdefault("step_batch", {k: v.detach().cpu().clone()
+                                               for k, v in batch.items()})
+                return step(state, batch, generator, **k2)
+            return recording, init
+
+        def load_state(path, state):
+            state = real_load_state(path, state)
+            opt = state.optimizer.state_dict()["state"]
+            seen["resumed"] = {
+                "step": state.step,
+                "brushnet": {k: v.detach().cpu().clone()
+                             for k, v in state.trainable["brushnet"].state_dict().items()},
+                "moments": {i: (s["exp_avg"].cpu().clone(), s["exp_avg_sq"].cpu().clone())
+                            for i, s in opt.items()}}
+            return state
+
+        runs = {}
+        with mock.patch.object(cli, "load_models", load_models), \
+                mock.patch.object(cli, "prefetch_to_device", prefetch), \
+                mock.patch.object(cli, "make_train_step", make_train_step), \
+                mock.patch.object(cli.ckpt, "load_state", load_state):
+            out_a = os.path.join(tmp, "run")
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            t0 = time.perf_counter()
+            state = cli.main(argv(out_a, "--max_train_steps", "8", "--checkpointing_steps", "4",
+                                  "--checkpoints_total_limit", "1"))
+            torch.cuda.synchronize()
+            runs["train"] = {"wall_s": time.perf_counter() - t0,
+                             "launches": read_counters(), "steps": 8}
+            cli_by_shape = read_counters_by_shape()
+            peak = torch.cuda.max_memory_allocated()
+            trained = {k: v.detach().cpu().clone()
+                       for k, v in state.trainable["brushnet"].state_dict().items()}
+            frozen = {sub: state.frozen[name] for sub, name in
+                      (("unet", "unet"), ("vae", "vae"), ("text_encoder", "text"))}
+            frozen_same = {}
+            for sub, module in frozen.items():
+                fname = "model.safetensors" if sub == "text_encoder" else WEIGHTS_NAME
+                ref = load_safetensors(os.path.join(base, sub, fname))
+                frozen_same[sub] = all(torch.equal(v.detach().cpu(), ref[k])
+                                       for k, v in module.state_dict().items())
+            del state, frozen
+            torch.cuda.empty_cache()
+            listing_a = sorted(os.listdir(out_a))
+
+            reset_counters()
+            t0 = time.perf_counter()
+            cli.main(argv(out_a, "--max_train_steps", "10", "--checkpointing_steps", "4",
+                          "--checkpoints_total_limit", "1", "--resume_from_checkpoint",
+                          "latest"))
+            torch.cuda.synchronize()
+            runs["resume"] = {"wall_s": time.perf_counter() - t0,
+                              "launches": read_counters(), "steps": 2}
+            shutil.rmtree(os.path.join(out_a, "checkpoint-10"))     # 7.4 GB not needed
+            torch.cuda.empty_cache()
+            for name, extra in (("device_cache", ("--device_cache",)),
+                                ("steps_per_dispatch_2", ("--steps_per_dispatch", "2",
+                                                          "--async_save",
+                                                          "--checkpointing_steps", "2",
+                                                          "--checkpoints_total_limit", "1"))):
+                out = os.path.join(tmp, name)
+                reset_counters()
+                t0 = time.perf_counter()
+                cli.main(argv(out, "--max_train_steps", "4", *extra))
+                torch.cuda.synchronize()
+                runs[name] = {"wall_s": time.perf_counter() - t0, "launches": read_counters(),
+                              "steps": 4, "metrics": read_metrics(out)}
+                shutil.rmtree(out)
+                torch.cuda.empty_cache()
+
+        # the checkpoint read back through the port's reader, then the
+        # pipeline loading it with the safetensors package blocked
+        ckpt8 = os.path.join(out_a, "checkpoint-8", "brushnet")
+        saved8 = load_safetensors(os.path.join(ckpt8, WEIGHTS_NAME))
+        saved_same = all(torch.equal(saved8[k], v) for k, v in trained.items())
+        with mock.patch.dict(sys.modules, {"safetensors": None}):
+            t0 = time.perf_counter()
+            pipe = StableDiffusionBrushNetPipeline.from_pretrained(
+                base, brushnet_path=ckpt8, depth_conditioning_mode="concat",
+                dtype=torch.bfloat16, device="cuda")
+            pipe_load_s = time.perf_counter() - t0
+        pipe_same = all(torch.equal(v.cpu(), trained[k].to(torch.bfloat16))
+                        for k, v in pipe.brushnet.state_dict().items())
+        rng = np.random.RandomState(SEED)
+        px = CLI_PX
+        mask = np.zeros((px, px, 3), np.float32)
+        mask[px // 4: 3 * px // 4, px // 3: 2 * px // 3] = 1.0
+        kw = dict(prompt="a framed mirror on a wall", image=rng.rand(px, px, 3).astype(np.float32),
+                  mask=mask, depth=rng.rand(px, px, 1).astype(np.float32),
+                  num_inference_steps=4, guidance_scale=7.5, seed=SEED)
+        image_f = pipe(**kw, output_type="latent")
+        image_u8 = pipe(**kw, output_type="np")
+        del pipe
+        torch.cuda.empty_cache()
+
+        # the upload alone: the first host batch packed as the loader packs
+        # it, copied back-to-back from its pinned buffer on an idle card
+        from reflecting_reality_tpu_torch.data import loader as data_loader
+
+        flat, _, nbytes = data_loader._pack(seen["host_batch"], torch.bfloat16, (), pin=True)
+        packed = flat[:nbytes]
+        h2d_copy_ms = cuda_ms(torch, lambda: packed.to("cuda", non_blocking=True))
+
+        metrics_a = read_metrics(out_a)
+        steps_a = [r for r in metrics_a if "loss" in r]
+        resumed = seen["resumed"]
+        saved_opt = torch.load(os.path.join(out_a, "checkpoint-8", "train_state.pt"),
+                               map_location="cpu", weights_only=True)["optimizer"]["state"]
+        timed = [r for r in steps_a if 2 <= r["step"] <= 8]       # run 1, after its first step
+
+        def med(rows, key):
+            vals = [r[key] for r in rows if key in r]
+            return statistics.median(vals) if vals else "not measured"
+
+        losses = {"train": [r["loss"] for r in steps_a if r["step"] <= 8],
+                  "resume": [r["loss"] for r in steps_a if r["step"] > 8]}
+        losses.update({name: [r["loss"] for r in runs[name]["metrics"] if "loss" in r]
+                       for name in ("device_cache", "steps_per_dispatch_2")})
+        host_bf16 = {k: torch.from_numpy(v).to(torch.bfloat16)
+                     if v.dtype == np.float32 else torch.from_numpy(v)
+                     for k, v in seen["host_batch"].items()}
+        first_batch_same = (set(host_bf16) == set(seen["step_batch"]) and all(
+            torch.equal(host_bf16[k], seen["step_batch"][k]) for k in host_bf16))
+        moved = max((trained[k] - seen["brushnet0"][k]).abs().max().item() for k in trained)
+        sync = [r for r in metrics_a if "checkpoint_s" in r]
+        async_rows = runs["steps_per_dispatch_2"]["metrics"]
+        per_step = {k: v / runs["train"]["steps"] for k, v in runs["train"]["launches"].items()}
+        res = {
+            "phase": "train_cli", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}",
+            "batch": TRAIN_BATCH,
+            "samples": CLI_SAMPLES, "base_folder_gb_bf16": folder_gb,
+            "base_folder_write_s": folder_s, "setup_s": setup_s,
+            "runs_wall_s": {k: v["wall_s"] for k, v in runs.items()},
+            "cli_s_per_step_median_steps_2_8": med(timed, "s_per_step"),
+            "cli_s_per_step_each": {name: [round(r["s_per_step"], 4) for r in rows]
+                                    for name, rows in (
+                                        ("train", steps_a),
+                                        ("device_cache", [r for r in runs["device_cache"]
+                                                          ["metrics"] if "loss" in r]),
+                                        ("steps_per_dispatch_2", [r for r in async_rows
+                                                                  if "loss" in r]))},
+            "h2d_ms_each": [round(r["h2d_ms"], 4) for r in steps_a if "h2d_ms" in r],
+            "cli_samples_per_s_median_steps_2_8": med(timed, "samples_per_s"),
+            "train_main_s_per_step": train_main_s_step,
+            "train_main_samples_per_s": TRAIN_BATCH / train_main_s_step,
+            "loader_share_median": statistics.median(
+                r["data_wait_s"] / (r["data_wait_s"] + r["dispatch_s"]) for r in timed),
+            "data_wait_s_median": med(timed, "data_wait_s"),
+            "h2d_ms_median": med(timed, "h2d_ms"),
+            "h2d_copy_alone": {"bytes": nbytes, "ms": h2d_copy_ms,
+                               "gb_per_s": nbytes / h2d_copy_ms / 1e6},
+            "checkpoint_sync": [{"step": r["step"], "s": r["checkpoint_s"],
+                                 "gb": r["checkpoint_gb"]} for r in sync],
+            "checkpoint_async": {
+                "wait_s_snapshot_s": [(r["step"], r["checkpoint_async_wait_s"],
+                                       r["checkpoint_async_snapshot_s"])
+                                      for r in async_rows if "checkpoint_async_wait_s" in r],
+                "write_s_gb": [(r["step"], r["checkpoint_async_write_s"], r["checkpoint_gb"])
+                               for r in async_rows if "checkpoint_async_write_s" in r]},
+            "resume_s": [r["resume_s"] for r in metrics_a if "resume_s" in r],
+            "pipeline_load_s_without_safetensors": pipe_load_s,
+            "max_memory_allocated_bytes_run_1": peak,
+            "device_cache_s_per_step_median": med(
+                [r for r in runs["device_cache"]["metrics"] if r.get("step", 0) >= 2],
+                "s_per_step"),
+            "steps_per_dispatch_2_s_per_step_median": med(
+                [r for r in async_rows if r.get("step", 0) >= 3], "s_per_step"),
+            "launches_per_step": per_step,
+            "launches_by_run": {k: v["launches"] for k, v in runs.items()},
+            "losses": losses,
+            "brushnet_max_abs_change": moved, "frozen_bit_identical": frozen_same,
+            "run_1_listing": listing_a, "resumed_step": resumed["step"],
+            "resumed_brushnet_bit_identical": all(
+                torch.equal(resumed["brushnet"][k], saved8[k]) for k in saved8),
+            "resumed_moments_bit_identical": all(
+                torch.equal(resumed["moments"][i][0], saved_opt[i]["exp_avg"])
+                and torch.equal(resumed["moments"][i][1], saved_opt[i]["exp_avg_sq"])
+                for i in saved_opt) and len(saved_opt) == len(resumed["moments"]),
+            "checkpoint_8_bit_identical": saved_same, "pipeline_brushnet_bit_identical": pipe_same,
+            "first_batch_bf16_equal": first_batch_same,
+            "pipeline_image": {"shape": list(image_u8.shape), "dtype": str(image_u8.dtype),
+                               "finite": bool(np.isfinite(image_f).all())},
+            "absent_modules": {m: m not in sys.modules or sys.modules[m] is None
+                               for m in ABSENT_MODULES},
+        }
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(res)
+    bad = []
+    if not all(math.isfinite(x) for ls in losses.values() for x in ls) \
+            or [len(losses[k]) for k in ("train", "resume", "device_cache",
+                                         "steps_per_dispatch_2")] != [8, 2, 4, 4]:
+        bad.append("losses")
+    if not moved > 0 or not all(frozen_same.values()):
+        bad.append("brushnet moved / frozen modules unchanged")
+    if "checkpoint-4" in listing_a or "checkpoint-8" not in listing_a \
+            or any(n.endswith(".tmp") for n in listing_a):
+        bad.append(f"checkpoint listing {listing_a}")
+    if res["resumed_step"] != 8 or not res["resumed_brushnet_bit_identical"] \
+            or not res["resumed_moments_bit_identical"]:
+        bad.append("resume")
+    if not (saved_same and pipe_same):
+        bad.append("checkpoint-8 BrushNet against the trained one")
+    want = {"flash": 5, "flash_bwd_dq": 5, "flash_bwd_dkv": 5}
+    if any(per_step[k] != v for k, v in want.items()) or per_step["groupnorm"] == 0:
+        bad.append(f"launches per CLI step {per_step}")
+    if not first_batch_same:
+        bad.append("the first batch the step saw is not the host batch cast to bf16")
+    if res["pipeline_image"] != {"shape": [1, CLI_PX, CLI_PX, 3], "dtype": "uint8",
+                                 "finite": True}:
+        bad.append(f"pipeline image {res['pipeline_image']}")
+    if not all(res["absent_modules"].values()):
+        bad.append(f"modules imported: {res['absent_modules']}")
+    if bad:
+        raise AssertionError(f"train_cli failed: {bad}")
+    return cli_by_shape
 
 
 # ------------------------------------------------------------------ main
@@ -956,28 +1344,34 @@ def main() -> int:
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability(0)),
           "device_count": torch.cuda.device_count(), "nvidia_smi": gpu_line,
+          "importable": {m: importlib.util.find_spec(m) is not None for m in ABSENT_MODULES},
           "clocks_max_sm_mhz": max_sm_clock_hz() / 1e6})
     phase_build(torch)
     entries = phase_kernels(torch)
     phase_slice(torch)
     by_shape = phase_main(torch, gpu_line)
     phase_train_parity(torch)
-    train_by_shape = phase_train_main(torch, gpu_line)
+    train_by_shape, train_s_step = phase_train_main(torch, gpu_line)
+    cli_by_shape = phase_train_cli(torch, gpu_line, train_s_step)
 
     # each entry carries the launches of its own kernel, shape and dtype on
-    # each path: the main path's 8-step call (and per denoise step) and the
-    # TRAIN_REPEATS timed training steps (and per training step)
+    # each path: the main path's 8-step call (and per denoise step), the
+    # TRAIN_REPEATS timed training steps (and per training step) and the
+    # training CLI's first run (8 steps)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []
     for e in entries:
         row = {k: e.get(k) for k in keys if k != "launches"}
         main_n, train_n = by_shape[8].get(e["key"], 0), train_by_shape.get(e["key"], 0)
-        row["launches"] = main_n + train_n
+        cli_n = cli_by_shape.get(e["key"], 0)
+        row["launches"] = main_n + train_n + cli_n
         row["launches_by_path"] = {"main_path_8_steps": main_n,
-                                   f"train_main_{TRAIN_REPEATS}_steps": train_n}
+                                   f"train_main_{TRAIN_REPEATS}_steps": train_n,
+                                   "train_cli_8_steps": cli_n}
         row["launches_per_denoise_step"] = (main_n - by_shape[4].get(e["key"], 0)) / 4
         row["launches_per_train_step"] = train_n / TRAIN_REPEATS
+        row["launches_per_cli_step"] = cli_n / 8
         row.update({k: e[k] for k in e if k not in row and k not in ("key", "kernel", "ms")})
         rows.append(row)
     emit({"phase": "kernels_detail", "kernels": rows})

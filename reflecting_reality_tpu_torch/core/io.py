@@ -13,12 +13,20 @@ numpy arrays) across to the port's `state_dict` layout without importing JAX:
   * norm   `scale`                    named ``weight``
   * embed  `embedding`                named ``weight``
   * ``resnets_0`` -> ``resnets.0`` for the container stems below
+
+The safetensors format is read and written here, without the `safetensors`
+package: an 8-byte little-endian header length, a JSON header (`dtype`,
+`shape`, `data_offsets` per tensor, optional `__metadata__`), then the raw
+little-endian bytes.  `save_pretrained` writes the folder layout of the JAX
+package's `save_pretrained` (config.json + diffusion_pytorch_model.safetensors).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
+import struct
 from typing import Any, Dict, Iterable, Mapping, Optional
 
 import numpy as np
@@ -26,6 +34,13 @@ import torch
 from torch import nn
 
 WEIGHTS_NAME = "diffusion_pytorch_model.safetensors"
+
+_ST_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
+    "U8": torch.uint8, "BOOL": torch.bool,
+}
+_ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
 
 # Container (ModuleList) stems used across the model zoo.  linear_1/linear_2,
 # norm1... are real leaf module names and must NOT be split.
@@ -132,10 +147,97 @@ def load_into(module: nn.Module, state: Mapping[str, Any], where: str = "checkpo
     return module
 
 
-def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
-    from safetensors.torch import load_file
+def _readinto(f, buf: memoryview) -> None:
+    """Fill `buf` from `f` (one read can return less than asked: Linux caps a
+    read at 2 GiB)."""
+    done = 0
+    while done < len(buf):
+        n = f.readinto(buf[done:])
+        if not n:
+            raise ValueError(f"{f.name}: file ends {len(buf) - done} bytes early")
+        done += n
 
-    return dict(load_file(path))
+
+def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A safetensors file -> {name: CPU tensor} in the file's dtypes.  The
+    data section is read in one pass into one preallocated buffer and every
+    tensor is a view of it (a copy only where a foreign file leaves a tensor
+    misaligned for its dtype)."""
+    with open(path, "rb", buffering=0) as f:
+        head = f.read(8)
+        if len(head) != 8:
+            raise ValueError(f"{path}: not a safetensors file")
+        (n,) = struct.unpack("<Q", head)
+        header = json.loads(f.read(n))
+        header.pop("__metadata__", None)
+        data = torch.empty(os.fstat(f.fileno()).st_size - 8 - n, dtype=torch.uint8)
+        _readinto(f, memoryview(data.numpy()))
+    out = {}
+    for name, info in header.items():
+        dtype = _ST_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: {name} has unsupported dtype {info['dtype']}")
+        start, end = info["data_offsets"]
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if end - start != itemsize * int(np.prod(info["shape"], dtype=np.int64)) \
+                or end > data.numel():
+            raise ValueError(f"{path}: {name} offsets {start}:{end} do not fit "
+                             f"{info['dtype']} {info['shape']}")
+        raw = data[start:end]
+        if start % itemsize:
+            raw = raw.clone()
+        out[name] = raw.view(dtype).reshape(info["shape"])
+    return out
+
+
+def save_safetensors(state: Mapping[str, Any], path: str) -> None:
+    """Write {name: tensor or array} as a safetensors file: the tensors in
+    the order (larger item size first, then name), contiguous offsets, the
+    header padded with spaces to 8 bytes, so every tensor is aligned for
+    its dtype."""
+    tensors = {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v)))
+               .detach().cpu().contiguous() for k, v in state.items()}
+    order = sorted(tensors, key=lambda k: (-tensors[k].element_size(), k))
+    header: Dict[str, Any] = {}
+    offset = 0
+    for k in order:
+        t = tensors[k]
+        size = t.numel() * t.element_size()
+        header[k] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [offset, offset + size]}
+        offset += size
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for k in order:
+            f.write(memoryview(tensors[k].reshape(-1).view(torch.uint8).numpy()))
+
+
+def cast_floating(state: Mapping[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Floating-point tensors cast to `dtype`; integer and bool ones kept."""
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in state.items()}
+
+
+def save_pretrained(module: nn.Module, save_directory: str,
+                    state_dict: Optional[Mapping[str, torch.Tensor]] = None) -> None:
+    """config.json + diffusion_pytorch_model.safetensors, the layout of the
+    JAX package's `save_pretrained`.  `state_dict` (default: the module's)
+    lets a caller write a host snapshot or a cast copy."""
+    os.makedirs(save_directory, exist_ok=True)
+    module.save_config(save_directory)
+    save_safetensors(module.state_dict() if state_dict is None else state_dict,
+                     os.path.join(save_directory, WEIGHTS_NAME))
+
+
+def empty_module(cls, config: Mapping[str, Any], **overrides) -> nn.Module:
+    """`cls.from_config(config)` with uninitialised CPU parameters: built on
+    the meta device (no random init of every weight), then given storage.
+    Only for modules whose every tensor is about to be loaded."""
+    with torch.device("meta"):
+        module = cls.from_config(dict(config), **overrides)
+    return module.to_empty(device="cpu")
 
 
 def load_pretrained(cls, pretrained_path: str, subfolder: Optional[str] = None,
@@ -143,7 +245,7 @@ def load_pretrained(cls, pretrained_path: str, subfolder: Optional[str] = None,
     """Build `cls` from a reference-layout folder's config.json and load its
     safetensors strictly (on the CPU, in fp32; the caller moves it)."""
     root = os.path.join(pretrained_path, subfolder) if subfolder else pretrained_path
-    module = cls.from_config(cls.load_config(root), **overrides)
+    module = empty_module(cls, cls.load_config(root), **overrides)
     for name in (WEIGHTS_NAME, "diffusion_pytorch_model.fp16.safetensors"):
         p = os.path.join(root, name)
         if os.path.exists(p):

@@ -158,6 +158,19 @@ class CLIPTokenizer:
         return out
 
 
+def write_byte_vocab(tok_dir: str) -> None:
+    """A valid byte-level CLIP `tokenizer/` folder with no merges: every word
+    splits into byte tokens and their `</w>` variants (ids < 514), for
+    checkpoints made from a seed."""
+    os.makedirs(tok_dir, exist_ok=True)
+    chars = list(_bytes_to_unicode().values())
+    tokens = chars + [c + "</w>" for c in chars] + ["<|startoftext|>", "<|endoftext|>"]
+    with open(os.path.join(tok_dir, "vocab.json"), "w") as f:
+        json.dump({t: i for i, t in enumerate(tokens)}, f)
+    with open(os.path.join(tok_dir, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+
+
 class HashTokenizer:
     """Deterministic stand-in for tiny-config tests: stable ids in [0, vocab)."""
 

@@ -129,17 +129,15 @@ class CLIPTextModel(nn.Module, ConfigMixin):
 def load_text_encoder(base_path: str, subfolder: str = "text_encoder") -> CLIPTextModel:
     """A strict load from a transformers-layout folder (config.json +
     model.safetensors), the layout SD checkpoints ship; CPU, fp32."""
-    from reflecting_reality_tpu_torch.core.io import load_into, load_safetensors
+    from reflecting_reality_tpu_torch.core.io import empty_module, load_into, load_safetensors
 
     root = os.path.join(base_path, subfolder)
     cfg = {}
     cfg_path = os.path.join(root, "config.json")
     if os.path.exists(cfg_path):
         with open(cfg_path) as f:
-            raw = json.load(f)
-        known = CLIPTextModel._config_field_names()
-        cfg = {k: v for k, v in raw.items() if k in known}
-    module = CLIPTextModel(**cfg)
+            cfg = json.load(f)
+    module = empty_module(CLIPTextModel, cfg)
     for name in ("model.safetensors", "pytorch_model.safetensors"):
         path = os.path.join(root, name)
         if os.path.exists(path):

@@ -79,7 +79,12 @@ class StableDiffusionBrushNetPipeline:
         scaling_factor: float = 0.18215,
         dtype: torch.dtype = torch.float32,
         device: Union[str, torch.device, None] = None,
+        cast_modules: bool = True,
     ):
+        """`cast_modules=False` uses the modules as they are (moved to
+        `device` if they are elsewhere, never cast) and runs every call
+        under `torch.autocast` in `dtype`: the training CLI's validation
+        runs the live modules this way, fp32 BrushNet masters and all."""
         if normals_conditioning_mode is not None:
             raise NotImplementedError("normals conditioning modes are not ported yet")
         if depth_conditioning_mode not in (None, "concat"):
@@ -87,10 +92,12 @@ class StableDiffusionBrushNetPipeline:
                 f"depth_conditioning_mode={depth_conditioning_mode!r} is not ported yet")
         self.device = resolve_device(device)
         self.dtype = dtype
-        self.vae = vae.to(self.device, dtype).eval()
-        self.text_encoder = text_encoder.to(self.device, dtype).eval()
-        self.unet = unet.to(self.device, dtype).eval()
-        self.brushnet = brushnet.to(self.device, dtype).eval()
+        to = (dtype,) if cast_modules else ()
+        self.vae = vae.to(self.device, *to).eval()
+        self.text_encoder = text_encoder.to(self.device, *to).eval()
+        self.unet = unet.to(self.device, *to).eval()
+        self.brushnet = brushnet.to(self.device, *to).eval()
+        self.autocast = not cast_modules and dtype != torch.float32
         self.tokenizer = tokenizer
         self.schedule = schedule or NoiseSchedule.create(
             num_train_timesteps=1000, beta_start=0.00085, beta_end=0.012,
@@ -201,8 +208,16 @@ class StableDiffusionBrushNetPipeline:
 
     # ----------------------------------------------------------------- call
 
+    def __call__(self, *args, **kwargs):
+        """Generate (see `generate`), under autocast where the pipeline runs
+        modules it did not cast."""
+        if not self.autocast:
+            return self.generate(*args, **kwargs)
+        with torch.autocast(self.device.type, dtype=self.dtype):
+            return self.generate(*args, **kwargs)
+
     @torch.inference_mode()
-    def __call__(
+    def generate(
         self,
         prompt: Union[str, Sequence[str]],
         image,                                  # masked image (hole zeroed)

@@ -1,7 +1,8 @@
 """Host-side image pre/post-processing (reference: src/diffusers/image_processor.py
 VaeImageProcessor.preprocess:446 / postprocess:557), numpy + PIL, NHWC.
 
-The device never sees PIL objects: preprocess produces float32 NHWC arrays in
+The device never sees PIL objects, and PIL is imported only where an image
+is resized or a PIL image is made: preprocess produces float32 NHWC arrays in
 [-1, 1] (bicubic resize, matching PIL's default used by the reference), and
 postprocess maps decoded latents back to uint8 HWC images.  All batching is
 plain numpy so it can run in dataloader worker threads.
@@ -13,18 +14,23 @@ from typing import Iterable, List, Sequence, Union
 
 import numpy as np
 
-try:
-    from PIL import Image
-except ImportError:  # pragma: no cover
-    Image = None
+ArrayLike = Union[np.ndarray, "PIL.Image.Image", Sequence]
 
-ArrayLike = Union[np.ndarray, "Image.Image", Sequence]
+
+def _pil():
+    """PIL.Image, imported where an image is resized or a PIL image is made,
+    so that numpy inputs at the output size never import PIL."""
+    from PIL import Image
+
+    return Image
+
+
+def _is_pil(image) -> bool:
+    return type(image).__module__.startswith("PIL.")
 
 
 def _to_numpy(image) -> np.ndarray:
     """One image -> float32 HWC in [0, 1] (uint8 inputs divided by 255)."""
-    if Image is not None and isinstance(image, Image.Image):
-        image = np.asarray(image)
     arr = np.asarray(image)
     if arr.dtype == np.uint8:
         arr = arr.astype(np.float32) / 255.0
@@ -39,8 +45,7 @@ def resize_bicubic(arr: np.ndarray, height: int, width: int) -> np.ndarray:
     PIL.Image.resize(..., BICUBIC) inside VaeImageProcessor)."""
     if arr.shape[0] == height and arr.shape[1] == width:
         return arr
-    if Image is None:
-        raise ImportError("PIL required for resizing")
+    Image = _pil()
     chans = []
     for c in range(arr.shape[2]):
         im = Image.fromarray(arr[:, :, c].astype(np.float32), mode="F")
@@ -67,7 +72,7 @@ class ImageProcessor:
         if isinstance(image, (list, tuple)):
             imgs = [_to_numpy(i) for i in image]
         else:
-            arr = np.asarray(image) if not (Image is not None and isinstance(image, Image.Image)) else image
+            arr = image if _is_pil(image) else np.asarray(image)
             if isinstance(arr, np.ndarray) and arr.ndim == 4:
                 imgs = [_to_numpy(a) for a in arr]
             else:
@@ -94,8 +99,7 @@ class ImageProcessor:
         if arr.dtype == np.uint8 and output_type != "latent":
             arr8 = arr
             if output_type == "pil":
-                if Image is None:
-                    raise ImportError("PIL required for output_type='pil'")
+                Image = _pil()
                 if arr8.shape[-1] == 1:
                     return [Image.fromarray(a[:, :, 0], mode="L") for a in arr8]
                 return [Image.fromarray(a) for a in arr8]
@@ -106,8 +110,7 @@ class ImageProcessor:
             return arr
         arr8 = (arr * 255.0).round().astype(np.uint8)
         if output_type == "pil":
-            if Image is None:
-                raise ImportError("PIL required for output_type='pil'")
+            Image = _pil()
             if arr8.shape[-1] == 1:
                 return [Image.fromarray(a[:, :, 0], mode="L") for a in arr8]
             return [Image.fromarray(a) for a in arr8]

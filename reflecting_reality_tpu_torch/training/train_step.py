@@ -87,8 +87,8 @@ class TrainConfig:
     gradient_accumulation_steps: int = 1
     gradient_checkpointing: bool = False
     # "full": recompute both branch forwards in the backward pass (reference
-    # enable_gradient_checkpointing).  "dots" (save matmul outputs) is not
-    # ported yet and raises.
+    # enable_gradient_checkpointing); "dots": save the outputs of the matrix
+    # products and convolutions, recompute the rest (see `dots_policy`)
     gradient_checkpointing_policy: str = "full"
     train_base_unet: bool = False
     use_ema: bool = False
@@ -128,6 +128,19 @@ def _nchw(x: Any, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, device=device).permute(0, 3, 1, 2)
 
 
+def resolve_device_cache(batch: Mapping[str, Any], cache: Mapping[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """A step's batch gathered from a device-resident sample cache (the JAX
+    `resolve_device_cache`): `cache` holds the whole moments dataset as
+    (N, ...) tensors on the card, `batch` only `index` (B,) and `input_ids`,
+    so the per-step upload is a few hundred bytes."""
+    device = next(iter(cache.values())).device
+    index = torch.as_tensor(batch["index"], device=device).long()
+    full = {k: v.index_select(0, index) for k, v in cache.items()}
+    full["input_ids"] = batch["input_ids"]
+    return full
+
+
 def _sample(dist: DiagonalGaussian, noise: Optional[torch.Tensor],
             generator: Optional[torch.Generator]) -> torch.Tensor:
     if noise is None:
@@ -139,12 +152,16 @@ def assemble_conditioning_latents(
     vae: nn.Module, batch: Mapping[str, Any], config: TrainConfig,
     generator: Optional[torch.Generator] = None,
     vae_noise: Optional[Mapping[str, torch.Tensor]] = None,
+    dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (latents, conditioning latents), NCHW, from an NHWC batch (the JAX
     version's third output, the ip_adapter normal, waits for that mode).
     The posterior draws are taken from `vae_noise` ("latents", "cond",
     "depth", "normals": NCHW noise shaped like each latent) where given, else
-    from `generator`.  Call it under `no_grad` (and autocast for bf16)."""
+    from `generator`.  Cached moments are cast to `dtype` first, as the JAX
+    step casts every float input to its compute dtype, so a batch uploaded
+    in that dtype gives the same bits.  Call it under `no_grad` (and
+    autocast for bf16)."""
     device = next(vae.parameters()).device
     vae_noise = vae_noise or {}
 
@@ -152,7 +169,7 @@ def assemble_conditioning_latents(
         return _sample(vae.encode(img), vae_noise.get(key), generator) * config.scaling_factor
 
     def from_cache(key: str, moments_key: str) -> torch.Tensor:
-        dist = DiagonalGaussian.from_moments(_nchw(batch[moments_key], device))
+        dist = DiagonalGaussian.from_moments(_nchw(batch[moments_key], device).to(dtype))
         return _sample(dist, vae_noise.get(key), generator) * config.scaling_factor
 
     cached = "latent_moments" in batch
@@ -208,15 +225,46 @@ def make_optimizer(config: TrainConfig, params, data_parallel_size: int = 1,
     return optimizer, schedule
 
 
+# The "dots" policy, counterpart of JAX's
+# `jax.checkpoint_policies.dots_with_no_batch_dims_saveable`: what counts as
+# a dot is a matrix product without batch dimensions (`aten.mm`,
+# `aten.addmm`: every Linear, 2-D or flattened) and a convolution
+# (`aten.convolution`: every conv of the UNet and BrushNet).  Their outputs
+# are saved; everything else is recomputed in the backward pass: norms,
+# activations, the attention's batched products and the flash forward,
+# which is an opaque autograd Function here as the Pallas call is to the
+# JAX policy.  So B1 launches 10 times a step under either policy (5 in the
+# forward, 5 again when the forward is recomputed) and B3/B4 5 each, as
+# under "full"; without checkpointing it is 5/5/5.
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+           torch.ops.aten.convolution.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op in DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(dots_policy)
+
+
 def denoise(unet: nn.Module, brushnet: nn.Module, noisy: torch.Tensor, timesteps: torch.Tensor,
             ehs: torch.Tensor, cond: torch.Tensor, gradient_checkpointing: bool = False,
-            ) -> torch.Tensor:
+            policy: str = "full") -> torch.Tensor:
     """BrushNet's 28 residuals injected into the UNet -> the UNet's prediction.
-    With `gradient_checkpointing` both forwards are recomputed in the
-    backward pass (non-reentrant `torch.utils.checkpoint`)."""
+    With `gradient_checkpointing` both forwards are checkpointed
+    (non-reentrant `torch.utils.checkpoint`): under `policy` "full" they are
+    recomputed whole in the backward pass, under "dots" all but the outputs
+    of `DOT_OPS`."""
+    extra = {"context_fn": _dots_context} if policy == "dots" else {}
+
     def run(module, *args, **kwargs):
         if gradient_checkpointing:
-            return checkpoint(module, *args, use_reentrant=False, **kwargs)
+            return checkpoint(module, *args, use_reentrant=False, **extra, **kwargs)
         return module(*args, **kwargs)
 
     down, mid, up = run(brushnet, noisy, timesteps, ehs, cond)
@@ -255,10 +303,7 @@ def make_train_step(unet: nn.Module, brushnet: nn.Module, vae: nn.Module,
     `depths`, `input_ids`, ...), numpy or tensors."""
     if config.normals_conditioning_mode == "ip_adapter":
         raise NotImplementedError(IP_ADAPTER_TODO)
-    if config.gradient_checkpointing and config.gradient_checkpointing_policy != "full":
-        if config.gradient_checkpointing_policy == "dots":
-            raise NotImplementedError("gradient_checkpointing_policy='dots' is not ported "
-                                      "yet; use 'full' (see ROADMAP.md)")
+    if config.gradient_checkpointing_policy not in ("full", "dots"):
         raise ValueError(config.gradient_checkpointing_policy)
     if config.prediction_type not in ("epsilon", "v_prediction"):
         raise ValueError(config.prediction_type)
@@ -299,7 +344,7 @@ def make_train_step(unet: nn.Module, brushnet: nn.Module, vae: nn.Module,
     def compute_loss(state: TrainState, batch, generator, draws) -> torch.Tensor:
         with torch.no_grad(), autocast():
             latents, cond = assemble_conditioning_latents(
-                vae, batch, config, generator, draws.get("vae_noise"))
+                vae, batch, config, generator, draws.get("vae_noise"), dtype)
             ehs = text_encoder(torch.as_tensor(batch["input_ids"], device=device).long())
         latents = latents.float()
         bsz = latents.shape[0]
@@ -315,7 +360,8 @@ def make_train_step(unet: nn.Module, brushnet: nn.Module, vae: nn.Module,
         model = state.trainable.get("unet", state.frozen.get("unet"))
         with autocast():
             pred = denoise(model, brushnet, noisy.to(dtype), timesteps, ehs.to(dtype),
-                           cond.to(dtype), config.gradient_checkpointing)
+                           cond.to(dtype), config.gradient_checkpointing,
+                           config.gradient_checkpointing_policy)
         if config.prediction_type == "epsilon":
             target = noise
         else:

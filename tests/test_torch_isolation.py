@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: neither the package nor chip_smoke.py
-imports jax, flax or the JAX package, and on CPU tensors the kernel wrappers
-take their plain versions without launching (their counters stay 0)."""
+imports jax, flax, the JAX package or the safetensors package (the port
+reads and writes the format itself), the training CLI's latent-cache path
+imports no file-format package, and on CPU tensors the kernel wrappers take
+their plain versions without launching (their counters stay 0)."""
 
 import ast
 import os
@@ -13,7 +15,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "reflecting_reality_tpu_torch")
-FORBIDDEN = ("jax", "flax", "reflecting_reality_tpu")
+FORBIDDEN = ("jax", "flax", "reflecting_reality_tpu", "safetensors")
 
 
 def _port_files():
@@ -100,3 +102,52 @@ def test_cpu_tensors_take_the_plain_versions():
     assert xg.grad is not None and qg.grad is not None
     assert (fa.flash_attention_fwd.launches, gn.group_norm_silu_fwd.launches) == before == (0, 0)
     assert all(fn.launches == 0 and not fn.launches_by_shape for fn in wrappers)
+
+
+
+CACHE_PATH_RUN = r'''
+import os, sys
+from reflecting_reality_tpu_torch.cli import train
+
+root = sys.argv[1]
+out = os.path.join(root, "run")
+for extra in ([], ["--device_cache", "--steps_per_dispatch", "2"]):
+    train.main(["--pretrained_model_name_or_path", os.path.join(root, "base"),
+                "--train_data_dir", root, "--precomputed_latents_dir",
+                os.path.join(root, "cache"), "--output_dir", out,
+                "--logging_dir", os.path.join(out, "logs"), "--depth_conditioning_mode",
+                "concat", "--train_batch_size", "2", "--max_train_steps", "2",
+                "--checkpointing_steps", "1", "--mixed_precision", "bf16", "--report_to",
+                "none", "--validation_steps", "0", "--device", "cpu", *extra])
+assert sorted(os.listdir(out)) == ["args.json", "checkpoint-1", "checkpoint-2", "logs"]
+print(sorted(m for m in ("h5py", "pandas", "PIL", "safetensors", "msgpack") if m in sys.modules))
+'''
+
+
+def test_cli_cache_path_imports_no_file_format_packages(tmp_path):
+    """The training CLI on a latent-moments cache (what the card runs) takes
+    nothing from h5py, pandas, PIL, safetensors or msgpack, in a process of
+    its own."""
+    import csv
+
+    from reflecting_reality_tpu_torch.data.latent_cache import cache_name
+    from tests.test_torch_cli import write_tiny_base
+
+    write_tiny_base(str(tmp_path / "base"))
+    rows = [{"uid": f"u{i}", "path": f"obj/{i}.hdf5", "auto_caption": f"cube {i}"}
+            for i in range(4)]
+    with open(tmp_path / "train.csv", "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    (tmp_path / "cache").mkdir()
+    r = np.random.RandomState(0)
+    for i, row in enumerate(rows):
+        np.savez(tmp_path / "cache" / cache_name(row, i),
+                 latent_moments=r.randn(4, 4, 8).astype(np.float16),
+                 cond_latent_moments=r.randn(4, 4, 8).astype(np.float16),
+                 masks=np.ones((4, 4, 1), np.float32), depths=np.zeros((4, 4, 1), np.float32))
+    res = subprocess.run([sys.executable, "-c", CACHE_PATH_RUN, str(tmp_path)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout

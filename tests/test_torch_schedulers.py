@@ -1,5 +1,6 @@
 """PyTorch port vs the JAX package: UniPC (orders 1-3) and DDIM trajectories
-driven by the same model outputs.
+driven by the same model outputs, and the DDPM ancestral step with JAX's
+noise passed in (one step, fp32 coefficients on both sides: 1e-6).
 
 The "model" is a fixed function of the sample and the step: eps_i =
 0.9·x + n_i with n_i numpy noise, evaluated in each framework on its own
@@ -11,6 +12,7 @@ is ill-conditioned in fp32: each implementation lands 3-7e-5 from a float64
 run of the same 20-step trajectory, so order 3 is held at 2e-4.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,9 +21,11 @@ import torch
 from reflecting_reality_tpu.schedulers.common import NoiseSchedule as JSchedule
 from reflecting_reality_tpu.schedulers.common import ddim_timesteps as j_ddim_ts
 from reflecting_reality_tpu.schedulers.ddim import ddim_step as j_ddim_step
+from reflecting_reality_tpu.schedulers.ddpm import ddpm_step as j_ddpm_step
 from reflecting_reality_tpu.schedulers.unipc import UniPCSampler as JUniPC
 from reflecting_reality_tpu_torch.schedulers.common import NoiseSchedule, ddim_timesteps
 from reflecting_reality_tpu_torch.schedulers.ddim import ddim_step
+from reflecting_reality_tpu_torch.schedulers.ddpm import ddpm_step
 from reflecting_reality_tpu_torch.schedulers.unipc import UniPCSampler
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -68,3 +72,26 @@ def test_ddim_trajectory():
         jx = j_ddim_step(jsched, 0.9 * jx + noise[i], jnp.int32(t), jnp.int32(tp), jx)
         tx = ddim_step(tsched, 0.9 * tx + torch.from_numpy(noise[i]), t, tp, tx)
         np.testing.assert_allclose(tx.numpy(), np.asarray(jx), **TOL)
+
+
+@pytest.mark.parametrize("prediction_type", ["epsilon", "v_prediction", "sample"])
+@pytest.mark.parametrize("t,t_prev,clip", [(999, 979, True), (500, 480, False), (20, 0, True),
+                                          (0, -1, True)])
+def test_ddpm_step_matches_jax(prediction_type, t, t_prev, clip):
+    jsched = JSchedule.create(**SD, prediction_type=prediction_type)
+    tsched = NoiseSchedule.create(**SD, prediction_type=prediction_type)
+    r = np.random.RandomState(t)
+    x = r.standard_normal((2, 4, 8, 8)).astype(np.float32)
+    out = r.standard_normal((2, 4, 8, 8)).astype(np.float32)
+    rng = jax.random.PRNGKey(t)
+    want = j_ddpm_step(jsched, jnp.asarray(out), jnp.int32(t), jnp.int32(t_prev),
+                       jnp.asarray(x), rng, clip_sample=clip)
+    noise = np.array(jax.random.normal(rng, x.shape, jnp.float32))
+    got = ddpm_step(tsched, torch.from_numpy(out), t, t_prev, torch.from_numpy(x),
+                    noise=torch.from_numpy(noise), clip_sample=clip)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    if t > 0:       # drawn from a generator when no noise is given: a different draw
+        g = torch.Generator().manual_seed(0)
+        other = ddpm_step(tsched, torch.from_numpy(out), t, t_prev, torch.from_numpy(x),
+                          generator=g, clip_sample=clip)
+        assert other.shape == got.shape and not torch.equal(other, got)

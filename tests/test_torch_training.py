@@ -24,6 +24,8 @@ The pieces (schedules, noise math, EMA, weight surgery) are held at rtol
 1e-6 or exactly where both sides do the same fp32 arithmetic.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -331,24 +333,95 @@ def test_entry_point_defaults_to_the_card(jax_models):
 
 
 def test_unported_options_raise(jax_models):
+    """ip_adapter is still to port; a checkpointing policy that neither
+    package has is refused."""
     with pytest.raises(NotImplementedError, match="item 14"):
         _tiny_torch_step(jax_models, normals_conditioning_mode="ip_adapter")
-    with pytest.raises(NotImplementedError, match="dots"):
+    with pytest.raises(ValueError, match="everything"):
         _tiny_torch_step(jax_models, gradient_checkpointing=True,
-                         gradient_checkpointing_policy="dots")
+                         gradient_checkpointing_policy="everything")
 
 
-def test_gradient_checkpointing_gives_the_same_step(jax_models):
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_gradient_checkpointing_gives_the_same_step(jax_models, policy):
+    """Checkpointing under either policy (dots: the outputs of mm, addmm and
+    convolution saved, the rest recomputed) gives the bits of the step
+    without it: the recomputation repeats the same CPU arithmetic."""
     draws = torch_draws(jax_draws(jax.random.PRNGKey(4), BATCH))
     runs = []
     for ckpt in (False, True):
-        step, state = _tiny_torch_step(jax_models, gradient_checkpointing=ckpt)
+        step, state = _tiny_torch_step(jax_models, gradient_checkpointing=ckpt,
+                                       gradient_checkpointing_policy=policy)
         state, m = step(state, batch_of(BATCH), draws=draws)
         runs.append((float(m["loss"]), float(m["grad_norm"]),
                      [p.detach().clone() for p in state.params]))
     assert runs[0][:2] == runs[1][:2]
     for a, b in zip(runs[0][2], runs[1][2]):
         assert torch.equal(a, b)
+
+
+def test_dots_policy_recomputes_everything_but_the_products(jax_models):
+    """Under "dots" the backward pass recomputes no convolution or matrix
+    product (their outputs were saved) but does recompute the rest (SiLU);
+    under "full" it recomputes both.  Ops are counted as they reach the
+    dispatcher during the backward pass."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from reflecting_reality_tpu_torch.training.train_step import denoise
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.calls[func] += 1
+            return func(*args, **(kwargs or {}))
+
+    tm = torch_models(jax_models[1])
+    tm["unet"].requires_grad_(False)
+    r = np.random.RandomState(8)
+    noisy, cond = (torch.from_numpy(r.randn(BATCH, c, 2, 2).astype(np.float32)) for c in (4, 6))
+    ehs = torch.from_numpy(r.randn(BATCH, 7, 16).astype(np.float32))
+    t = torch.tensor([10, 700])
+    aten = torch.ops.aten
+    counts = {}
+    for policy in ("full", "dots"):
+        tm["brushnet"].zero_grad(set_to_none=True)
+        out = denoise(tm["unet"], tm["brushnet"], noisy, t, ehs, cond, True, policy)
+        with Count() as c:
+            out.square().mean().backward()
+        counts[policy] = {op: c.calls[op] for op in (
+            aten.convolution.default, aten.mm.default, aten.addmm.default, aten.silu.default)}
+    # convolution and addmm run only in forwards (their backward ops are
+    # others); mm also computes the gradients of every Linear, so only its
+    # surplus under "full" is the recomputation
+    full, dots = counts["full"], counts["dots"]
+    assert full[aten.convolution.default] > 0 and full[aten.addmm.default] > 0
+    assert dots[aten.convolution.default] == dots[aten.addmm.default] == 0
+    assert full[aten.mm.default] > dots[aten.mm.default]
+    assert dots[aten.silu.default] == full[aten.silu.default] > 0
+
+
+def test_resolve_device_cache_matches_jax():
+    from reflecting_reality_tpu.training.train_step import resolve_device_cache as j_resolve
+
+    from reflecting_reality_tpu_torch.training.train_step import resolve_device_cache
+
+    r = np.random.RandomState(7)
+    cache = {"latent_moments": r.randn(6, 2, 2, 8).astype(np.float32),
+             "masks": (r.rand(6, 2, 2, 1) > 0.5).astype(np.float32)}
+    batch = {"index": np.array([4, 0, 4], np.int32),
+             "input_ids": r.randint(0, 100, (3, 7)).astype(np.int32)}
+    want = j_resolve({k: jnp.asarray(v) for k, v in batch.items()},
+                     {k: jnp.asarray(v) for k, v in cache.items()})
+    got = resolve_device_cache({k: torch.from_numpy(v) for k, v in batch.items()},
+                               {k: torch.from_numpy(v) for k, v in cache.items()})
+    assert set(got) == set(want) == {"latent_moments", "masks", "input_ids"}
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
 
 
 # ---------------------------------------------------------------- pieces
@@ -475,3 +548,15 @@ def test_nearest_resize_matches_interpolate():
         torch.testing.assert_close(nearest_resize(x, *hw),
                                    torch.nn.functional.interpolate(x, size=hw, mode="nearest"),
                                    rtol=0, atol=0)
+
+
+def test_profiling_helpers(tmp_path):
+    from reflecting_reality_tpu_torch.training import profiling
+
+    with profiling.trace(str(tmp_path)) as prof:
+        torch.ones(8).add_(1)
+    assert any(e.key == "aten::add_" for e in prof.key_averages())
+    assert [f for f in os.listdir(tmp_path) if f.endswith(".json")]
+    timer = profiling.StepTimer(window=2)
+    assert timer.tick() is None and timer.tick() > 0
+    assert profiling.device_memory_stats() == {} or torch.cuda.is_available()
