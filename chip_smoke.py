@@ -2,6 +2,12 @@
 """Chip smoke test of the PyTorch port on one NVIDIA GPU (written for the H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab-main-path OTHER_CHECKOUT [BLOCKS]
+
+The second form times the main path (phases 2 and 5 below) of another
+checkout (e.g. the parent commit unpacked with `git archive`) and of this
+one in turns, BLOCKS (default 1) times other, this, this, other, each run in
+a process of its own, and prints one `ab_main_path` line.
 
 Phases, each printing one JSON line:
   1. env     torch/CUDA versions, device name and compute capability,
@@ -19,10 +25,12 @@ Phases, each printing one JSON line:
              (C75xx: wgmmas serialised, setmaxnreg ignored), and the
              backward library's tiling must be `bwd_plan`'s.
   3. kernels every kernel against its plain PyTorch version on the card, at
-             the shapes the main path and the training step give it (every
-             GroupNorm shape of a denoise step, recorded from the full-width
-             modules on the meta device) and a few they meet elsewhere
-             (1024², 576x512, fp32 parity, and the self-attention shapes the
+             the shapes the main path, the training step and the test CLI
+             give it (every GroupNorm shape of a denoise step and of the
+             VAE, recorded from the full-width modules on the meta device,
+             at the main path's batches and at the test CLI's 4 batched
+             seeds in bf16 and its batches in fp32) and a few they meet
+             elsewhere (1024², 576x512, fp32 parity, and the self-attention shapes the
              routing rule sends to the plain path): max abs error in the
              working dtype and against fp32 and the relative L2 error, each
              with its tolerance; kernel, plain and library times (20
@@ -80,9 +88,33 @@ Phases, each printing one JSON line:
              of a step, H2D per batch (in the loop, and the packed copy
              alone, back-to-back), checkpoint and resume seconds and GB,
              peak memory and the phase's wall time.
+  10. test_cli  the inference CLI (`cli.test.main`) on train_cli's base
+             folder and checkpoint-8, full width, 512², depth concat, over a
+             seeded `--image_mode` dataset (2 rows of PNG images and masks,
+             depth .npz, test.csv; no h5py), 4 seeds a row: a one-row
+             warm-up, then bf16 `--batch_seeds` at 4 and 8 steps, 8 steps
+             again with each row waited for (no overlap), a rerun that must
+             write nothing; a one-row fp32 warm-up, then fp32 sequential
+             seeds at 2 and 4 steps.  Checks: 1024x1024 uint8 sheets, not
+             constant, launches per denoise step equal to main_path's (B1 5,
+             B2 the same) in both dtypes, no h5py or jax imported.  Prints
+             s/image, s/step (two-point), the host time per row outside the
+             card's work and how much of it the one-deep overlap hid, peak
+             memory, B1's fp32 launches and their share of an fp32 step.
+ 11. evaluate  on run a's sheets: MetricsCalculator (PSNR/SSIM/LPIPS of the
+             full, mask and mirror families, LPIPS weights from a seed) on
+             the card against the CPU (LPIPS 1e-4 relative, PSNR 1e-3 dB,
+             SSIM 1e-5), `metrics/evaluate.py --mode avg` (best and avg CSVs)
+             on CSVs written from the card's scores, LPIPS ms per 512² pair.
+ 12. modes   a full-width 512² bf16 pipeline call, 4 steps, depth `latents`
+             + normals `concat` (BrushNet with 12 conditioning channels):
+             a finite, non-constant uint8 image, B1 20 launches; then fp32
+             depth `concat` + normals `latents`, one denoise step, TF32 off,
+             the card against the CPU at slice parity's tolerance.
 Then `kernels_detail` (every measured kernel and shape with the launches
 each path gave that shape: the main path's 8-step call, the timed training
-steps and the CLI's first 8 steps, 0 where none), the `{"kernels": [...]}`
+steps, the CLI's first 8 steps and the test CLI's bf16 8-step and fp32
+4-step runs, 0 where none), the `{"kernels": [...]}`
 summary line (the
 kernels and shapes the paths launched), the nvidia-smi name/power-limit
 line, and last `{"ok": true, "device": {...}}`.  Any failed check raises and
@@ -100,9 +132,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -216,8 +250,6 @@ def ptxas_kernels(log: str) -> dict:
 
 def cuobjdump() -> str:
     """The toolkit's cuobjdump, or the copy Triton's package carries."""
-    import shutil
-
     from reflecting_reality_tpu_torch.ops.kernels import build
 
     for c in (os.path.join(os.path.dirname(build.nvcc()), "cuobjdump"), shutil.which("cuobjdump")):
@@ -471,6 +503,7 @@ def bench_groupnorm(torch, shape, dtype, silu) -> dict:
 
 
 FLASH_SHAPES = [((2, 4096, 8, 40), "bfloat16"), ((4, 4096, 8, 40), "bfloat16"),
+                ((8, 4096, 8, 40), "bfloat16"),         # the test CLI's 4 batched seeds
                 ((2, 4096, 8, 80), "bfloat16"), ((2, 4608, 8, 40), "bfloat16"),
                 ((1, 2048, 8, 160), "bfloat16"), ((2, 4096, 8, 40), "float32"),
                 # the UNet's other self-attentions, which the routing rule sends
@@ -539,7 +572,13 @@ def phase_kernels(torch):
             entries.append(e)
     gn_cases = {(shape, dt, silu) for shape in GN_SHAPES for dt in (torch.bfloat16, torch.float32)
                 for silu in (False, True)}
-    gn_cases |= {(shape, torch.bfloat16, silu) for shape, silu in main_path_groupnorms(torch)[0]}
+    step_norms, vae_norms = main_path_groupnorms(torch)
+    gn_cases |= {(shape, torch.bfloat16, silu) for shape, silu in step_norms}
+    # the test CLI: bf16 at 4 batched seeds (the step's and the decoder's
+    # batches times 4), and fp32 at the main path's batches
+    gn_cases |= {((shape[0] * CLI_SEEDS,) + shape[1:], torch.bfloat16, silu)
+                 for shape, silu in step_norms + vae_norms}
+    gn_cases |= {(shape, torch.float32, silu) for shape, silu in step_norms + vae_norms}
     for shape, dt, silu in sorted(gn_cases, key=str):
         e = bench_groupnorm(torch, shape, dt, silu)
         e.update(kernel="groupnorm", route="cuda", source=gn.SOURCE, replaces=gn.REPLACES)
@@ -726,7 +765,7 @@ def phase_main(torch, gpu_line: str):
                "per_step": (n - by_shape[4].get((kern, key), 0)) / 4}
               for (kern, key), n in sorted(by_shape[8].items(), key=str)]})
     phase_profile(torch, pipe, kw)
-    return by_shape
+    return by_shape, per_step
 
 
 KINDS = (("flash_attn_fwd", ("flash_fwd",)), ("flash_attn_bwd_dq", ("flash_bwd_dq",)),
@@ -1048,11 +1087,11 @@ def read_metrics(out: str) -> list:
         return [json.loads(line) for line in f]
 
 
-def phase_train_cli(torch, gpu_line: str, train_main_s_step: float) -> dict:
-    """The training CLI end to end at full width on the card -> {(kernel,
-    key): launches} over its first run's 8 steps."""
-    import shutil
-    import tempfile
+def phase_train_cli(torch, gpu_line: str, train_main_s_step: float, tmp: str) -> dict:
+    """The training CLI end to end at full width on the card, in `tmp` ->
+    {(kernel, key): launches} over its first run's 8 steps.  It leaves the
+    base folder (tmp/base) and checkpoint-8 (tmp/run/checkpoint-8) for the
+    test CLI."""
     from unittest import mock
 
     import numpy as np
@@ -1064,237 +1103,233 @@ def phase_train_cli(torch, gpu_line: str, train_main_s_step: float) -> dict:
     )
 
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="train_cli_")
-    try:
-        base, data = os.path.join(tmp, "base"), os.path.join(tmp, "data")
-        cache = os.path.join(tmp, "cache")
-        os.makedirs(data)
+    base, data = os.path.join(tmp, "base"), os.path.join(tmp, "data")
+    cache = os.path.join(tmp, "cache")
+    os.makedirs(data)
+    t0 = time.perf_counter()
+    folder_s = write_base_folder(torch, base)
+    folder_gb = sum(os.path.getsize(os.path.join(d, f))
+                    for d, _, fs in os.walk(base) for f in fs) / 1e9
+    write_latent_cache(data, cache, CLI_SAMPLES)
+    setup_s = time.perf_counter() - t0
+
+    def argv(out, *extra):
+        return ["--pretrained_model_name_or_path", base, "--train_data_dir", data,
+                "--output_dir", out, "--logging_dir", os.path.join(out, "logs"),
+                "--mixed_precision", "bf16", "--train_batch_size", str(TRAIN_BATCH),
+                "--depth_conditioning_mode", "concat", "--learning_rate", "5e-6",
+                "--lr_warmup_steps", "0", "--precomputed_latents_dir", cache,
+                "--dataloader_num_workers", "4", "--log_every", "1",
+                "--validation_steps", "0", "--report_to", "none", "--seed", "0", *extra]
+
+    # instrumentation: the initial BrushNet, the first host batch, the
+    # first batch the step sees, and the state right after a resume
+    seen = {}
+    real_load_models, real_prefetch = cli.load_models, cli.prefetch_to_device
+    real_make_step, real_load_state = cli.make_train_step, cli.ckpt.load_state
+
+    def load_models(args):
+        out = real_load_models(args)
+        seen.setdefault("brushnet0", {k: v.clone() for k, v in out[1].state_dict().items()})
+        return out
+
+    def prefetch(iterator, *a, **kw):
+        def tee():
+            for b in iterator:
+                seen.setdefault("host_batch", {k: v.copy() for k, v in b.items()})
+                yield b
+        return real_prefetch(tee(), *a, **kw)
+
+    def make_train_step(*a, **kw):
+        step, init = real_make_step(*a, **kw)
+
+        def recording(state, batch, generator, **k2):
+            seen.setdefault("step_batch", {k: v.detach().cpu().clone()
+                                           for k, v in batch.items()})
+            return step(state, batch, generator, **k2)
+        return recording, init
+
+    def load_state(path, state):
+        state = real_load_state(path, state)
+        opt = state.optimizer.state_dict()["state"]
+        seen["resumed"] = {
+            "step": state.step,
+            "brushnet": {k: v.detach().cpu().clone()
+                         for k, v in state.trainable["brushnet"].state_dict().items()},
+            "moments": {i: (s["exp_avg"].cpu().clone(), s["exp_avg_sq"].cpu().clone())
+                        for i, s in opt.items()}}
+        return state
+
+    runs = {}
+    with mock.patch.object(cli, "load_models", load_models), \
+            mock.patch.object(cli, "prefetch_to_device", prefetch), \
+            mock.patch.object(cli, "make_train_step", make_train_step), \
+            mock.patch.object(cli.ckpt, "load_state", load_state):
+        out_a = os.path.join(tmp, "run")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
         t0 = time.perf_counter()
-        folder_s = write_base_folder(torch, base)
-        folder_gb = sum(os.path.getsize(os.path.join(d, f))
-                        for d, _, fs in os.walk(base) for f in fs) / 1e9
-        write_latent_cache(data, cache, CLI_SAMPLES)
-        setup_s = time.perf_counter() - t0
-
-        def argv(out, *extra):
-            return ["--pretrained_model_name_or_path", base, "--train_data_dir", data,
-                    "--output_dir", out, "--logging_dir", os.path.join(out, "logs"),
-                    "--mixed_precision", "bf16", "--train_batch_size", str(TRAIN_BATCH),
-                    "--depth_conditioning_mode", "concat", "--learning_rate", "5e-6",
-                    "--lr_warmup_steps", "0", "--precomputed_latents_dir", cache,
-                    "--dataloader_num_workers", "4", "--log_every", "1",
-                    "--validation_steps", "0", "--report_to", "none", "--seed", "0", *extra]
-
-        # instrumentation: the initial BrushNet, the first host batch, the
-        # first batch the step sees, and the state right after a resume
-        seen = {}
-        real_load_models, real_prefetch = cli.load_models, cli.prefetch_to_device
-        real_make_step, real_load_state = cli.make_train_step, cli.ckpt.load_state
-
-        def load_models(args):
-            out = real_load_models(args)
-            seen.setdefault("brushnet0", {k: v.clone() for k, v in out[1].state_dict().items()})
-            return out
-
-        def prefetch(iterator, *a, **kw):
-            def tee():
-                for b in iterator:
-                    seen.setdefault("host_batch", {k: v.copy() for k, v in b.items()})
-                    yield b
-            return real_prefetch(tee(), *a, **kw)
-
-        def make_train_step(*a, **kw):
-            step, init = real_make_step(*a, **kw)
-
-            def recording(state, batch, generator, **k2):
-                seen.setdefault("step_batch", {k: v.detach().cpu().clone()
-                                               for k, v in batch.items()})
-                return step(state, batch, generator, **k2)
-            return recording, init
-
-        def load_state(path, state):
-            state = real_load_state(path, state)
-            opt = state.optimizer.state_dict()["state"]
-            seen["resumed"] = {
-                "step": state.step,
-                "brushnet": {k: v.detach().cpu().clone()
-                             for k, v in state.trainable["brushnet"].state_dict().items()},
-                "moments": {i: (s["exp_avg"].cpu().clone(), s["exp_avg_sq"].cpu().clone())
-                            for i, s in opt.items()}}
-            return state
-
-        runs = {}
-        with mock.patch.object(cli, "load_models", load_models), \
-                mock.patch.object(cli, "prefetch_to_device", prefetch), \
-                mock.patch.object(cli, "make_train_step", make_train_step), \
-                mock.patch.object(cli.ckpt, "load_state", load_state):
-            out_a = os.path.join(tmp, "run")
-            torch.cuda.reset_peak_memory_stats()
-            reset_counters()
-            t0 = time.perf_counter()
-            state = cli.main(argv(out_a, "--max_train_steps", "8", "--checkpointing_steps", "4",
-                                  "--checkpoints_total_limit", "1"))
-            torch.cuda.synchronize()
-            runs["train"] = {"wall_s": time.perf_counter() - t0,
-                             "launches": read_counters(), "steps": 8}
-            cli_by_shape = read_counters_by_shape()
-            peak = torch.cuda.max_memory_allocated()
-            trained = {k: v.detach().cpu().clone()
-                       for k, v in state.trainable["brushnet"].state_dict().items()}
-            frozen = {sub: state.frozen[name] for sub, name in
-                      (("unet", "unet"), ("vae", "vae"), ("text_encoder", "text"))}
-            frozen_same = {}
-            for sub, module in frozen.items():
-                fname = "model.safetensors" if sub == "text_encoder" else WEIGHTS_NAME
-                ref = load_safetensors(os.path.join(base, sub, fname))
-                frozen_same[sub] = all(torch.equal(v.detach().cpu(), ref[k])
-                                       for k, v in module.state_dict().items())
-            del state, frozen
-            torch.cuda.empty_cache()
-            listing_a = sorted(os.listdir(out_a))
-
-            reset_counters()
-            t0 = time.perf_counter()
-            cli.main(argv(out_a, "--max_train_steps", "10", "--checkpointing_steps", "4",
-                          "--checkpoints_total_limit", "1", "--resume_from_checkpoint",
-                          "latest"))
-            torch.cuda.synchronize()
-            runs["resume"] = {"wall_s": time.perf_counter() - t0,
-                              "launches": read_counters(), "steps": 2}
-            shutil.rmtree(os.path.join(out_a, "checkpoint-10"))     # 7.4 GB not needed
-            torch.cuda.empty_cache()
-            for name, extra in (("device_cache", ("--device_cache",)),
-                                ("steps_per_dispatch_2", ("--steps_per_dispatch", "2",
-                                                          "--async_save",
-                                                          "--checkpointing_steps", "2",
-                                                          "--checkpoints_total_limit", "1"))):
-                out = os.path.join(tmp, name)
-                reset_counters()
-                t0 = time.perf_counter()
-                cli.main(argv(out, "--max_train_steps", "4", *extra))
-                torch.cuda.synchronize()
-                runs[name] = {"wall_s": time.perf_counter() - t0, "launches": read_counters(),
-                              "steps": 4, "metrics": read_metrics(out)}
-                shutil.rmtree(out)
-                torch.cuda.empty_cache()
-
-        # the checkpoint read back through the port's reader, then the
-        # pipeline loading it with the safetensors package blocked
-        ckpt8 = os.path.join(out_a, "checkpoint-8", "brushnet")
-        saved8 = load_safetensors(os.path.join(ckpt8, WEIGHTS_NAME))
-        saved_same = all(torch.equal(saved8[k], v) for k, v in trained.items())
-        with mock.patch.dict(sys.modules, {"safetensors": None}):
-            t0 = time.perf_counter()
-            pipe = StableDiffusionBrushNetPipeline.from_pretrained(
-                base, brushnet_path=ckpt8, depth_conditioning_mode="concat",
-                dtype=torch.bfloat16, device="cuda")
-            pipe_load_s = time.perf_counter() - t0
-        pipe_same = all(torch.equal(v.cpu(), trained[k].to(torch.bfloat16))
-                        for k, v in pipe.brushnet.state_dict().items())
-        rng = np.random.RandomState(SEED)
-        px = CLI_PX
-        mask = np.zeros((px, px, 3), np.float32)
-        mask[px // 4: 3 * px // 4, px // 3: 2 * px // 3] = 1.0
-        kw = dict(prompt="a framed mirror on a wall", image=rng.rand(px, px, 3).astype(np.float32),
-                  mask=mask, depth=rng.rand(px, px, 1).astype(np.float32),
-                  num_inference_steps=4, guidance_scale=7.5, seed=SEED)
-        image_f = pipe(**kw, output_type="latent")
-        image_u8 = pipe(**kw, output_type="np")
-        del pipe
+        state = cli.main(argv(out_a, "--max_train_steps", "8", "--checkpointing_steps", "4",
+                              "--checkpoints_total_limit", "1"))
+        torch.cuda.synchronize()
+        runs["train"] = {"wall_s": time.perf_counter() - t0,
+                         "launches": read_counters(), "steps": 8}
+        cli_by_shape = read_counters_by_shape()
+        peak = torch.cuda.max_memory_allocated()
+        trained = {k: v.detach().cpu().clone()
+                   for k, v in state.trainable["brushnet"].state_dict().items()}
+        frozen = {sub: state.frozen[name] for sub, name in
+                  (("unet", "unet"), ("vae", "vae"), ("text_encoder", "text"))}
+        frozen_same = {}
+        for sub, module in frozen.items():
+            fname = "model.safetensors" if sub == "text_encoder" else WEIGHTS_NAME
+            ref = load_safetensors(os.path.join(base, sub, fname))
+            frozen_same[sub] = all(torch.equal(v.detach().cpu(), ref[k])
+                                   for k, v in module.state_dict().items())
+        del state, frozen
         torch.cuda.empty_cache()
+        listing_a = sorted(os.listdir(out_a))
 
-        # the upload alone: the first host batch packed as the loader packs
-        # it, copied back-to-back from its pinned buffer on an idle card
-        from reflecting_reality_tpu_torch.data import loader as data_loader
+        reset_counters()
+        t0 = time.perf_counter()
+        cli.main(argv(out_a, "--max_train_steps", "10", "--checkpointing_steps", "4",
+                      "--checkpoints_total_limit", "1", "--resume_from_checkpoint",
+                      "latest"))
+        torch.cuda.synchronize()
+        runs["resume"] = {"wall_s": time.perf_counter() - t0,
+                          "launches": read_counters(), "steps": 2}
+        shutil.rmtree(os.path.join(out_a, "checkpoint-10"))     # 7.4 GB not needed
+        torch.cuda.empty_cache()
+        for name, extra in (("device_cache", ("--device_cache",)),
+                            ("steps_per_dispatch_2", ("--steps_per_dispatch", "2",
+                                                      "--async_save",
+                                                      "--checkpointing_steps", "2",
+                                                      "--checkpoints_total_limit", "1"))):
+            out = os.path.join(tmp, name)
+            reset_counters()
+            t0 = time.perf_counter()
+            cli.main(argv(out, "--max_train_steps", "4", *extra))
+            torch.cuda.synchronize()
+            runs[name] = {"wall_s": time.perf_counter() - t0, "launches": read_counters(),
+                          "steps": 4, "metrics": read_metrics(out)}
+            shutil.rmtree(out)
+            torch.cuda.empty_cache()
 
-        flat, _, nbytes = data_loader._pack(seen["host_batch"], torch.bfloat16, (), pin=True)
-        packed = flat[:nbytes]
-        h2d_copy_ms = cuda_ms(torch, lambda: packed.to("cuda", non_blocking=True))
+    # the checkpoint read back through the port's reader, then the
+    # pipeline loading it with the safetensors package blocked
+    ckpt8 = os.path.join(out_a, "checkpoint-8", "brushnet")
+    saved8 = load_safetensors(os.path.join(ckpt8, WEIGHTS_NAME))
+    saved_same = all(torch.equal(saved8[k], v) for k, v in trained.items())
+    with mock.patch.dict(sys.modules, {"safetensors": None}):
+        t0 = time.perf_counter()
+        pipe = StableDiffusionBrushNetPipeline.from_pretrained(
+            base, brushnet_path=ckpt8, depth_conditioning_mode="concat",
+            dtype=torch.bfloat16, device="cuda")
+        pipe_load_s = time.perf_counter() - t0
+    pipe_same = all(torch.equal(v.cpu(), trained[k].to(torch.bfloat16))
+                    for k, v in pipe.brushnet.state_dict().items())
+    rng = np.random.RandomState(SEED)
+    px = CLI_PX
+    mask = np.zeros((px, px, 3), np.float32)
+    mask[px // 4: 3 * px // 4, px // 3: 2 * px // 3] = 1.0
+    kw = dict(prompt="a framed mirror on a wall", image=rng.rand(px, px, 3).astype(np.float32),
+              mask=mask, depth=rng.rand(px, px, 1).astype(np.float32),
+              num_inference_steps=4, guidance_scale=7.5, seed=SEED)
+    image_f = pipe(**kw, output_type="latent")
+    image_u8 = pipe(**kw, output_type="np")
+    del pipe
+    torch.cuda.empty_cache()
 
-        metrics_a = read_metrics(out_a)
-        steps_a = [r for r in metrics_a if "loss" in r]
-        resumed = seen["resumed"]
-        saved_opt = torch.load(os.path.join(out_a, "checkpoint-8", "train_state.pt"),
-                               map_location="cpu", weights_only=True)["optimizer"]["state"]
-        timed = [r for r in steps_a if 2 <= r["step"] <= 8]       # run 1, after its first step
+    # the upload alone: the first host batch packed as the loader packs
+    # it, copied back-to-back from its pinned buffer on an idle card
+    from reflecting_reality_tpu_torch.data import loader as data_loader
 
-        def med(rows, key):
-            vals = [r[key] for r in rows if key in r]
-            return statistics.median(vals) if vals else "not measured"
+    flat, _, nbytes = data_loader._pack(seen["host_batch"], torch.bfloat16, (), pin=True)
+    packed = flat[:nbytes]
+    h2d_copy_ms = cuda_ms(torch, lambda: packed.to("cuda", non_blocking=True))
 
-        losses = {"train": [r["loss"] for r in steps_a if r["step"] <= 8],
-                  "resume": [r["loss"] for r in steps_a if r["step"] > 8]}
-        losses.update({name: [r["loss"] for r in runs[name]["metrics"] if "loss" in r]
-                       for name in ("device_cache", "steps_per_dispatch_2")})
-        host_bf16 = {k: torch.from_numpy(v).to(torch.bfloat16)
-                     if v.dtype == np.float32 else torch.from_numpy(v)
-                     for k, v in seen["host_batch"].items()}
-        first_batch_same = (set(host_bf16) == set(seen["step_batch"]) and all(
-            torch.equal(host_bf16[k], seen["step_batch"][k]) for k in host_bf16))
-        moved = max((trained[k] - seen["brushnet0"][k]).abs().max().item() for k in trained)
-        sync = [r for r in metrics_a if "checkpoint_s" in r]
-        async_rows = runs["steps_per_dispatch_2"]["metrics"]
-        per_step = {k: v / runs["train"]["steps"] for k, v in runs["train"]["launches"].items()}
-        res = {
-            "phase": "train_cli", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}",
-            "batch": TRAIN_BATCH,
-            "samples": CLI_SAMPLES, "base_folder_gb_bf16": folder_gb,
-            "base_folder_write_s": folder_s, "setup_s": setup_s,
-            "runs_wall_s": {k: v["wall_s"] for k, v in runs.items()},
-            "cli_s_per_step_median_steps_2_8": med(timed, "s_per_step"),
-            "cli_s_per_step_each": {name: [round(r["s_per_step"], 4) for r in rows]
-                                    for name, rows in (
-                                        ("train", steps_a),
-                                        ("device_cache", [r for r in runs["device_cache"]
-                                                          ["metrics"] if "loss" in r]),
-                                        ("steps_per_dispatch_2", [r for r in async_rows
-                                                                  if "loss" in r]))},
-            "h2d_ms_each": [round(r["h2d_ms"], 4) for r in steps_a if "h2d_ms" in r],
-            "cli_samples_per_s_median_steps_2_8": med(timed, "samples_per_s"),
-            "train_main_s_per_step": train_main_s_step,
-            "train_main_samples_per_s": TRAIN_BATCH / train_main_s_step,
-            "loader_share_median": statistics.median(
-                r["data_wait_s"] / (r["data_wait_s"] + r["dispatch_s"]) for r in timed),
-            "data_wait_s_median": med(timed, "data_wait_s"),
-            "h2d_ms_median": med(timed, "h2d_ms"),
-            "h2d_copy_alone": {"bytes": nbytes, "ms": h2d_copy_ms,
-                               "gb_per_s": nbytes / h2d_copy_ms / 1e6},
-            "checkpoint_sync": [{"step": r["step"], "s": r["checkpoint_s"],
-                                 "gb": r["checkpoint_gb"]} for r in sync],
-            "checkpoint_async": {
-                "wait_s_snapshot_s": [(r["step"], r["checkpoint_async_wait_s"],
-                                       r["checkpoint_async_snapshot_s"])
-                                      for r in async_rows if "checkpoint_async_wait_s" in r],
-                "write_s_gb": [(r["step"], r["checkpoint_async_write_s"], r["checkpoint_gb"])
-                               for r in async_rows if "checkpoint_async_write_s" in r]},
-            "resume_s": [r["resume_s"] for r in metrics_a if "resume_s" in r],
-            "pipeline_load_s_without_safetensors": pipe_load_s,
-            "max_memory_allocated_bytes_run_1": peak,
-            "device_cache_s_per_step_median": med(
-                [r for r in runs["device_cache"]["metrics"] if r.get("step", 0) >= 2],
-                "s_per_step"),
-            "steps_per_dispatch_2_s_per_step_median": med(
-                [r for r in async_rows if r.get("step", 0) >= 3], "s_per_step"),
-            "launches_per_step": per_step,
-            "launches_by_run": {k: v["launches"] for k, v in runs.items()},
-            "losses": losses,
-            "brushnet_max_abs_change": moved, "frozen_bit_identical": frozen_same,
-            "run_1_listing": listing_a, "resumed_step": resumed["step"],
-            "resumed_brushnet_bit_identical": all(
-                torch.equal(resumed["brushnet"][k], saved8[k]) for k in saved8),
-            "resumed_moments_bit_identical": all(
-                torch.equal(resumed["moments"][i][0], saved_opt[i]["exp_avg"])
-                and torch.equal(resumed["moments"][i][1], saved_opt[i]["exp_avg_sq"])
-                for i in saved_opt) and len(saved_opt) == len(resumed["moments"]),
-            "checkpoint_8_bit_identical": saved_same, "pipeline_brushnet_bit_identical": pipe_same,
-            "first_batch_bf16_equal": first_batch_same,
-            "pipeline_image": {"shape": list(image_u8.shape), "dtype": str(image_u8.dtype),
-                               "finite": bool(np.isfinite(image_f).all())},
-            "absent_modules": {m: m not in sys.modules or sys.modules[m] is None
-                               for m in ABSENT_MODULES},
-        }
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    metrics_a = read_metrics(out_a)
+    steps_a = [r for r in metrics_a if "loss" in r]
+    resumed = seen["resumed"]
+    saved_opt = torch.load(os.path.join(out_a, "checkpoint-8", "train_state.pt"),
+                           map_location="cpu", weights_only=True)["optimizer"]["state"]
+    timed = [r for r in steps_a if 2 <= r["step"] <= 8]       # run 1, after its first step
+
+    def med(rows, key):
+        vals = [r[key] for r in rows if key in r]
+        return statistics.median(vals) if vals else "not measured"
+
+    losses = {"train": [r["loss"] for r in steps_a if r["step"] <= 8],
+              "resume": [r["loss"] for r in steps_a if r["step"] > 8]}
+    losses.update({name: [r["loss"] for r in runs[name]["metrics"] if "loss" in r]
+                   for name in ("device_cache", "steps_per_dispatch_2")})
+    host_bf16 = {k: torch.from_numpy(v).to(torch.bfloat16)
+                 if v.dtype == np.float32 else torch.from_numpy(v)
+                 for k, v in seen["host_batch"].items()}
+    first_batch_same = (set(host_bf16) == set(seen["step_batch"]) and all(
+        torch.equal(host_bf16[k], seen["step_batch"][k]) for k in host_bf16))
+    moved = max((trained[k] - seen["brushnet0"][k]).abs().max().item() for k in trained)
+    sync = [r for r in metrics_a if "checkpoint_s" in r]
+    async_rows = runs["steps_per_dispatch_2"]["metrics"]
+    per_step = {k: v / runs["train"]["steps"] for k, v in runs["train"]["launches"].items()}
+    res = {
+        "phase": "train_cli", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}",
+        "batch": TRAIN_BATCH,
+        "samples": CLI_SAMPLES, "base_folder_gb_bf16": folder_gb,
+        "base_folder_write_s": folder_s, "setup_s": setup_s,
+        "runs_wall_s": {k: v["wall_s"] for k, v in runs.items()},
+        "cli_s_per_step_median_steps_2_8": med(timed, "s_per_step"),
+        "cli_s_per_step_each": {name: [round(r["s_per_step"], 4) for r in rows]
+                                for name, rows in (
+                                    ("train", steps_a),
+                                    ("device_cache", [r for r in runs["device_cache"]
+                                                      ["metrics"] if "loss" in r]),
+                                    ("steps_per_dispatch_2", [r for r in async_rows
+                                                              if "loss" in r]))},
+        "h2d_ms_each": [round(r["h2d_ms"], 4) for r in steps_a if "h2d_ms" in r],
+        "cli_samples_per_s_median_steps_2_8": med(timed, "samples_per_s"),
+        "train_main_s_per_step": train_main_s_step,
+        "train_main_samples_per_s": TRAIN_BATCH / train_main_s_step,
+        "loader_share_median": statistics.median(
+            r["data_wait_s"] / (r["data_wait_s"] + r["dispatch_s"]) for r in timed),
+        "data_wait_s_median": med(timed, "data_wait_s"),
+        "h2d_ms_median": med(timed, "h2d_ms"),
+        "h2d_copy_alone": {"bytes": nbytes, "ms": h2d_copy_ms,
+                           "gb_per_s": nbytes / h2d_copy_ms / 1e6},
+        "checkpoint_sync": [{"step": r["step"], "s": r["checkpoint_s"],
+                             "gb": r["checkpoint_gb"]} for r in sync],
+        "checkpoint_async": {
+            "wait_s_snapshot_s": [(r["step"], r["checkpoint_async_wait_s"],
+                                   r["checkpoint_async_snapshot_s"])
+                                  for r in async_rows if "checkpoint_async_wait_s" in r],
+            "write_s_gb": [(r["step"], r["checkpoint_async_write_s"], r["checkpoint_gb"])
+                           for r in async_rows if "checkpoint_async_write_s" in r]},
+        "resume_s": [r["resume_s"] for r in metrics_a if "resume_s" in r],
+        "pipeline_load_s_without_safetensors": pipe_load_s,
+        "max_memory_allocated_bytes_run_1": peak,
+        "device_cache_s_per_step_median": med(
+            [r for r in runs["device_cache"]["metrics"] if r.get("step", 0) >= 2],
+            "s_per_step"),
+        "steps_per_dispatch_2_s_per_step_median": med(
+            [r for r in async_rows if r.get("step", 0) >= 3], "s_per_step"),
+        "launches_per_step": per_step,
+        "launches_by_run": {k: v["launches"] for k, v in runs.items()},
+        "losses": losses,
+        "brushnet_max_abs_change": moved, "frozen_bit_identical": frozen_same,
+        "run_1_listing": listing_a, "resumed_step": resumed["step"],
+        "resumed_brushnet_bit_identical": all(
+            torch.equal(resumed["brushnet"][k], saved8[k]) for k in saved8),
+        "resumed_moments_bit_identical": all(
+            torch.equal(resumed["moments"][i][0], saved_opt[i]["exp_avg"])
+            and torch.equal(resumed["moments"][i][1], saved_opt[i]["exp_avg_sq"])
+            for i in saved_opt) and len(saved_opt) == len(resumed["moments"]),
+        "checkpoint_8_bit_identical": saved_same, "pipeline_brushnet_bit_identical": pipe_same,
+        "first_batch_bf16_equal": first_batch_same,
+        "pipeline_image": {"shape": list(image_u8.shape), "dtype": str(image_u8.dtype),
+                           "finite": bool(np.isfinite(image_f).all())},
+        "absent_modules": {m: m not in sys.modules or sys.modules[m] is None
+                           for m in ABSENT_MODULES},
+    }
     res["phase_wall_s"] = time.perf_counter() - t_phase
     emit(res)
     bad = []
@@ -1327,7 +1362,406 @@ def phase_train_cli(torch, gpu_line: str, train_main_s_step: float) -> dict:
     return cli_by_shape
 
 
+# ---------------------------------------------------------------- phase 10
+
+CLI_SEEDS = 4                       # the test CLI's --num_images_per_validation default
+CLI_ROWS = 2                        # rows of the test CLI's --image_mode dataset
+FAMILIES = ("PSNR", "SSIM", "LPIPS", "mask_PSNR", "mask_SSIM", "mask_LPIPS",
+            "mirror_PSNR", "mirror_SSIM", "mirror_LPIPS")
+
+
+def write_image_mode_data(root: str) -> None:
+    """CLI_ROWS rows at CLI_PX²: images/*.png, masks/*.png, depth/*.npz and
+    a test.csv (the MSD layout `--image_mode` reads; no HDF5)."""
+    import csv
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(SEED + 3)
+    for sub in ("images", "masks", "depth"):
+        os.makedirs(os.path.join(root, sub))
+    yy, xx = np.mgrid[0:CLI_PX, 0:CLI_PX] / CLI_PX
+    rows = []
+    for i in range(CLI_ROWS):
+        # a smooth scene plus noise, so PSNR/SSIM/LPIPS see structure
+        base = np.stack([yy, xx, (yy + xx) / 2], axis=-1) * 200 + 30 * i
+        image = np.clip(base + rng.randint(-20, 21, base.shape), 0, 255).astype(np.uint8)
+        mask = np.zeros((CLI_PX, CLI_PX), np.uint8)
+        mask[CLI_PX // 4: 3 * CLI_PX // 4, CLI_PX // 3: 2 * CLI_PX // 3] = 255
+        Image.fromarray(image).save(os.path.join(root, "images", f"{i}.png"))
+        Image.fromarray(mask).save(os.path.join(root, "masks", f"{i}.png"))
+        np.savez(os.path.join(root, "depth", f"{i}.npz"),
+                 depth=(1.0 + 4.0 * rng.rand(CLI_PX, CLI_PX)).astype(np.float32))
+        rows.append({"uid": f"scene{i}", "path": f"{i}.png",
+                     "auto_caption": f"a framed mirror on a wall, scene {i}"})
+    with open(os.path.join(root, "test.csv"), "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+
+
+def phase_test_cli(torch, gpu_line: str, tmp: str, main_per_step: dict, entries: list):
+    """The inference CLI (`cli.test.main`) at full width on checkpoint-8 of
+    `train_cli` -> ({run: {(kernel, key): launches}}, the sheets of run a,
+    the dataset folder)."""
+    from unittest import mock
+
+    import numpy as np
+    from PIL import Image
+
+    from reflecting_reality_tpu_torch.cli import test as cli_test
+
+    t_phase = time.perf_counter()
+    data = os.path.join(tmp, "msd")
+    write_image_mode_data(data)
+    real_drive = cli_test.drive_rows
+    record = {}
+
+    def drive(serial: bool):
+        """drive_rows timed from its first row to its last write (the model
+        load left out), with CUDA events around each row's device work;
+        `serial` waits for each row before the next (no overlap)."""
+        def run(args, df, out, generate, finalize=None):
+            spans = []
+
+            def timed(*a):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                handles = generate(*a)
+                end.record()
+                spans.append((start, end))
+                return handles
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if serial:
+                real_drive(args, df, out, lambda *a: finalize(timed(*a)))
+            else:
+                real_drive(args, df, out, timed, finalize)
+            torch.cuda.synchronize()
+            record.update(rows_s=time.perf_counter() - t0, rows=len(spans),
+                          device_s=sum(a.elapsed_time(b) for a, b in spans) / 1e3)
+        return run
+
+    def argv(out, *extra):
+        return ["--brushnet_path", os.path.join(tmp, "run", "checkpoint-8"),
+                "--base_model_path", os.path.join(tmp, "base"), "--train_data_dir", data,
+                "--output_dir", out, "--image_mode", "--depth_conditioning_mode", "concat",
+                "--resolution", str(CLI_PX), "--seed", str(SEED), *extra]
+
+    # a warm-up run of one row before each dtype's timed runs takes the
+    # first calls' set-up (cuDNN/cuBLAS choices at new shapes) off them
+    bf16 = ("--weight_dtype", "bf16", "--batch_seeds")
+    warm = ("--num_samples", "1", "--num_inference_steps", "2")
+    plan = [("a_warm", bf16 + warm, False),
+            ("a_4_steps", bf16 + ("--num_inference_steps", "4"), False),
+            ("a_8_steps", bf16 + ("--num_inference_steps", "8"), False),
+            ("a_8_steps_serial", bf16 + ("--num_inference_steps", "8"), True),
+            ("c_rerun_of_a_8_steps", bf16 + ("--num_inference_steps", "8"), False),
+            ("b_warm", warm, False),
+            ("b_fp32_2_steps", ("--num_inference_steps", "2"), False),
+            ("b_fp32_4_steps", ("--num_inference_steps", "4"), False)]
+    runs, by_shape = {}, {}
+    for name, extra, serial in plan:
+        out = os.path.join(tmp, "infer", name.replace("c_rerun_of_", ""))
+        before = ({f: os.path.getmtime(os.path.join(out, f)) for f in os.listdir(out)}
+                  if os.path.isdir(out) else None)
+        record.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        with mock.patch.object(cli_test, "drive_rows", drive(serial)):
+            cli_test.main(argv(out, *extra))
+        torch.cuda.synchronize()
+        runs[name] = {"wall_s": time.perf_counter() - t0, **record,
+                      "launches": read_counters(),
+                      "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        by_shape[name] = read_counters_by_shape()
+        if before is not None:
+            runs[name]["rewrote"] = sorted(f for f in os.listdir(out)
+                                           if before.get(f) != os.path.getmtime(
+                                               os.path.join(out, f)))
+        sheets = sorted(os.listdir(out))
+        arrays = [np.asarray(Image.open(os.path.join(out, f))) for f in sheets]
+        runs[name]["sheets"] = [{"name": f, "shape": list(a.shape), "dtype": str(a.dtype),
+                                 "std": float(a.std())} for f, a in zip(sheets, arrays)]
+
+    a4, a8, a8s = runs["a_4_steps"], runs["a_8_steps"], runs["a_8_steps_serial"]
+    b2, b4, c = runs["b_fp32_2_steps"], runs["b_fp32_4_steps"], runs["c_rerun_of_a_8_steps"]
+    rows = CLI_ROWS
+
+    def per_step(hi, lo, steps, calls):
+        return {k: (hi["launches"][k] - lo["launches"][k]) / (steps * calls)
+                for k in hi["launches"]}
+
+    a_per_step = per_step(a8, a4, 4, rows)                 # one batched call a row
+    b_per_step = per_step(b4, b2, 2, rows * CLI_SEEDS)     # one call a seed
+    fp32_key = ("flash", ((2, 4096, 8, 40), "float32"))
+    b1_fp32 = next(e for e in entries if e["key"] == fp32_key)
+    b_s_step = (b4["rows_s"] - b2["rows_s"]) / (2 * rows * CLI_SEEDS)
+    host_row_s = (a8s["rows_s"] - a8s["device_s"]) / rows
+    res = {
+        "phase": "test_cli", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}", "rows": rows,
+        "seeds_per_row": CLI_SEEDS, "depth": "concat", "cfg": 7.5, "scheduler": "unipc",
+        "runs": runs,
+        "bf16_batched_s_per_image_8_steps": a8["rows_s"] / (rows * CLI_SEEDS),
+        "bf16_batched_s_per_step": (a8["rows_s"] - a4["rows_s"]) / (4 * rows),
+        "bf16_batched_s_per_image_step": (a8["rows_s"] - a4["rows_s"]) / (4 * rows * CLI_SEEDS),
+        "fp32_sequential_s_per_image_4_steps": b4["rows_s"] / (rows * CLI_SEEDS),
+        "fp32_sequential_s_per_step": b_s_step,
+        "host_s_per_row_outside_device_work": host_row_s,
+        "overlap_hid_s_per_row": (a8s["rows_s"] - a8["rows_s"]) / rows,
+        "launches_per_step": {"bf16_batched": a_per_step, "fp32_sequential": b_per_step,
+                              "main_path": main_per_step},
+        "b1_fp32_launches": {"b_fp32_4_steps": by_shape["b_fp32_4_steps"].get(fp32_key, 0),
+                             "per_step": b_per_step["flash"]},
+        "b1_fp32_device_ms_per_step": b_per_step["flash"] * b1_fp32["device_ms"],
+        "b1_fp32_share_of_fp32_step": b_per_step["flash"] * b1_fp32["device_ms"] / 1e3
+        / b_s_step,
+        "plain_fp32_ms_per_step_instead": b_per_step["flash"] * b1_fp32["plain_ms"],
+        "absent_modules": {m: m not in sys.modules or sys.modules[m] is None
+                           for m in ("h5py", "jax")},
+        "phase_wall_s": time.perf_counter() - t_phase,
+    }
+    emit(res)
+    bad = []
+    for name in ("a_4_steps", "a_8_steps", "a_8_steps_serial", "b_fp32_2_steps",
+                 "b_fp32_4_steps"):
+        sheets = runs[name]["sheets"]
+        if len(sheets) != rows or runs[name]["rows"] != rows or any(
+                sh["shape"] != [2 * CLI_PX, 2 * CLI_PX, 3] or sh["dtype"] != "uint8"
+                or not sh["std"] > 0 for sh in sheets):
+            bad.append(f"{name} sheets {sheets}")
+    if c["rows"] != 0 or c["rewrote"] or c["launches"]["flash"] != 0:
+        bad.append(f"the rerun wrote or ran: {c['rewrote']}, {c['rows']} rows")
+    for name, got in (("bf16_batched", a_per_step), ("fp32_sequential", b_per_step)):
+        if got["flash"] != 5 or got["groupnorm"] != main_per_step["groupnorm"]:
+            bad.append(f"{name} launches per step {got}, main path {main_per_step}")
+    if not all(res["absent_modules"].values()):
+        bad.append(f"modules imported: {res['absent_modules']}")
+    if bad:
+        raise AssertionError(f"test_cli failed: {bad}")
+    return by_shape, os.path.join(tmp, "infer", "a_8_steps"), data
+
+
+def phase_evaluate(torch, gpu_line: str, tmp: str, sheets_dir: str, data: str) -> None:
+    """The evaluation stack on the test CLI's sheets: MetricsCalculator on
+    the card against the same calculator on the CPU, then `evaluate`'s
+    best/avg on the CSVs written from the card's scores, and the LPIPS
+    time per 512² pair."""
+    import numpy as np
+    import pandas as pd
+    from PIL import Image
+
+    from reflecting_reality_tpu_torch.data.synmirror import get_masked_image
+    from reflecting_reality_tpu_torch.metrics import evaluate
+    from reflecting_reality_tpu_torch.metrics.calculator import MetricsCalculator, _no_tf32
+    from reflecting_reality_tpu_torch.metrics.lpips import LPIPS, save_lpips_npz
+
+    t_phase = time.perf_counter()
+    torch.manual_seed(SEED)
+    weights = os.path.join(tmp, "lpips_squeeze.npz")
+    save_lpips_npz({k: v.abs() for k, v in LPIPS().state_dict().items()}, weights)
+    calcs = {dev: MetricsCalculator(FAMILIES, lpips_weights=weights, device=dev)
+             for dev in ("cuda", "cpu")}
+    uids = sorted(f[:-4] for f in os.listdir(sheets_dir) if f.endswith(".png"))
+    scores = {dev: {} for dev in calcs}
+    for uid in uids:
+        i = int(uid.removeprefix("scene"))
+        image = np.asarray(Image.open(os.path.join(data, "images", f"{i}.png")))
+        mask = np.asarray(Image.open(os.path.join(data, "masks", f"{i}.png")).convert("L"))
+        gt = {"image": image, "mask": mask, "masked_image": get_masked_image(image, mask)}
+        gens = evaluate.split_generated_image(
+            CLI_SEEDS, Image.open(os.path.join(sheets_dir, f"{uid}.png")))
+        for dev, calc in calcs.items():
+            for k, gen in enumerate(gens):
+                for m in FAMILIES:
+                    scores[dev][(uid, k, m)] = calc.compute_metric(m, gen, gt, "")
+    # fp32 both sides, TF32 off: summation order only
+    tol = {"LPIPS": ("rel", 1e-4), "PSNR": ("abs", 1e-3), "SSIM": ("abs", 1e-5)}
+    worst = {}
+    for key, want in scores["cpu"].items():
+        kind, limit = tol[next(t for t in tol if t in key[2])]
+        got = scores["cuda"][key]
+        err = abs(got - want) / (abs(want) if kind == "rel" else 1.0)
+        fam = key[2]
+        worst[fam] = max(worst.get(fam, 0.0), err)
+        if not (math.isfinite(got) and err <= limit):
+            raise AssertionError(f"evaluate: {key} card {got} cpu {want} ({kind} {err} > {limit})")
+    for k in range(CLI_SEEDS):
+        df = pd.DataFrame({c: [float("nan")] * len(uids) for c in evaluate.columns})
+        df["uid"] = uids
+        for j, uid in enumerate(uids):
+            for m in FAMILIES:
+                df.at[j, m] = scores["cuda"][(uid, k, m)]
+        df.to_csv(os.path.join(sheets_dir, f"eval_{k}.csv"), index=False)
+    evaluate.main(["--infer_dir", sheets_dir, "--mode", "avg", "--select_metric", "mask_SSIM",
+                   "--device", "cuda"])
+    best = pd.read_csv(os.path.join(sheets_dir, "eval_best.csv"))
+    avg = pd.read_csv(os.path.join(sheets_dir, "eval_avg.csv")).set_index("Metric")
+    want_idx = [int(np.argmax([scores["cuda"][(uid, k, "mask_SSIM")] for k in range(CLI_SEEDS)]))
+                for uid in best["uid"]]
+    want_avg = {m: float(np.mean([scores["cuda"][(uid, j, m)]
+                                  for uid, j in zip(best["uid"], want_idx)])) for m in FAMILIES}
+
+    module = calcs["cuda"].lpips_module()
+    g = torch.Generator("cuda").manual_seed(SEED)
+    x, y = (torch.rand(1, 3, CLI_PX, CLI_PX, generator=g, device="cuda") * 2 - 1
+            for _ in range(2))
+    with torch.inference_mode(), _no_tf32():
+        lpips_ms = cuda_ms(torch, lambda: module(x, y))
+    a, b = (np.random.RandomState(SEED + s).rand(CLI_PX, CLI_PX, 3).astype(np.float32) * 2 - 1
+            for s in (0, 1))
+    calcs["cuda"].calculate_lpips(a, b)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        calcs["cuda"].calculate_lpips(a, b)
+    call_ms = (time.perf_counter() - t0) * 100
+    res = {"phase": "evaluate", "gpu": gpu_line, "sheets": uids, "seeds": CLI_SEEDS,
+           "metrics": list(FAMILIES), "cells_compared": len(scores["cpu"]),
+           "card_vs_cpu_worst": worst,
+           "tolerance": {k: f"{kind} {v}" for k, (kind, v) in tol.items()},
+           "best_select_img_index": best["select_img_index"].astype(int).tolist(),
+           "avg": {m: float(avg.loc[m, "Dataset Average"]) for m in FAMILIES},
+           "lpips_ms_per_512_pair_device": lpips_ms,
+           "lpips_ms_per_512_pair_calculate_lpips": call_ms,
+           "phase_wall_s": time.perf_counter() - t_phase}
+    emit(res)
+    if res["best_select_img_index"] != want_idx or any(
+            abs(res["avg"][m] - want_avg[m]) > 1e-6 * max(1.0, abs(want_avg[m]))
+            for m in FAMILIES):
+        raise AssertionError(f"evaluate best/avg: {res['best_select_img_index']} vs {want_idx}, "
+                             f"{res['avg']} vs {want_avg}")
+
+
+def phase_modes(torch, gpu_line: str) -> None:
+    """The pipeline's other conditioning modes at full width, 512²: bf16
+    depth `latents` + normals `concat` (BrushNet with 12 conditioning
+    channels), 4 steps; then fp32 depth `concat` + normals `latents`, one
+    denoise step (slice_parity's depth), the card against the CPU."""
+    import numpy as np
+
+    from reflecting_reality_tpu_torch.cli.train import conditioning_channels_for
+    from reflecting_reality_tpu_torch.data.tokenizer import HashTokenizer
+    from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
+    from reflecting_reality_tpu_torch.models.clip_text import CLIPTextModel
+    from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
+    from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+    from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
+        StableDiffusionBrushNetPipeline,
+    )
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 5)
+    mask = np.zeros((CLI_PX, CLI_PX, 3), np.float32)
+    mask[128:384, 160:352] = 1.0
+    kw = dict(prompt="a photo of a mirror on the wall",
+              image=rng.rand(CLI_PX, CLI_PX, 3).astype(np.float32), mask=mask,
+              depth=rng.rand(CLI_PX, CLI_PX, 1).astype(np.float32),
+              normals=rng.rand(CLI_PX, CLI_PX, 3).astype(np.float32), guidance_scale=7.5,
+              seed=SEED)
+
+    def modules(depth_mode, normals_mode):
+        torch.manual_seed(SEED)
+        with torch.device("cuda"):
+            unet, vae, text = UNet2DConditionModel(), AutoencoderKL(), CLIPTextModel()
+            brushnet = BrushNetModel(
+                conditioning_channels=conditioning_channels_for(depth_mode, normals_mode))
+        fill_zero_convs(torch, brushnet, SEED, 0.02)
+        return dict(vae=vae, text_encoder=text, unet=unet, brushnet=brushnet,
+                    tokenizer=HashTokenizer(vocab_size=49408), depth_conditioning_mode=depth_mode,
+                    normals_conditioning_mode=normals_mode)
+
+    mods = modules("latents", "concat")
+    channels = mods["brushnet"].conditioning_channels
+    pipe = StableDiffusionBrushNetPipeline(**mods, dtype=torch.bfloat16, device="cuda")
+    reset_counters()
+    t0 = time.perf_counter()
+    out = pipe(**kw, num_inference_steps=4, output_type="np")
+    torch.cuda.synchronize()
+    bf16 = {"depth": "latents", "normals": "concat", "conditioning_channels": channels,
+            "s_4_steps": time.perf_counter() - t0, "launches": read_counters(),
+            "shape": list(out.shape), "dtype": str(out.dtype), "std": float(out.std())}
+    del pipe, mods
+    torch.cuda.empty_cache()
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mods = modules("concat", "latents")
+    cpu_mods = {k: copy.deepcopy(v).cpu() if isinstance(v, torch.nn.Module) else v
+                for k, v in mods.items()}
+    fp32 = dict(kw, num_inference_steps=1, output_type="latent", deterministic_vae_encode=True,
+                latents=np.random.RandomState(SEED + 6).standard_normal(
+                    (1, CLI_PX // 8, CLI_PX // 8, 4)).astype(np.float32))
+    reset_counters()
+    t0 = time.perf_counter()
+    card = StableDiffusionBrushNetPipeline(**mods, device="cuda")(**fp32)
+    t_card = time.perf_counter() - t0
+    launched = read_counters()
+    t0 = time.perf_counter()
+    cpu = StableDiffusionBrushNetPipeline(**cpu_mods, device="cpu")(**fp32)
+    t_cpu = time.perf_counter() - t0
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    scale = float(np.abs(cpu).max())
+    err = float(np.abs(card - cpu).max())
+    res = {"phase": "modes", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}", "bf16": bf16,
+           "fp32_parity": {"depth": "concat", "normals": "latents",
+                           "conditioning_channels": mods["brushnet"].conditioning_channels,
+                           "steps": 1, "max_abs_err": err, "max_abs_tol": 1e-3 * scale,
+                           "output_max_abs": scale, "finite": bool(np.isfinite(card).all()),
+                           "launches": launched, "card_s": t_card, "cpu_s": t_cpu},
+           "phase_wall_s": time.perf_counter() - t_phase}
+    emit(res)
+    del mods, cpu_mods
+    torch.cuda.empty_cache()
+    bad = []
+    if bf16["shape"] != [1, CLI_PX, CLI_PX, 3] or bf16["dtype"] != "uint8" or \
+            not bf16["std"] > 0 or channels != 12:
+        bad.append(f"bf16 image {bf16}")
+    if bf16["launches"]["flash"] != 20 or bf16["launches"]["groupnorm"] == 0:
+        bad.append(f"bf16 launches {bf16['launches']}")
+    p = res["fp32_parity"]
+    if not (p["finite"] and err <= p["max_abs_tol"]) or launched["flash"] != 5 \
+            or launched["groupnorm"] == 0:
+        bad.append(f"fp32 parity {p}")
+    if bad:
+        raise AssertionError(f"modes failed: {bad}")
+
+
 # ------------------------------------------------------------------ main
+
+AB_RUN = ("import sys, torch; sys.path.insert(0, '.'); import chip_smoke as cs; "
+          "cs.phase_build(torch); cs.phase_main(torch, cs.nvidia_smi())")
+
+
+def ab_main_path(other: str, blocks: int) -> None:
+    """The main path (phases build and main_path) of another checkout and of
+    this one in turns, each in a process of its own: `blocks` times other,
+    this, this, other; one `ab_main_path` line with each run's numbers."""
+    runs = []
+    order = [("other", other), ("this", ROOT), ("this", ROOT), ("other", other)] * blocks
+    for name, tree in order:
+        out = subprocess.run([sys.executable, "-c", AB_RUN], cwd=tree, capture_output=True,
+                             text=True, timeout=900, check=True).stdout
+        lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+        main = next(d for d in lines if d.get("phase") == "main_path")
+        prof = next(d for d in lines if d.get("phase") == "profile")
+        runs.append({"tree": name, "s_per_step": main["s_per_step"],
+                     "s_per_image_8_steps": main["s_per_image_8_steps"],
+                     "s_each": {k: r["s_each"] for k, r in main["runs"].items()},
+                     "launches_per_step": main["launches_per_step"],
+                     "traced_idle_share": prof["device_idle_share"]})
+    emit({"phase": "ab_main_path", "gpu": nvidia_smi(), "other": other, "runs": runs,
+          "median_s_per_step": {n: statistics.median(r["s_per_step"] for r in runs
+                                                     if r["tree"] == n)
+                                for n in ("other", "this")},
+          "median_s_per_image_8_steps": {n: statistics.median(r["s_per_image_8_steps"]
+                                                              for r in runs if r["tree"] == n)
+                                         for n in ("other", "this")}})
+
 
 def main() -> int:
     import torch
@@ -1339,6 +1773,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import reflecting_reality_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    if sys.argv[1:2] == ["--ab-main-path"]:
+        ab_main_path(os.path.abspath(sys.argv[2]), int(sys.argv[3]) if len(sys.argv) > 3 else 1)
+        return 0
     gpu_line = nvidia_smi()
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
@@ -1349,26 +1786,38 @@ def main() -> int:
     phase_build(torch)
     entries = phase_kernels(torch)
     phase_slice(torch)
-    by_shape = phase_main(torch, gpu_line)
+    by_shape, main_per_step = phase_main(torch, gpu_line)
     phase_train_parity(torch)
     train_by_shape, train_s_step = phase_train_main(torch, gpu_line)
-    cli_by_shape = phase_train_cli(torch, gpu_line, train_s_step)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        cli_by_shape = phase_train_cli(torch, gpu_line, train_s_step, tmp)
+        test_by_shape, sheets, data = phase_test_cli(torch, gpu_line, tmp, main_per_step,
+                                                     entries)
+        phase_evaluate(torch, gpu_line, tmp, sheets, data)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_modes(torch, gpu_line)
 
     # each entry carries the launches of its own kernel, shape and dtype on
     # each path: the main path's 8-step call (and per denoise step), the
-    # TRAIN_REPEATS timed training steps (and per training step) and the
-    # training CLI's first run (8 steps)
+    # TRAIN_REPEATS timed training steps (and per training step), the
+    # training CLI's first run (8 steps) and the test CLI's bf16 8-step and
+    # fp32 4-step runs (2 rows of 4 seeds each)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    test_paths = {"test_cli_bf16_8_steps": test_by_shape["a_8_steps"],
+                  "test_cli_fp32_4_steps": test_by_shape["b_fp32_4_steps"]}
     rows = []
     for e in entries:
         row = {k: e.get(k) for k in keys if k != "launches"}
         main_n, train_n = by_shape[8].get(e["key"], 0), train_by_shape.get(e["key"], 0)
         cli_n = cli_by_shape.get(e["key"], 0)
-        row["launches"] = main_n + train_n + cli_n
+        test_n = {path: counts.get(e["key"], 0) for path, counts in test_paths.items()}
+        row["launches"] = main_n + train_n + cli_n + sum(test_n.values())
         row["launches_by_path"] = {"main_path_8_steps": main_n,
                                    f"train_main_{TRAIN_REPEATS}_steps": train_n,
-                                   "train_cli_8_steps": cli_n}
+                                   "train_cli_8_steps": cli_n, **test_n}
         row["launches_per_denoise_step"] = (main_n - by_shape[4].get(e["key"], 0)) / 4
         row["launches_per_train_step"] = train_n / TRAIN_REPEATS
         row["launches_per_cli_step"] = cli_n / 8

@@ -99,8 +99,6 @@ def refuse_unported(args) -> None:
     unported = [
         (args.normals_conditioning_mode == "ip_adapter",
          "--normals_conditioning_mode ip_adapter", "item 14"),
-        (args.lpips_weights is not None, "--lpips_weights (validation LPIPS)", "item 13"),
-        (args.summarizer is not None, "--summarizer (validation prompt summaries)", "item 13"),
         (int(os.environ.get("WORLD_SIZE", "1")) > 1, "multi-process runs (WORLD_SIZE > 1)",
          "item 16"),
     ]
@@ -409,12 +407,14 @@ def run_validation(args, state, tokenizer, trackers, step, dtype, device):
     modules (no weight copy; eval mode, inference_mode, autocast in the
     training dtype), `--num_inference_steps` UniPC steps for each of
     `--num_images_per_validation` seeds per validation row; logs best-of-seed
-    PSNR/SSIM and writes a score-stamped grid sheet per row."""
+    PSNR/SSIM (and LPIPS with `--lpips_weights`) and writes a score-stamped
+    grid sheet per row.  The depth and normals planes go in as in the JAX
+    CLI (:731-744); `--summarizer` shortens the prompts first."""
     import h5py
     from PIL import Image, ImageDraw
 
     from reflecting_reality_tpu_torch.data.synmirror import (
-        apply_transforms_depth, extract_data_from_hdf5, read_rows,
+        apply_transforms_depth, extract_data_from_hdf5, normals_to_uint8, read_rows,
     )
     from reflecting_reality_tpu_torch.metrics.functional import psnr_ssim
     from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
@@ -436,16 +436,34 @@ def run_validation(args, state, tokenizer, trackers, step, dtype, device):
     else:
         rows = rows[:args.num_validation_images]
 
-    def stamp(img_arr, psnr, ssim):
+    summarize = None
+    if args.summarizer:
+        # validation-prompt summarization (reference :948-951,213-214)
+        from reflecting_reality_tpu_torch.tools.summarize_captions import summarize_fn
+
+        summarize = summarize_fn(args.summarizer)
+
+    # validation LPIPS (reference log_validation logs PSNR/SSIM/LPIPS,
+    # train_brushnet_mirror.py:238), when an --lpips_weights file is given
+    lpips_calc = None
+    if args.lpips_weights:
+        from reflecting_reality_tpu_torch.metrics.calculator import MetricsCalculator
+
+        lpips_calc = MetricsCalculator([], lpips_weights=args.lpips_weights, device=device)
+
+    def stamp(img_arr, psnr, ssim, lpips=None):
         im = Image.fromarray(img_arr)
         draw = ImageDraw.Draw(im)
         draw.rectangle([0, 0, im.width, 12], fill=(0, 0, 0))
-        draw.text((2, 1), f"PSNR {psnr:.2f}  SSIM {ssim:.3f}", fill=(255, 255, 0))
+        text = f"PSNR {psnr:.2f}  SSIM {ssim:.3f}"
+        if lpips is not None:
+            text += f"  LPIPS {lpips:.3f}"
+        draw.text((2, 1), text, fill=(255, 255, 0))
         return im
 
     val_dir = os.path.join(args.output_dir, "validation", f"step-{step}")
     os.makedirs(val_dir, exist_ok=True)
-    best_psnrs, best_ssims = [], []
+    best_psnrs, best_ssims, best_lpips = [], [], []
     try:
         for row in rows:
             try:
@@ -458,19 +476,31 @@ def run_validation(args, state, tokenizer, trackers, step, dtype, device):
             if args.depth_conditioning_mode is not None:
                 depth = apply_transforms_depth(data["depth"], data["mask"],
                                                resolution=args.resolution)
+            normals = None
+            if args.normals_conditioning_mode in ("concat", "latents"):
+                # the raw normals image; the pipeline preprocesses it
+                # (reference get_hdf5_data :131-132)
+                normals = Image.fromarray(normals_to_uint8(data["normals"]), mode="RGB")
             prompt = args.mirror_prompt + str(row[args.caption_column])
+            if summarize is not None:
+                prompt = summarize(prompt)
             scores = []
             for k in range(args.num_images_per_validation):
                 out = pipe(prompt, Image.fromarray(data["masked_image"]),
                            Image.fromarray(data["mask"]).convert("RGB"), depth=depth,
-                           height=args.resolution, width=args.resolution,
+                           normals=normals, height=args.resolution, width=args.resolution,
                            num_inference_steps=args.num_inference_steps, guidance_scale=7.5,
                            seed=k, brushnet_conditioning_scale=args.brushnet_conditioning_scale,
                            )[0]
                 p, s = psnr_ssim(out.astype(np.float32), data["image"].astype(np.float32),
                                  device=device)
-                scores.append((p, s, out))
-            stamped = [stamp(o, p, s) for p, s, o in scores]
+                lp = None
+                if lpips_calc is not None:
+                    lp = lpips_calc.calculate_lpips(
+                        out.astype(np.float32) / 127.5 - 1.0,
+                        data["image"].astype(np.float32) / 127.5 - 1.0)
+                scores.append((p, s, lp, out))
+            stamped = [stamp(o, p, s, lp) for p, s, lp, o in scores]
             cols = max(1, len(stamped) // 2)
             w, h = stamped[0].size
             grid = Image.new("RGB", (cols * w, 2 * h))
@@ -480,14 +510,18 @@ def run_validation(args, state, tokenizer, trackers, step, dtype, device):
             best = max(scores, key=lambda x: x[1])
             best_psnrs.append(best[0])
             best_ssims.append(best[1])
+            if best[2] is not None:
+                best_lpips.append(best[2])
     finally:
         for m, training in zip(modules, was_training):
             m.train(training)
     if not best_psnrs:
         logger.warning("validation produced no samples at step %d", step)
         return
-    log_to_trackers(trackers, {"val/psnr": float(np.mean(best_psnrs)),
-                               "val/ssim": float(np.mean(best_ssims))}, step)
+    scalars = {"val/psnr": float(np.mean(best_psnrs)), "val/ssim": float(np.mean(best_ssims))}
+    if best_lpips:
+        scalars["val/lpips"] = float(np.mean(best_lpips))
+    log_to_trackers(trackers, scalars, step)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -499,8 +533,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--variant", type=str, default=None)
     p.add_argument("--tokenizer_name", type=str, default=None)
     p.add_argument("--summarizer", type=str, default=None,
-                   help="summarization model for long validation prompts (not ported: "
-                        "raises; ROADMAP queue A item 13)")
+                   help="summarization model for long validation prompts, "
+                        "e.g. sshleifer/distilbart-cnn-6-6 (reference :395-398); word "
+                        "truncation where transformers cannot build it")
     # io
     p.add_argument("--output_dir", type=str, default="runs/brushnet-model")
     p.add_argument("--cache_dir", type=str, default=None)
@@ -619,8 +654,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_inference_steps", type=int, default=20)
     p.add_argument("--validation_steps", type=int, default=1000)
     p.add_argument("--lpips_weights", type=str, default=None,
-                   help="validation LPIPS weights (not ported: raises; ROADMAP queue A "
-                        "item 13)")
+                   help="validation LPIPS-squeeze weights: the .npz of the JAX package's "
+                        "tools/convert_lpips.py, or a torch checkpoint")
     # the port
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu' (the plain "

@@ -1,9 +1,11 @@
 """Minimal CLIP text encoder (counterpart of
 `reflecting_reality_tpu/models/clip_text.py`): token + position embeddings,
 pre-LN transformer layers with causal masking and quick_gelu MLPs, final
-LayerNorm; only `last_hidden_state` is used.  Parameter names follow the
-transformers checkpoint layout (`text_model.encoder.layers.N.self_attn.q_proj`).
-The T=77 attention stays plain, as in JAX.
+LayerNorm; SD-1.5 uses only `last_hidden_state`.  Parameter names follow
+the transformers checkpoint layout (`text_model.encoder.layers.N.self_attn.
+q_proj`).  `CLIPTextModelWithProjection` (JAX :105-137) adds the projected
+EOS-token state, the text half of CLIP_Similarity.  The T=77 attention stays
+plain, as in JAX.
 """
 
 from __future__ import annotations
@@ -126,9 +128,45 @@ class CLIPTextModel(nn.Module, ConfigMixin):
         return self.text_model(input_ids)
 
 
-def load_text_encoder(base_path: str, subfolder: str = "text_encoder") -> CLIPTextModel:
+class CLIPTextModelWithProjection(nn.Module, ConfigMixin):
+    """CLIP text tower + `text_projection` (transformers names): the pooled
+    output is the final hidden state at the first EOS token, projected."""
+
+    def __init__(self, vocab_size: int = 49408, hidden_size: int = 1280,
+                 num_hidden_layers: int = 32, num_attention_heads: int = 20,
+                 intermediate_size: int = 5120, max_position_embeddings: int = 77,
+                 projection_dim: int = 1280, eos_token_id: int = 49407):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_hidden_layers = num_hidden_layers
+        self.num_attention_heads = num_attention_heads
+        self.intermediate_size = intermediate_size
+        self.max_position_embeddings = max_position_embeddings
+        self.projection_dim = projection_dim
+        self.eos_token_id = eos_token_id
+        self.text_model = _TextModel(vocab_size, hidden_size, num_hidden_layers,
+                                     num_attention_heads, intermediate_size,
+                                     max_position_embeddings)
+        self.text_projection = nn.Linear(hidden_size, projection_dim, bias=False)
+
+    def forward(self, input_ids: torch.Tensor):
+        """(B, T) int token ids -> (last hidden (B, T, hidden), text embeds
+        (B, projection_dim))."""
+        last = self.text_model(input_ids)
+        eos = (input_ids == self.eos_token_id).int().argmax(dim=1)
+        pooled = last[torch.arange(last.shape[0], device=last.device), eos]
+        return last, self.text_projection(pooled)
+
+
+def load_text_encoder(base_path: str, subfolder: str = "text_encoder",
+                      with_projection: bool = False) -> nn.Module:
     """A strict load from a transformers-layout folder (config.json +
-    model.safetensors), the layout SD checkpoints ship; CPU, fp32."""
+    model.safetensors), the layout SD checkpoints ship; CPU, fp32.
+    `with_projection` builds `CLIPTextModelWithProjection` from a whole CLIP
+    checkpoint (openai/clip-vit-large-patch14 layout: `text_config` in the
+    config, the vision tower's tensors beside the text tower's, which are
+    left out of the load)."""
     from reflecting_reality_tpu_torch.core.io import empty_module, load_into, load_safetensors
 
     root = os.path.join(base_path, subfolder)
@@ -137,7 +175,9 @@ def load_text_encoder(base_path: str, subfolder: str = "text_encoder") -> CLIPTe
     if os.path.exists(cfg_path):
         with open(cfg_path) as f:
             cfg = json.load(f)
-    module = empty_module(CLIPTextModel, cfg)
+    if with_projection:
+        cfg = cfg.get("text_config", cfg)
+    module = empty_module(CLIPTextModelWithProjection if with_projection else CLIPTextModel, cfg)
     for name in ("model.safetensors", "pytorch_model.safetensors"):
         path = os.path.join(root, name)
         if os.path.exists(path):
@@ -146,5 +186,6 @@ def load_text_encoder(base_path: str, subfolder: str = "text_encoder") -> CLIPTe
     else:
         raise FileNotFoundError(f"no text encoder weights under {root}")
     # position_ids is a persistent buffer in older transformers exports
-    weights = {k: v.float() for k, v in weights.items() if not k.endswith("position_ids")}
+    weights = {k: v.float() for k, v in weights.items() if not k.endswith("position_ids")
+               and (not with_projection or k.startswith(("text_model.", "text_projection.")))}
     return load_into(module, weights, where=root)

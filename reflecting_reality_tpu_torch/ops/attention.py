@@ -5,13 +5,15 @@
 routes by the tensors' device and shape, never by a process global:
 
 - CUDA tensors whose shape the JAX dispatch rule sends to flash
-  (`ops/attention.py:63-64`: Tq >= 2048, Tq == Tk, Tq % 8 == 0, D <= 256)
-  go to the flash kernels (`ops/kernels/flash_attention.py`): through the
-  `FlashAttention` autograd Function (B1 forward, B3 + B4 backward) when a
-  gradient is needed, straight to B1 when not.  That threshold was measured
-  on the TPU; re-deriving it for the H100 is later work.  The kernels take
-  head dims up to 160 (SD-1.5's largest) and raise past it.
-- Everything else takes the plain path, the JAX einsum path (:69-72): fp32
+  (`ops/attention.py:63-64`: Tq >= 2048, Tq == Tk, Tq % 8 == 0) and whose
+  head dim the kernels take (D % 8 == 0 and D <= `_MAX_D` = 160, SD-1.5's
+  largest; JAX's rule allows any D <= 256) go to the flash kernels
+  (`ops/kernels/flash_attention.py`): through the `FlashAttention` autograd
+  Function (B1 forward, B3 + B4 backward) when a gradient is needed,
+  straight to B1 when not.  That token threshold was measured on the TPU;
+  re-deriving it for the H100 is later work.
+- Everything else, head dims 161-256 (or not a multiple of 8) on the card
+  included, takes the plain path, the JAX einsum path (:69-72): fp32
   logits and softmax, probabilities cast to q.dtype before P V; torch
   autograd differentiates it.
 
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from reflecting_reality_tpu_torch.ops.kernels.flash_attention import (
+    _MAX_D,
     attention_plain,
     flash_attention,
 )
@@ -36,9 +39,11 @@ from reflecting_reality_tpu_torch.ops.norms import GroupNorm
 
 
 def routes_to_flash(q: torch.Tensor, k: torch.Tensor) -> bool:
-    """The JAX package's flash dispatch rule (ops/attention.py:63-64)."""
-    t = q.shape[1]
-    return t >= 2048 and t == k.shape[1] and t % 8 == 0 and q.shape[-1] <= 256
+    """The JAX package's flash dispatch rule (ops/attention.py:63-64), with
+    the head dims the kernels take (D % 8 == 0, D <= `_MAX_D`) in place of
+    JAX's D <= 256."""
+    t, d = q.shape[1], q.shape[-1]
+    return t >= 2048 and t == k.shape[1] and t % 8 == 0 and d <= _MAX_D and d % 8 == 0
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

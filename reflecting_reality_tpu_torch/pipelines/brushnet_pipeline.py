@@ -12,15 +12,23 @@ and stepping the sampler -> VAE decode and uint8 conversion on the device.
 Reference contracts kept exactly (see the JAX module for line references):
 bicubic resize to [-1, 1]; the mask trick (3ch mask -> channel-sum < 0, so
 1 = keep, 0 = mirror hole); conditioning latents = concat(vae(masked
-image)·sf, nearest mask, depth) with depth in `concat` mode (1ch
-nearest); the brushnet_keep window; CFG layout [uncond,
-cond]; guess_mode runs the branch on the cond half and zero-pads the uncond
-half.
+image)·sf, nearest mask, depth, normals) (JAX :1013-1098), where depth is
+a 1ch nearest downsample (`concat`) or the VAE encode of its 3-channel
+repeat (`latents`), and normals a 3ch nearest downsample (`concat`) or
+their VAE encode (`latents`); one packed upload carries image | depth |
+normals | mask; the brushnet_keep window; CFG layout [uncond, cond];
+guess_mode runs the branch on the cond half and zero-pads the uncond half.
+
+Random numbers: one torch.Generator draws the initial noise, then the VAE
+sampling noise of the image, the depth and the normals encodes, in that
+order.  JAX splits its key four ways instead (:987), so the two draw
+different numbers; parity tests pass `latents=` and
+`deterministic_vae_encode=True`.
 
 The host boundary is numpy NHWC, as in JAX; inside, tensors are NCHW on the
 pipeline's device.  DeepCache, encoder reuse, int8, VAE tiling, the sharded
-VAE, data parallelism, per-step dispatch, the depth `latents` mode, the
-normals and ip_adapter modes and SDXL are not ported yet.
+VAE, data parallelism, per-step dispatch, the normals ip_adapter mode and
+SDXL are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,6 +44,10 @@ from reflecting_reality_tpu_torch.pipelines.image_processor import ImageProcesso
 from reflecting_reality_tpu_torch.schedulers.common import NoiseSchedule, ddim_timesteps
 from reflecting_reality_tpu_torch.schedulers.ddim import ddim_step
 from reflecting_reality_tpu_torch.schedulers.unipc import UniPCSampler
+
+
+IP_ADAPTER_UNPORTED = ("normals_conditioning_mode='ip_adapter' is not ported to the PyTorch "
+                       "package yet (ROADMAP.md queue A, item 14)")
 
 
 def _tile(res):
@@ -73,8 +85,8 @@ class StableDiffusionBrushNetPipeline:
         unet,
         brushnet,
         schedule: Optional[NoiseSchedule] = None,
-        depth_conditioning_mode: Optional[str] = None,     # None | "concat"
-        normals_conditioning_mode: Optional[str] = None,
+        depth_conditioning_mode: Optional[str] = None,     # None | "concat" | "latents"
+        normals_conditioning_mode: Optional[str] = None,   # None | "concat" | "latents"
         vae_scale_factor: int = 8,
         scaling_factor: float = 0.18215,
         dtype: torch.dtype = torch.float32,
@@ -85,11 +97,12 @@ class StableDiffusionBrushNetPipeline:
         `device` if they are elsewhere, never cast) and runs every call
         under `torch.autocast` in `dtype`: the training CLI's validation
         runs the live modules this way, fp32 BrushNet masters and all."""
-        if normals_conditioning_mode is not None:
-            raise NotImplementedError("normals conditioning modes are not ported yet")
-        if depth_conditioning_mode not in (None, "concat"):
-            raise NotImplementedError(
-                f"depth_conditioning_mode={depth_conditioning_mode!r} is not ported yet")
+        if normals_conditioning_mode == "ip_adapter":
+            raise NotImplementedError(IP_ADAPTER_UNPORTED)
+        if depth_conditioning_mode not in (None, "concat", "latents"):
+            raise ValueError(f"depth_conditioning_mode={depth_conditioning_mode!r}")
+        if normals_conditioning_mode not in (None, "concat", "latents"):
+            raise ValueError(f"normals_conditioning_mode={normals_conditioning_mode!r}")
         self.device = resolve_device(device)
         self.dtype = dtype
         to = (dtype,) if cast_modules else ()
@@ -104,6 +117,7 @@ class StableDiffusionBrushNetPipeline:
             beta_schedule="scaled_linear",
         )
         self.depth_conditioning_mode = depth_conditioning_mode
+        self.normals_conditioning_mode = normals_conditioning_mode
         self.vae_scale_factor = vae_scale_factor
         self.scaling_factor = scaling_factor
         self.image_processor = ImageProcessor(vae_scale_factor=vae_scale_factor)
@@ -116,6 +130,7 @@ class StableDiffusionBrushNetPipeline:
         brushnet_path: str,
         unet_path: Optional[str] = None,
         depth_conditioning_mode: Optional[str] = None,
+        normals_conditioning_mode: Optional[str] = None,
         dtype: torch.dtype = torch.float32,
         device: Union[str, torch.device, None] = None,
     ) -> "StableDiffusionBrushNetPipeline":
@@ -130,6 +145,8 @@ class StableDiffusionBrushNetPipeline:
         from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
 
         device = resolve_device(device)  # fail before loading anything
+        if normals_conditioning_mode == "ip_adapter":
+            raise NotImplementedError(IP_ADAPTER_UNPORTED)
         return cls(
             vae=load_pretrained(AutoencoderKL, base_path, subfolder="vae"),
             text_encoder=load_text_encoder(base_path),
@@ -138,6 +155,7 @@ class StableDiffusionBrushNetPipeline:
                                  subfolder=None if unet_path else "unet"),
             brushnet=load_pretrained(BrushNetModel, brushnet_path),
             depth_conditioning_mode=depth_conditioning_mode,
+            normals_conditioning_mode=normals_conditioning_mode,
             dtype=dtype,
             device=device,
         )
@@ -223,6 +241,7 @@ class StableDiffusionBrushNetPipeline:
         image,                                  # masked image (hole zeroed)
         mask,                                   # white = mirror region
         depth=None,
+        normals=None,                           # normals image (concat / latents modes)
         height: Optional[int] = None,
         width: Optional[int] = None,
         num_inference_steps: int = 50,
@@ -266,19 +285,28 @@ class StableDiffusionBrushNetPipeline:
         uniq = image_np.shape[0]
         hl, wl = h // self.vae_scale_factor, w // self.vae_scale_factor
 
-        parts = [image_np]
+        depth_np = normals_np = None
         if self.depth_conditioning_mode is not None:
             if depth is None:
                 raise ValueError("depth_conditioning_mode set but no depth given")
             depth_np = self.image_processor.preprocess(depth, h, w)[..., :1]
             if depth_np.shape[0] == 1 and uniq > 1:
                 depth_np = np.repeat(depth_np, uniq, axis=0)
-            parts.append(depth_np)
-        parts.append(mask_np)
+        if self.normals_conditioning_mode is not None:
+            if normals is None:
+                raise ValueError("normals_conditioning_mode set but no normals given")
+            normals_np = self.image_processor.preprocess(normals, h, w)
+            if normals_np.shape[0] == 1 and uniq > 1:
+                normals_np = np.repeat(normals_np, uniq, axis=0)
+        parts = [p for p in (image_np, depth_np, normals_np, mask_np) if p is not None]
 
-        # 3. conditioning latents: one packed upload, NCHW on the device
+        # 3. conditioning latents: one packed upload (image | depth | normals |
+        # mask), NCHW on the device
         packed = _nchw(np.concatenate(parts, axis=-1)).to(dev, dtype)
         image_dev, mask_dev = packed[:, :3], packed[:, -1:]
+        depth_dev = packed[:, 3:4] if depth_np is not None else None
+        ofs = 3 if depth_np is None else 4
+        normals_dev = packed[:, ofs:ofs + 3] if normals_np is not None else None
         rows = torch.as_tensor(np.arange(hl) * h // hl, device=dev)
         cols = torch.as_tensor(np.arange(wl) * w // wl, device=dev)
 
@@ -296,7 +324,8 @@ class StableDiffusionBrushNetPipeline:
                 dist = type(dist)(rep(dist.mean), rep(dist.logvar))
             return dist.sample(generator) * sf
 
-        # the initial noise is drawn first, then the VAE's sampling noise
+        # the initial noise is drawn first, then the VAE's sampling noise of
+        # the image, the depth and the normals encodes, in that order
         if latents is None:
             latents0 = torch.randn((batch_size, self.unet.in_channels, hl, wl),
                                    generator=generator, device=dev, dtype=torch.float32)
@@ -306,7 +335,13 @@ class StableDiffusionBrushNetPipeline:
         cond = encode(image_dev)
         cond = torch.cat([cond, rep(down(mask_dev)).to(cond.dtype)], dim=1)
         if self.depth_conditioning_mode == "concat":
-            cond = torch.cat([cond, rep(down(packed[:, 3:4])).to(cond.dtype)], dim=1)
+            cond = torch.cat([cond, rep(down(depth_dev)).to(cond.dtype)], dim=1)
+        elif self.depth_conditioning_mode == "latents":  # 3-channel repeat -> VAE encode
+            cond = torch.cat([cond, encode(depth_dev.repeat(1, 3, 1, 1)).to(cond.dtype)], dim=1)
+        if self.normals_conditioning_mode == "concat":
+            cond = torch.cat([cond, rep(down(normals_dev)).to(cond.dtype)], dim=1)
+        elif self.normals_conditioning_mode == "latents":
+            cond = torch.cat([cond, encode(normals_dev).to(cond.dtype)], dim=1)
         cond = cond.to(dtype)
 
         # 4. brushnet_keep windowing

@@ -266,10 +266,65 @@ def test_nonfinite_loss_saves_and_aborts(tmp_path):
         assert torch.isfinite(v).all(), k
 
 
+def _validate_once(env, out, *extra):
+    """One training step, then validation of one row at one seed, 2 steps."""
+    argv = _argv(env, out, "--train_batch_size", "1", "--max_train_steps", "1",
+                 "--checkpointing_steps", "100", "--num_validation_images", "1",
+                 "--num_images_per_validation", "1", "--num_inference_steps", "2",
+                 "--device", "cpu", *extra)
+    argv[argv.index("--validation_steps") + 1] = "1"
+    train.main(argv)
+    with open(os.path.join(out, "logs", "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if "val/psnr" in r]
+
+
+@pytest.mark.parametrize("depth_mode,normals_mode", [
+    ("latents", None), ("concat", "concat"), ("concat", "latents")])
+def test_validation_runs_in_every_conditioning_mode(env, tmp_path, depth_mode, normals_mode):
+    """Depth `latents` and normals `concat`/`latents` train and validate:
+    the pipeline takes the modes and validation passes the normals."""
+    out = str(tmp_path / "run")
+    extra = ["--normals_conditioning_mode", normals_mode] if normals_mode else []
+    argv_mode = ["--depth_conditioning_mode", depth_mode, *extra]
+    val = _validate_once(env, out, *argv_mode)
+    assert os.listdir(os.path.join(out, "validation", "step-1")) == ["uid0.png"]
+    assert val and np.isfinite(val[-1]["val/psnr"]) and np.isfinite(val[-1]["val/ssim"])
+
+
+def test_validation_lpips(env, tmp_path):
+    """--lpips_weights (a .npz in the JAX package's layout) gives val/lpips."""
+    from reflecting_reality_tpu_torch.metrics.lpips import LPIPS, save_lpips_npz
+
+    torch.manual_seed(0)
+    weights = str(tmp_path / "lpips.npz")
+    save_lpips_npz({k: v.abs() for k, v in LPIPS().state_dict().items()}, weights)
+    val = _validate_once(env, str(tmp_path / "run"), "--lpips_weights", weights)
+    assert val and np.isfinite(val[-1]["val/lpips"]) and val[-1]["val/lpips"] > 0
+
+
+def test_validation_summarizer(env, tmp_path, monkeypatch):
+    """--summarizer shortens the validation prompt before the pipeline sees
+    it (transformers blocked: the summarizer falls back to its first 50
+    words, deterministically and without a network)."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    prompts = []
+    real = StableDiffusionBrushNetPipeline.__call__
+
+    def recording(self, prompt, *a, **kw):
+        prompts.append(prompt)
+        return real(self, prompt, *a, **kw)
+
+    monkeypatch.setattr(StableDiffusionBrushNetPipeline, "__call__", recording)
+    long_prefix = " ".join(f"w{i}" for i in range(60)) + " "
+    _validate_once(env, str(tmp_path / "run"), "--summarizer", "sshleifer/distilbart-cnn-6-6",
+                   "--mirror_prompt", long_prefix)
+    assert prompts == [" ".join(f"w{i}" for i in range(50))]
+
+
 @pytest.mark.parametrize("extra,env_vars,match", [
     (("--normals_conditioning_mode", "ip_adapter"), {}, "item 14"),
-    (("--lpips_weights", "lpips.npz"), {}, "item 13"),
-    (("--summarizer", "sshleifer/distilbart-cnn-6-6"), {}, "item 13"),
     ((), {"WORLD_SIZE": "2"}, "item 16"),
 ])
 def test_unported_options_raise(env, tmp_path, monkeypatch, extra, env_vars, match):

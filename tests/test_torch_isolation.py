@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: neither the package nor chip_smoke.py
 imports jax, flax, the JAX package or the safetensors package (the port
 reads and writes the format itself), the training CLI's latent-cache path
-imports no file-format package, and on CPU tensors the kernel wrappers take
-their plain versions without launching (their counters stay 0)."""
+imports no file-format package, the inference CLI's `--image_mode` path
+imports no h5py, and on CPU tensors the kernel wrappers take their plain
+versions without launching (their counters stay 0)."""
 
 import ast
 import os
@@ -151,3 +152,38 @@ def test_cli_cache_path_imports_no_file_format_packages(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
+
+
+IMAGE_MODE_RUN = r'''
+import os, sys
+sys.modules["jax"] = None
+from reflecting_reality_tpu_torch.cli import test
+from reflecting_reality_tpu_torch.core.io import load_pretrained, save_pretrained
+from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
+from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
+
+root = sys.argv[1]
+unet = load_pretrained(UNet2DConditionModel, os.path.join(root, "base"), subfolder="unet")
+save_pretrained(BrushNetModel.from_unet(unet, conditioning_channels=6), os.path.join(root, "bn"))
+test.main(["--brushnet_path", os.path.join(root, "bn"), "--base_model_path",
+           os.path.join(root, "base"), "--train_data_dir", os.path.join(root, "msd"),
+           "--output_dir", os.path.join(root, "out"), "--image_mode", "--resolution", "64",
+           "--depth_conditioning_mode", "concat", "--num_inference_steps", "1",
+           "--num_images_per_validation", "2", "--device", "cpu"])
+print(sorted(os.listdir(os.path.join(root, "out"))))
+print(sorted(m for m in ("h5py", "jax") if sys.modules.get(m) is not None))
+'''
+
+
+def test_test_cli_image_mode_imports_no_h5py(tmp_path):
+    """The inference CLI on an `--image_mode` folder (what the card runs:
+    it has no h5py) imports no h5py, in a process of its own."""
+    from tests.test_torch_cli import write_tiny_base
+    from tests.test_torch_test_cli import write_image_mode_data
+
+    write_tiny_base(str(tmp_path / "base"))
+    write_image_mode_data(str(tmp_path / "msd"), 2, 64)
+    res = subprocess.run([sys.executable, "-c", IMAGE_MODE_RUN, str(tmp_path)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().splitlines()[-2:] == ["['msd0.png', 'msd1.png']", "[]"], res.stdout

@@ -126,6 +126,27 @@ def test_flash_routing_rule():
     assert not t_attn.routes_to_flash(torch.zeros(1, 4096, 1, 512), torch.zeros(1, 4096, 1, 512))
 
 
+@pytest.mark.parametrize("d,flash", [(40, True), (160, True), (161, False), (168, False),
+                                     (256, False), (100, False)])
+def test_flash_routing_takes_only_the_kernels_head_dims(d, flash):
+    """The route sends to the kernels only the head dims they take (D % 8
+    == 0, D <= 160); D = 161-256 pass JAX's rule (D <= 256) and would raise
+    in the kernels' wrappers, so they take the plain path.  Shapes only:
+    meta tensors."""
+    q = torch.empty(1, 4096, 1, d, device="meta")
+    assert t_attn.routes_to_flash(q, q) is flash
+
+
+def test_plain_attention_past_the_kernels_head_dims_matches_jax():
+    """At D = 192 (routed to the plain path) the port's attention equals
+    JAX's dot_product_attention (its einsum path) at the flash tolerance."""
+    q, k, v = (randn(s, 1, 2048, 1, 192) for s in (0, 1, 2))
+    ref = np.asarray(j_attn.dot_product_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                                  backend="xla"))
+    got = t_attn.dot_product_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), ref, **ATTN_TOL)
+
+
 def test_timestep_embedding_and_mlp():
     ts = np.array([0, 1, 250, 999], np.int32)
     ref = j_emb.get_timestep_embedding(jnp.asarray(ts), 32)

@@ -110,6 +110,87 @@ def test_device_output_matches_np(pipes):
     np.testing.assert_array_equal(dev.numpy(), tpipe(**kw, output_type="np"))
 
 
+@pytest.fixture(scope="module")
+def mode_brushnets():
+    """One tiny BrushNet per conditioning width the modes below need, JAX
+    and port with the same jittered weights: 5 + 4 (depth latents) = 5 + 4
+    (normals latents) = 5 + 1 + 3 (depth concat + normals concat) = 9, and
+    5 + 3 (normals concat alone) = 8."""
+    z8 = jnp.zeros((1, 8, 8, 4))
+    t, ehs = jnp.array([1]), jnp.zeros((1, 77, 32))
+    out = {}
+    for ch in (8, 9):
+        jb = JBrushNet(conditioning_channels=ch, **TINY)
+        bp = init_jax(jb, z8, t, ehs, jnp.zeros((1, 8, 8, ch)), seed=10 + ch)
+        out[ch] = (jb, bp)
+    return out
+
+
+MODES = {  # (depth mode, normals mode) -> conditioning channels
+    ("latents", None): 9, (None, "concat"): 8, (None, "latents"): 9, ("concat", "concat"): 9,
+}
+
+
+def _mode_pipes(pipes, mode_brushnets, depth_mode, normals_mode):
+    jpipe, tpipe = pipes
+    jb, bp = mode_brushnets[MODES[(depth_mode, normals_mode)]]
+    j = JPipeline(vae=(jpipe.vae_module, jpipe.vae_params),
+                  text_encoder=(jpipe.text_module, jpipe.text_params),
+                  tokenizer=jpipe.tokenizer, unet=(jpipe.unet_module, jpipe.unet_params),
+                  brushnet=(jb, bp), depth_conditioning_mode=depth_mode,
+                  normals_conditioning_mode=normals_mode)
+    t = StableDiffusionBrushNetPipeline(
+        vae=tpipe.vae, text_encoder=tpipe.text_encoder, tokenizer=tpipe.tokenizer,
+        unet=tpipe.unet,
+        brushnet=to_torch(BrushNetModel(conditioning_channels=jb.conditioning_channels,
+                                        **TINY), bp),
+        depth_conditioning_mode=depth_mode, normals_conditioning_mode=normals_mode, device="cpu")
+    return j, t
+
+
+@pytest.mark.parametrize("depth_mode,normals_mode", list(MODES))
+def test_conditioning_modes_match_jax(pipes, mode_brushnets, depth_mode, normals_mode):
+    """Depth `latents` (a 3-channel repeat through the VAE encoder), normals
+    `concat` (a 3-channel nearest downsample) and `latents` (a VAE encode),
+    and depth + normals `concat` together, against the JAX pipeline."""
+    jpipe, tpipe = _mode_pipes(pipes, mode_brushnets, depth_mode, normals_mode)
+    rng = np.random.RandomState(3)
+    kw = dict(_call_kwargs(), normals=rng.rand(H, W, 3).astype(np.float32))
+    if depth_mode is None:
+        kw.pop("depth")
+    ref = np.asarray(jpipe(**dict(kw, latents=jnp.asarray(kw["latents"])), output_type="latent"))
+    got = tpipe(**kw, output_type="latent")
+    assert got.shape == ref.shape == (1, H, W, 3) and np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= 1e-3, np.abs(got - ref).max()
+    # the uint8 conversion of both (test_pipeline_matches_jax holds the
+    # pipelines' own uint8 paths)
+    got8, ref8 = (np.round(np.clip(x / 2 + 0.5, 0, 1) * 255).astype(int) for x in (got, ref))
+    assert np.abs(got8 - ref8).max() <= 1
+
+
+def test_seeds_share_the_conditioning_planes_as_in_jax(pipes, mode_brushnets):
+    """num_images_per_prompt=2 in depth `latents` (the `reps` path): the one
+    image and depth plane are encoded once and broadcast to both seeds."""
+    jpipe, tpipe = _mode_pipes(pipes, mode_brushnets, "latents", None)
+    kw = dict(_call_kwargs(), num_images_per_prompt=2, latents=randn(8, 2, 8, 8, 4))
+    ref = np.asarray(jpipe(**dict(kw, latents=jnp.asarray(kw["latents"])), output_type="latent"))
+    got = tpipe(**kw, output_type="latent")
+    assert got.shape == ref.shape == (2, H, W, 3)
+    assert np.abs(got - ref).max() <= 1e-3, np.abs(got - ref).max()
+
+
+def test_ip_adapter_mode_names_its_item(pipes):
+    _, tpipe = pipes
+    with pytest.raises(NotImplementedError, match="item 14"):
+        StableDiffusionBrushNetPipeline(
+            vae=tpipe.vae, text_encoder=tpipe.text_encoder, tokenizer=tpipe.tokenizer,
+            unet=tpipe.unet, brushnet=tpipe.brushnet, normals_conditioning_mode="ip_adapter",
+            device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        StableDiffusionBrushNetPipeline.from_pretrained(
+            "/nonexistent", "/nonexistent", normals_conditioning_mode="ip_adapter", device="cpu")
+
+
 def test_entry_point_defaults_to_the_card(pipes):
     """Without device= the pipeline asks for CUDA; on a machine without a
     card that raises instead of quietly running on the CPU."""
