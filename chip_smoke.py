@@ -19,11 +19,13 @@ Phases, each printing one JSON line:
              of every kernel instance, and the count of wgmma (HGMMA),
              TMA-load (UTMALDG) and cluster-barrier (UCGABAR) instructions in
              each library's SASS (`cuobjdump -sass`): both flash libraries
-             must hold HGMMA and UTMALDG, the GroupNorm library cluster
-             barriers; no wgmma instance of the flash backward may spill,
-             ptxas may give neither flash library a performance warning
-             (C75xx: wgmmas serialised, setmaxnreg ignored), and the
-             backward library's tiling must be `bwd_plan`'s.
+             must hold HGMMA and UTMALDG, each of B1's four fp32 instances
+             (`flash_fwd_tf32<DP>`) TF32 HGMMA and UTMALDG of its own, the
+             GroupNorm library cluster barriers; no wgmma instance of the
+             flash backward and no fp32 instance of B1 may spill, ptxas may
+             give neither flash library a performance warning (C75xx:
+             wgmmas serialised, setmaxnreg ignored), and the libraries'
+             tilings must be `bwd_plan`'s and `fwd_f32_plan`'s.
   3. kernels every kernel against its plain PyTorch version on the card, at
              the shapes the main path, the training step and the test CLI
              give it (every GroupNorm shape of a denoise step and of the
@@ -37,7 +39,10 @@ Phases, each printing one JSON line:
              back-to-back calls, host launch cost included), the kernel's
              device time (a CUDA graph of the same 20 calls), the roofline
              bound and, for flash, the exponential bound (one exp2 per logit
-             at 16 per clock per SM, at nvidia-smi's clocks.max.sm).  The
+             at 16 per clock per SM, at nvidia-smi's clocks.max.sm); an fp32
+             flash kernel's bound is its work as three TF32 passes a
+             product at 495 TFLOP/s (what an fp32-accurate kernel does on
+             this card), `simt_bound_ms` the same work on the CUDA cores.  The
              flash backward kernels (B3 dQ, B4 dK/dV) are held to
              `flash_attention_bwd_plain` on B1's own out and lse, and two
              launches of each on the same inputs must be bit-identical; their
@@ -113,8 +118,8 @@ Phases, each printing one JSON line:
              the card against the CPU at slice parity's tolerance.
 Then `kernels_detail` (every measured kernel and shape with the launches
 each path gave that shape: the main path's 8-step call, the timed training
-steps, the CLI's first 8 steps and the test CLI's bf16 8-step and fp32
-4-step runs, 0 where none), the `{"kernels": [...]}`
+steps, the CLI's first 8 steps, the test CLI's bf16 8-step and fp32
+4-step runs and train_parity's fp32 step, 0 where none), the `{"kernels": [...]}`
 summary line (the
 kernels and shapes the paths launched), the nvidia-smi name/power-limit
 line, and last `{"ok": true, "device": {...}}`.  Any failed check raises and
@@ -147,7 +152,9 @@ TRAIN_BATCH = 4                     # the training CLI's --train_batch_size defa
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 SMS = 132                           # H100 SXM streaming multiprocessors
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core bf16
+              "tf32": 495e12,       # dense tensor-core TF32
               "float32": 67e12}     # fp32 outside the tensor cores
+TF32_PASSES = 3                     # an fp32-accurate product on TF32 (hi·lo + lo·hi + hi·hi)
 
 
 def emit(obj) -> None:
@@ -211,6 +218,18 @@ def bound(flops: float, nbytes: float, dtype: str):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def flash_bound(flops: float, nbytes: float, dtype: str) -> dict:
+    """The bound of a flash kernel's work: bf16 on the tensor cores; fp32 as
+    an fp32-accurate kernel does it on this card, three TF32 passes a
+    product (`bound_ms`), with the same work on the CUDA cores beside it
+    (`simt_bound_ms`)."""
+    if dtype == "bfloat16":
+        ms, by = bound(flops, nbytes, dtype)
+        return {"bound_ms": ms, "bound_by": by}
+    ms, by = bound(TF32_PASSES * flops, nbytes, "tf32")
+    return {"bound_ms": ms, "bound_by": by, "simt_bound_ms": bound(flops, nbytes, "float32")[0]}
+
+
 def bf16_ulp(x: float) -> float:
     """The spacing of bf16 numbers (8 significant bits) at magnitude x."""
     return 2.0 ** (math.floor(math.log2(x)) - 7)
@@ -221,7 +240,9 @@ def bf16_ulp(x: float) -> float:
 SASS_COUNTS = ("HGMMA", "UTMALDG", "UCGABAR")   # wgmma, TMA tensor load, cluster barrier
 SASS_WANT = {"flash_attn_fwd": ("HGMMA", "UTMALDG"), "flash_attn_bwd": ("HGMMA", "UTMALDG"),
              "groupnorm": ("UCGABAR",)}
-NO_SPILLS = {"flash_attn_bwd": "wgmma"}    # library: the instances that may not spill
+# library: (the instances that may not spill, how many there are)
+NO_SPILLS = {"flash_attn_bwd": ("wgmma", 8), "flash_attn_fwd": ("tf32", 4)}
+F32_DIMS = (40, 64, 80, 160)               # B1's fp32 instances
 NO_C75 = ("flash_attn_fwd", "flash_attn_bwd")  # libraries ptxas may not warn about
 
 
@@ -245,6 +266,23 @@ def ptxas_kernels(log: str) -> dict:
             out[name].update(spill_stores=int(st), spill_loads=int(ld))
         elif name and "Used" in ln and "registers" in ln:
             out[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return out
+
+
+def sass_by_function(text: str, which: str) -> dict:
+    """{function: {"HGMMA_TF32", "UTMALDG"}} for each function of a
+    `cuobjdump -sass` listing whose mangled name holds `which`: its TF32
+    wgmma and TMA-load instructions."""
+    out, fn = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1) if which in m.group(1) else None
+            if fn:
+                out[fn] = {"HGMMA_TF32": 0, "UTMALDG": 0}
+        elif fn:
+            out[fn]["HGMMA_TF32"] += "HGMMA" in ln and ".TF32" in ln
+            out[fn]["UTMALDG"] += "UTMALDG" in ln
     return out
 
 
@@ -292,28 +330,42 @@ def phase_build(torch):
         text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                               timeout=300, check=True).stdout
         sass[n] = {op: sum(ln.count(op) for ln in text.splitlines()) for op in SASS_COUNTS}
+        if n == "flash_attn_fwd":   # B1's fp32 instances, each on its own
+            f32_sass = sass_by_function(text, "flash_fwd_tf32")
     # the backward library's tiling against its Python mirror, per head dim
     plans = {d: {k: (p.tile, p.stages, p.smem) for k, p in fa.bwd_plan(d).items()}
              for d in (40, 64, 80, 160)}
     lib_plans = {d: fa.library_bwd_plan(d) for d in plans}
+    # and B1's fp32 (3xTF32) tiling, per instance
+    f32_plans = {d: (lambda p: (p.rows, p.tile, p.stages, p.smem))(fa.fwd_f32_plan(d))
+                 for d in F32_DIMS}
+    lib_f32_plans = {d: fa.library_fwd_f32_plan(d) for d in F32_DIMS}
     emit({"phase": "build", "nvcc_s": {n: round(t, 2) for n, t in t_nvcc.items()},
-          "built_now": built_now, "sass_counts": sass, "ptxas": ptxas,
-          "ptxas_warnings": warnings,
-          "bwd_plan": {d: {k: list(v) for k, v in p.items()} for d, p in lib_plans.items()}})
+          "built_now": built_now, "sass_counts": sass, "fwd_f32_sass": f32_sass,
+          "ptxas": ptxas, "ptxas_warnings": warnings,
+          "bwd_plan": {d: {k: list(v) for k, v in p.items()} for d, p in lib_plans.items()},
+          "fwd_f32_plan": {d: list(p) for d, p in lib_f32_plans.items()}})
     missing = {n: op for n, ops in SASS_WANT.items() for op in ops if sass[n][op] == 0}
-    if missing:
-        raise AssertionError(f"the SASS lacks the instructions of its design: {missing}")
-    checked = {f"{n} {k}": v for n, sub in NO_SPILLS.items() for k, v in ptxas[n].items()
-               if sub in k}
-    spills = {k: v for k, v in checked.items() if v.get("spill_stores") or v.get("spill_loads")}
-    if spills or len(checked) != 8:
-        raise AssertionError(f"flash-backward wgmma instances ({len(checked)} of 8 reported) "
-                             f"spill: {spills}")
+    missing.update({fn: op for fn, counts in f32_sass.items() for op, c in counts.items()
+                    if c == 0})
+    if missing or len(f32_sass) != len(F32_DIMS):
+        raise AssertionError(f"the SASS lacks the instructions of its design: {missing} "
+                             f"({len(f32_sass)} of {len(F32_DIMS)} fp32 B1 instances found)")
+    for n, (sub, count) in NO_SPILLS.items():
+        checked = {k: v for k, v in ptxas[n].items() if sub in k}
+        spills = {k: v for k, v in checked.items()
+                  if v.get("spill_stores") or v.get("spill_loads")}
+        if spills or len(checked) != count:
+            raise AssertionError(f"{n}: {sub} instances ({len(checked)} of {count} reported) "
+                                 f"spill: {spills}")
     warned = {n: warnings[n] for n in NO_C75 if warnings[n]}
     if warned:
         raise AssertionError(f"ptxas performance warnings: {warned}")
     if lib_plans != plans:
         raise AssertionError(f"the library's B3/B4 tiling {lib_plans} is not bwd_plan's {plans}")
+    if lib_f32_plans != f32_plans:
+        raise AssertionError(f"the library's fp32 B1 tiling {lib_f32_plans} is not "
+                             f"fwd_f32_plan's {f32_plans}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -347,7 +399,8 @@ def bench_flash(torch, shape, dtype) -> dict:
     # few tenths at T=4096), so the tolerances scale with the output.  bf16: P and
     # O round to bf16 at other points than in the plain path, which moves an
     # element by about one ulp: 4 bf16 ulps at the output's max.  fp32:
-    # summation order only, 1e-4 of the max.
+    # summation order and the 3xTF32 products (each about 2^-22 relative),
+    # 1e-4 of the max.
     def tol(s):
         return 4 * bf16_ulp(s) if bf16 else 1e-4 * s
 
@@ -374,8 +427,7 @@ def bench_flash(torch, shape, dtype) -> dict:
     entry["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qs, ks, vs))
     itemsize = q.element_size()
     nbytes = 4 * b * t * h * d * itemsize + b * h * t * 4
-    entry["bound_ms"], entry["bound_by"] = bound(4.0 * b * h * t * t * d, nbytes,
-                                                 entry["dtype"])
+    entry.update(flash_bound(4.0 * b * h * t * t * d, nbytes, entry["dtype"]))
     # one exp2 per logit on the multi-function units: 16 per clock per SM
     entry["exp_bound_ms"] = b * h * t * t / (SMS * 16 * max_sm_clock_hz()) * 1e3
     return entry
@@ -448,8 +500,7 @@ def bench_flash_bwd(torch, shape, dtype):
         e["library_ms"] = library_ms  # so does SDPA's
         # products of 2·B·H·T²·D each; q, k, v, dO, lse, delta read, grads written
         nbytes = (4 + len(names)) * tensor_bytes + rows_bytes
-        e["bound_ms"], e["bound_by"] = bound(2.0 * products * b * h * t * t * d, nbytes,
-                                             e["dtype"])
+        e.update(flash_bound(2.0 * products * b * h * t * t * d, nbytes, e["dtype"]))
         e["exp_bound_ms"] = b * h * t * t / (SMS * 16 * max_sm_clock_hz()) * 1e3  # p recomputed
         entries.append(e)
     return entries
@@ -506,13 +557,15 @@ FLASH_SHAPES = [((2, 4096, 8, 40), "bfloat16"), ((4, 4096, 8, 40), "bfloat16"),
                 ((8, 4096, 8, 40), "bfloat16"),         # the test CLI's 4 batched seeds
                 ((2, 4096, 8, 80), "bfloat16"), ((2, 4608, 8, 40), "bfloat16"),
                 ((1, 2048, 8, 160), "bfloat16"), ((2, 4096, 8, 40), "float32"),
+                ((1, 4096, 8, 40), "float32"),          # train_parity's batch
                 # the UNet's other self-attentions, which the routing rule sends
                 # to the plain path: B1 against it, for the crossover
                 ((2, 1024, 8, 80), "bfloat16"), ((2, 256, 8, 160), "bfloat16"),
-                ((2, 64, 8, 160), "bfloat16")]
+                ((2, 64, 8, 160), "bfloat16"), ((2, 1024, 8, 80), "float32"),
+                ((2, 256, 8, 160), "float32")]
 FLASH_BWD_SHAPES = [((4, 4096, 8, 40), "bfloat16"), ((2, 4096, 8, 40), "bfloat16"),
                     ((2, 4608, 8, 40), "bfloat16"), ((1, 2048, 8, 160), "bfloat16"),
-                    ((2, 4096, 8, 40), "float32")]
+                    ((2, 4096, 8, 40), "float32"), ((1, 4096, 8, 40), "float32")]
 GN_SHAPES = [(2, 320, 64, 64), (4, 320, 64, 64), (2, 2560, 16, 16), (2, 1280, 8, 8),
              (1, 512, 64, 64), (1, 128, 512, 512), (4, 128, 512, 512)]
 
@@ -862,7 +915,7 @@ def phase_train_parity(torch):
     card_loss, card = loss_and_grads(unet, brushnet, "cuda")
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
-    launched = read_counters()
+    launched, by_shape = read_counters(), read_counters_by_shape()
     unet_c = copy.deepcopy(unet).cpu()
     bn_c = copy.deepcopy(brushnet).cpu()
     bn_c.zero_grad(set_to_none=True)
@@ -892,6 +945,7 @@ def phase_train_parity(torch):
     del unet, brushnet, unet_c, bn_c
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     torch.cuda.empty_cache()
+    return by_shape
 
 
 def phase_train_main(torch, gpu_line: str) -> dict:
@@ -1787,7 +1841,7 @@ def main() -> int:
     entries = phase_kernels(torch)
     phase_slice(torch)
     by_shape, main_per_step = phase_main(torch, gpu_line)
-    phase_train_parity(torch)
+    parity_by_shape = phase_train_parity(torch)
     train_by_shape, train_s_step = phase_train_main(torch, gpu_line)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -1803,11 +1857,13 @@ def main() -> int:
     # each path: the main path's 8-step call (and per denoise step), the
     # TRAIN_REPEATS timed training steps (and per training step), the
     # training CLI's first run (8 steps) and the test CLI's bf16 8-step and
-    # fp32 4-step runs (2 rows of 4 seeds each)
+    # fp32 4-step runs (2 rows of 4 seeds each), and train_parity's fp32 loss
+    # and backward
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     test_paths = {"test_cli_bf16_8_steps": test_by_shape["a_8_steps"],
-                  "test_cli_fp32_4_steps": test_by_shape["b_fp32_4_steps"]}
+                  "test_cli_fp32_4_steps": test_by_shape["b_fp32_4_steps"],
+                  "train_parity": parity_by_shape}
     rows = []
     for e in entries:
         row = {k: e.get(k) for k in keys if k != "launches"}

@@ -55,10 +55,54 @@
 //    tails: query rows past Tq are zero-filled and never stored, keys past
 //    Tk get -inf.
 //
-// fp32 path (the parity pipelines): CUDA-core FMAs, one warp per 4 query
-// rows, 32-key tiles in shared memory, one key per lane for Q K^T and one
-// head-dim column per lane for P V; each K and V element read from shared
-// memory serves all 4 rows.
+// fp32 path (every head dim, D % 8 == 0, D <= 160; instances at 40, 64, 80
+// and 160), the test CLI's default dtype and the parity runs: the same
+// warp-specialised shape on the TF32 tensor cores with error-compensated
+// products.
+//  - What bounds it.  One TF32 pass keeps about three decimal digits, which
+//    misses the fp32 tolerances (1e-4 of the output's max) by an order of
+//    magnitude.  Each operand x is split into hi = x with its low 13
+//    mantissa bits cleared and lo = x - hi with its own cleared (both exact
+//    TF32 values, `hopper::tf32_split`), and each product is three
+//    passes into one fp32 accumulator, hi*lo + lo*hi + hi*hi (CUTLASS's
+//    "3xTF32"; lo*lo is below fp32's last bit): 3 * 4*B*H*T^2*D = 1.3e11
+//    FLOP at (2, 4096, 8, 40), 0.26 ms at 495 TFLOP/s, against 0.64 ms for
+//    the same work on the CUDA cores (67 TFLOP/s) and 0.064 ms of
+//    exponentials.  So the tensor cores bound it, then the work that feeds
+//    them: the split and the V transpose below, which share the SM's issue
+//    slots and shared memory with the products.
+//  - Producer warpgroup (setmaxnreg 56): thread 0 issues the TMA loads (Q
+//    once, K and V tiles of BN keys into a ring of STAGES stages, one full
+//    mbarrier each); warps 1-3 turn what landed into what the products
+//    read: Q and K into hi (in place) and lo, V into V^T hi and lo, and
+//    hand each over on its own mbarrier (q_ready, k_ready, v_ready) after a
+//    proxy fence.  So S_j may start before V_j is transposed.
+//  - TF32 wgmma takes K-major operands only (no transpose for 32-bit
+//    types).  Q and K are K-major as they lie, each 8-column slab exactly
+//    one k8 step in the 32-byte swizzle (D = 40 is 5 slabs, no padding).
+//    V as it lies is MN-major for O += P V, so warps 1-3 write it
+//    transposed, 8 keys per slab of DP rows.
+//  - Each tile's P V goes to a fresh accumulator that fp32 FMAs add to O:
+//    the tensor cores do not round their fp32 sums to nearest, and one
+//    accumulator carried over Tk = 4096 keys drifted by 2.2e-5 of the
+//    output's max (2.9e-5 relative L2) at (2, 4096, 8, 40), against 2.2e-6
+//    (1.3e-6) with a fresh one a tile (H100 runs of chip_smoke.bench_flash).
+//  - P stays in registers.  The fp32 accumulator gives thread (g, c) columns
+//    2c and 2c+1 of each 8, the TF32 A fragment wants columns c and c+4:
+//    instead of shuffling P, V^T's slot s holds key 2*(s%4) + s/4, so the
+//    accumulator already is the fragment (keys past Tk have p = 0 and
+//    zero-filled V rows in any order).  P's hi/lo split is in registers.
+//  - Two consumer warpgroups of 64 query rows (one for DP = 160, where Q hi
+//    and lo of 128 rows alone would take 160 KB), the bf16 kernel's overlap
+//    order (S_j and P_{j-1} V_{j-1} issued, the softmax of S_j while P V
+//    runs), the same log2-domain softmax, masking and l == 0 guard.  Not
+//    its turn-taking at the softmax: here the exponentials are a quarter of
+//    the products' time, and without the named barriers the kernel ran 9%
+//    faster.  At DP = 40 each thread holds Q's hi and lo A fragments in
+//    registers (40 of them), so S reads only K from shared memory: 10%.
+//  - Shared memory, 4 bytes an element: Q hi and lo, and per stage K (hi in
+//    place), K lo, raw V, V^T hi and V^T lo.  BN and STAGES per instance:
+//    64 x 3 at DP 40, 64 x 2 at 64, 32 x 2 at 80, 16 x 2 at 160 (186-231 KB).
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -78,9 +122,83 @@ struct Cfg {
   static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 256 + 1024;
 };
 
+// The online softmax of one consumer warpgroup over N-key tiles (N/2
+// accumulators a thread: rows g and g + 8, columns (i / 4) * 8 + 2 * tq4 +
+// (i & 1)), with its running max and sum.
+template <int N>
+struct OnlineSoftmax {
+  int Tk, tq4;
+  float scale_log2;
+  float m_run[2], l_run[2];
+
+  // Online softmax of tile j in the log2 domain, in place: mask tail keys
+  // (last tile only), row max of the raw logits (scale > 0 commutes with
+  // max), then p = exp2(s * scale_log2 - m) as one FFMA + EX2 per logit.
+  // Returns the factors that rescale O and l for rows g and g + 8.
+  __device__ __forceinline__ void softmax(float (&s)[N / 2], int j, float (&corr)[2]) {
+    const int k0 = j * N;
+    if (k0 + N > Tk) {
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i)
+        if (k0 + (i / 4) * 8 + tq4 * 2 + (i & 1) >= Tk) s[i] = -INFINITY;
+    }
+    // row max and row sum over 4 independent partials each: one warp per
+    // scheduler runs the softmax at a time, so latency chains, not
+    // throughput, would otherwise set its pace
+    float mp[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) mp[r][q] = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < N / 2; i += 4) {
+      const int q = (i / 4) % 4;
+      mp[0][q] = fmaxf(mp[0][q], fmaxf(s[i], s[i + 1]));
+      mp[1][q] = fmaxf(mp[1][q], fmaxf(s[i + 2], s[i + 3]));
+    }
+    float mx[2], mu[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(fmaxf(mp[r][0], mp[r][1]), fmaxf(mp[r][2], mp[r][3]));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r] * scale_log2);
+      mu[r] = m_new == -INFINITY ? 0.f : m_new;  // all keys masked so far: no NaN
+      corr[r] = ex2(m_run[r] - mu[r]);
+      m_run[r] = m_new;
+    }
+    float rs[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float e = ex2(fmaf(s[i], scale_log2, -mu[(i >> 1) & 1]));
+      s[i] = e;
+      rs[(i >> 1) & 1][(i / 4) % 4] += e;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      l_run[r] = l_run[r] * corr[r] + ((rs[r][0] + rs[r][1]) + (rs[r][2] + rs[r][3]));
+  }
+
+  __device__ __forceinline__ void init(int tk, int t4, float sl2) {
+    Tk = tk;
+    tq4 = t4;
+    scale_log2 = sl2;
+    m_run[0] = m_run[1] = -INFINITY;
+    l_run[0] = l_run[1] = 0.f;
+  }
+
+  // l summed over the row's four threads
+  __device__ __forceinline__ float row_sum(int r) const {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    return l;
+  }
+};
+
 // One consumer warpgroup's view of the K/V ring and its softmax state.
 template <int DP>
-struct Consumer {
+struct Consumer : OnlineSoftmax<Cfg<DP>::BN> {
   using C = Cfg<DP>;
   static constexpr int BN = C::BN;
 
@@ -89,9 +207,6 @@ struct Consumer {
   const unsigned char* vs;
   uint64_t* k_full;
   uint64_t* v_full;
-  int Tk, tq4;
-  float scale_log2;
-  float m_run[2], l_run[2];
 
   // S = Q K_j^T (asynchronous: committed, not waited)
   __device__ __forceinline__ void issue_s(float (&s)[BN / 2], int j) const {
@@ -114,53 +229,6 @@ struct Consumer {
     hopper::wgmma_commit();
   }
 
-  // Online softmax of tile j in the log2 domain, in place: mask tail keys
-  // (last tile only), row max of the raw logits (scale > 0 commutes with
-  // max), then p = exp2(s * scale_log2 - m) as one FFMA + EX2 per logit.
-  // Returns the factors that rescale O and l for rows g and g + 8.
-  __device__ __forceinline__ void softmax(float (&s)[BN / 2], int j, float (&corr)[2]) {
-    const int k0 = j * BN;
-    if (k0 + BN > Tk) {
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i)
-        if (k0 + (i / 4) * 8 + tq4 * 2 + (i & 1) >= Tk) s[i] = -INFINITY;
-    }
-    // row max and row sum over 4 independent partials each: one warp per
-    // scheduler runs the softmax at a time, so latency chains, not
-    // throughput, would otherwise set its pace
-    float mp[2][4];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) mp[r][q] = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < BN / 2; i += 4) {
-      const int q = (i / 4) % 4;
-      mp[0][q] = fmaxf(mp[0][q], fmaxf(s[i], s[i + 1]));
-      mp[1][q] = fmaxf(mp[1][q], fmaxf(s[i + 2], s[i + 3]));
-    }
-    float mx[2], mu[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(fmaxf(mp[r][0], mp[r][1]), fmaxf(mp[r][2], mp[r][3]));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r] * scale_log2);
-      mu[r] = m_new == -INFINITY ? 0.f : m_new;  // all keys masked so far: no NaN
-      corr[r] = ex2(m_run[r] - mu[r]);
-      m_run[r] = m_new;
-    }
-    float rs[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) {
-      const float e = ex2(fmaf(s[i], scale_log2, -mu[(i >> 1) & 1]));
-      s[i] = e;
-      rs[(i >> 1) & 1][(i / 4) % 4] += e;
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      l_run[r] = l_run[r] * corr[r] + ((rs[r][0] + rs[r][1]) + (rs[r][2] + rs[r][3]));
-  }
 };
 
 template <int R>
@@ -239,11 +307,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     c.vs = vs;
     c.k_full = k_full;
     c.v_full = v_full;
-    c.Tk = Tk;
-    c.tq4 = tq4;
-    c.scale_log2 = scale_log2;
-    c.m_run[0] = c.m_run[1] = -INFINITY;
-    c.l_run[0] = c.l_run[1] = 0.f;
+    c.init(Tk, tq4, scale_log2);
     float s[BN / 2], acc[DP / 2], corr[2];
     uint32_t p[BN / 16][4];
 #pragma unroll
@@ -284,13 +348,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc);
 
-    float l[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] = c.l_run[r];
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    }
+    const float l[2] = {c.row_sum(0), c.row_sum(1)};
     __nv_bfloat16* og = o + b * o_sb + (long long)h * D;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -336,130 +394,382 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
 
 // ---------------------------------------------------------------- fp32 path
 
-constexpr int F_WARPS = 4;
-constexpr int F_ROWS = 4;                 // query rows per warp
-constexpr int F_BM = F_WARPS * F_ROWS;    // 16 query rows per CTA
-constexpr int F_BN = 32;                  // keys per tile, one per lane
-constexpr int F_MAXCH = (MAX_D + 31) / 32;  // head-dim columns per lane
+constexpr int F_SLAB = 8;                    // fp32 columns per 32-byte slab: one TF32 k step
+constexpr int XF_THREADS = WG_THREADS - 32;  // producer warps 1-3: the hi/lo split and V^T
 
-__global__ void __launch_bounds__(F_WARPS * 32)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-              int H, int Tq, int Tk, int D, long long q_sb, long long q_st, long long k_sb,
-              long long k_st, long long v_sb, long long v_st, long long o_sb, long long o_st,
-              float scale) {
-  extern __shared__ float fsm[];
-  const int LDK = D + 1;  // odd stride: lane j reads row j without conflicts
-  float* Qs = fsm;                 // [F_BM][D]
-  float* Ks = Qs + F_BM * D;       // [F_BN][D + 1]
-  float* Vs = Ks + F_BN * LDK;     // [F_BN][D]
+template <int DP>
+struct F32Cfg {
+  static constexpr int NC = DP == 160 ? 1 : 2;  // consumer warpgroups
+  static constexpr int BM = NC * WG_BM;         // query rows a CTA owns
+  static constexpr int BN = DP == 160 ? 16 : DP == 80 ? 32 : 64;
+  static constexpr int STAGES = DP == 40 ? 3 : 2;
+  static constexpr int THREADS = (NC + 1) * WG_THREADS;
+  static constexpr int NSLAB = DP / F_SLAB;
+  // Q hi and lo held as A fragments (DP registers a thread): S then reads
+  // only K from shared memory.  Where the registers allow it, at DP = 40.
+  static constexpr bool Q_REGS = DP == 40;
+  static constexpr int Q_BYTES = BM * DP * 4;  // Q hi (split in place) or Q lo
+  static constexpr int T_BYTES = BN * DP * 4;  // one K or V tile in any of its forms
+  // Q hi and lo; per stage K (raw, then hi in place), K lo, raw V, V^T hi
+  // and V^T lo; the mbarriers; 1 KB of slack to align the base to 1 KB
+  static constexpr int SMEM = 2 * Q_BYTES + 5 * STAGES * T_BYTES + 256 + 1024;
+};
 
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * F_BM;
-  const float* qg = q + b * q_sb + (long long)h * D;
-  const float* kg = k + b * k_sb + (long long)h * D;
-  const float* vg = v + b * v_sb + (long long)h * D;
-  float* og = o + b * o_sb + (long long)h * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nch = (D + 31) / 32;
-
-  for (int i = threadIdx.x; i < F_BM * D; i += blockDim.x) {
-    const int r = i / D, c = i % D, row = q0 + r;
-    Qs[i] = row < Tq ? qg[(long long)row * q_st + c] : 0.f;
-  }
-
-  float acc[F_ROWS][F_MAXCH];
-  float m_run[F_ROWS], l_run[F_ROWS];
-#pragma unroll
-  for (int r = 0; r < F_ROWS; ++r) {
-    m_run[r] = -INFINITY;
-    l_run[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < F_MAXCH; ++i) acc[r][i] = 0.f;
-  }
-  const float* qw = Qs + warp * F_ROWS * D;
-
-  for (int k0 = 0; k0 < Tk; k0 += F_BN) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < F_BN * D; i += blockDim.x) {
-      const int r = i / D, c = i % D, row = k0 + r;
-      const bool ok = row < Tk;
-      Ks[r * LDK + c] = ok ? kg[(long long)row * k_st + c] : 0.f;
-      Vs[i] = ok ? vg[(long long)row * v_st + c] : 0.f;
-    }
-    __syncthreads();
-    const bool valid = k0 + lane < Tk;
-
-    float dot[F_ROWS] = {0.f, 0.f, 0.f, 0.f};
-    const float* kr = Ks + lane * LDK;
-    for (int d = 0; d < D; ++d) {
-      const float kv = kr[d];
-#pragma unroll
-      for (int rr = 0; rr < F_ROWS; ++rr) dot[rr] = fmaf(qw[rr * D + d], kv, dot[rr]);
-    }
-    float p[F_ROWS];
-#pragma unroll
-    for (int rr = 0; rr < F_ROWS; ++rr) {
-      const float sv = valid ? dot[rr] * scale : -INFINITY;
-      float mx = sv;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run[rr], mx);
-      const float mu = m_new == -INFINITY ? 0.f : m_new;
-      p[rr] = expf(sv - mu);
-      const float corr = expf(m_run[rr] - mu);
-      m_run[rr] = m_new;
-      float ps = p[rr];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l_run[rr] = l_run[rr] * corr + ps;
-#pragma unroll
-      for (int i = 0; i < F_MAXCH; ++i) acc[rr][i] *= corr;
-    }
-    for (int j = 0; j < F_BN; ++j) {
-      float pj[F_ROWS];
-#pragma unroll
-      for (int rr = 0; rr < F_ROWS; ++rr) pj[rr] = __shfl_sync(0xffffffffu, p[rr], j);
-      const float* vr = Vs + j * D;
-#pragma unroll
-      for (int i = 0; i < F_MAXCH; ++i) {
-        const int d = lane + 32 * i;
-        if (i < nch && d < D) {
-          const float vv = vr[d];
-#pragma unroll
-          for (int rr = 0; rr < F_ROWS; ++rr) acc[rr][i] = fmaf(pj[rr], vv, acc[rr][i]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < F_ROWS; ++rr) {
-    const int row = q0 + warp * F_ROWS + rr;
-    if (row >= Tq) continue;
-    const float l_safe = l_run[rr] == 0.f ? 1.f : l_run[rr];
-    const float inv = 1.f / l_safe;
-#pragma unroll
-    for (int i = 0; i < F_MAXCH; ++i) {
-      const int d = lane + 32 * i;
-      if (i < nch && d < D) og[(long long)row * o_st + d] = acc[rr][i] * inv;
-    }
-    if (lane == 0) lse[(long long)bh * Tq + row] = m_run[rr] + logf(l_safe);
+// x (n float4s) -> its TF32 hi in place and its lo into `lo`, one float4 a
+// thread at a time: the layout is kept, so TMA's swizzle holds for both.
+__device__ __forceinline__ void split_tile(unsigned char* x, unsigned char* lo, int n, int t) {
+  for (int i = t; i < n; i += XF_THREADS) {
+    const float4 v = reinterpret_cast<const float4*>(x)[i];
+    uint4 h, l;
+    hopper::tf32_split(v.x, h.x, l.x);
+    hopper::tf32_split(v.y, h.y, l.y);
+    hopper::tf32_split(v.z, h.z, l.z);
+    hopper::tf32_split(v.w, h.w, l.w);
+    reinterpret_cast<uint4*>(x)[i] = h;
+    reinterpret_cast<uint4*>(lo)[i] = l;
   }
 }
 
+// The raw V tile (BN keys x DP columns in 8-column slabs, 32-byte swizzle, as
+// TMA wrote it) -> V^T hi and lo: per group of 8 keys one slab of DP rows
+// (head-dim columns) x 8 keys, K-major for O += P V, 32-byte swizzle.  Slot
+// s of a group holds key 2 * (s % 4) + s / 4: the order in which the S
+// accumulator hands P to the A fragment (`to_tf32_fragments`).  A thread
+// writes one 16-byte half (the even keys or the odd ones) of one row, so
+// eight neighbouring threads fill four whole rows: the stores meet no bank
+// conflicts (the scalar loads two-way, from two slabs).
+template <int DP, int BN>
+__device__ __forceinline__ void transpose_v(const unsigned char* v, unsigned char* th,
+                                            unsigned char* tl, int t) {
+  for (int u = t; u < 2 * DP * (BN / 8); u += XF_THREADS) {
+    const int par = u & 1, d = (u >> 1) % DP, kg = (u >> 1) / DP;
+    const unsigned char* col = v + (d / 8) * BN * SLAB_BYTES + (d % 4) * 4;
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = kg * 8 + 2 * i + par;  // slot 4 * par + i
+      x[i] = *reinterpret_cast<const float*>(
+          col + j * SLAB_BYTES + ((((d % 8) >> 2) ^ ((j >> 2) & 1)) << 4));
+    }
+    uint4 h, l;
+    hopper::tf32_split(x[0], h.x, l.x);
+    hopper::tf32_split(x[1], h.y, l.y);
+    hopper::tf32_split(x[2], h.z, l.z);
+    hopper::tf32_split(x[3], h.w, l.w);
+    const int off = kg * DP * SLAB_BYTES + d * SLAB_BYTES + ((par ^ ((d >> 2) & 1)) << 4);
+    *reinterpret_cast<uint4*>(th + off) = h;
+    *reinterpret_cast<uint4*>(tl + off) = l;
+  }
+}
+
+// The S accumulator (64 x N, fp32, softmaxed to P) as TF32 A fragments of
+// O += P V, split into hi and lo.  K step kk covers accumulator columns
+// 8kk..8kk+7; thread (g, c) holds columns 2c and 2c+1 of rows g and g + 8,
+// and the fragment wants slots c and c + 4 of the same rows: slot c takes
+// key 2c and slot c + 4 key 2c + 1, so no value moves between threads and
+// V^T's slots are permuted to match (`transpose_v`).
+template <int N>
+__device__ __forceinline__ void to_tf32_fragments(uint32_t (&hi)[N / 8][4],
+                                                  uint32_t (&lo)[N / 8][4],
+                                                  const float (&c)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    hopper::tf32_split(c[4 * kk + 0], hi[kk][0], lo[kk][0]);  // row g, key 2c
+    hopper::tf32_split(c[4 * kk + 2], hi[kk][1], lo[kk][1]);  // row g + 8, key 2c
+    hopper::tf32_split(c[4 * kk + 1], hi[kk][2], lo[kk][2]);  // row g, key 2c + 1
+    hopper::tf32_split(c[4 * kk + 3], hi[kk][3], lo[kk][3]);  // row g + 8, key 2c + 1
+  }
+}
+
+// One consumer warpgroup of the fp32 kernel: its Q rows, the split K/V ring
+// and its softmax state.  Each product is three TF32 wgmma passes into one
+// accumulator, the small terms first: hi * lo, lo * hi, then hi * hi.
+template <int DP>
+struct F32Consumer : OnlineSoftmax<F32Cfg<DP>::BN> {
+  using C = F32Cfg<DP>;
+  static constexpr int BN = C::BN;
+
+  const unsigned char* qh;  // this warpgroup's 64 rows of the first Q hi / lo slab
+  const unsigned char* ql;
+  const unsigned char* kh;  // stage 0 of each ring
+  const unsigned char* kl;
+  const unsigned char* vth;
+  const unsigned char* vtl;
+  uint64_t* k_ready;
+  uint64_t* v_ready;
+  uint32_t q_hi[C::Q_REGS ? C::NSLAB : 1][4], q_lo[C::Q_REGS ? C::NSLAB : 1][4];
+
+  // With Q_REGS: this thread's A fragments of Q hi and lo, once Q is split.
+  // Slab cs, rows g and g + 8 of this warp's 16, columns c and c + 4 (the
+  // 16-byte halves of a 32-byte row, swapped on rows with bit 2 set).
+  __device__ __forceinline__ void load_q(int warp, int g, int tq4) {
+    if constexpr (C::Q_REGS) {
+#pragma unroll
+      for (int cs = 0; cs < C::NSLAB; ++cs)
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int row = warp * 16 + g + 8 * (a & 1), half = a >> 1;
+          const int off = cs * C::BM * SLAB_BYTES + row * SLAB_BYTES +
+                          ((half ^ ((row >> 2) & 1)) << 4) + tq4 * 4;
+          q_hi[cs][a] = *reinterpret_cast<const uint32_t*>(qh + off);
+          q_lo[cs][a] = *reinterpret_cast<const uint32_t*>(ql + off);
+        }
+    }
+  }
+
+  // S = Q K_j^T (asynchronous: committed, not waited)
+  __device__ __forceinline__ void issue_s(float (&s)[BN / 2], int j) const {
+    const int st = j % C::STAGES;
+    hopper::mbar_wait(k_ready + st, (j / C::STAGES) & 1);
+    const unsigned char* k_hi = kh + st * C::T_BYTES;
+    const unsigned char* k_lo = kl + st * C::T_BYTES;
+    hopper::fence_regs(s);
+    hopper::wgmma_fence();
+    if constexpr (C::Q_REGS) {
+#pragma unroll
+      for (int c = 0; c < C::NSLAB; ++c)
+        hopper::wgmma_rs_tf32<BN>(s, q_hi[c], kmajor(k_lo + c * BN * SLAB_BYTES), c > 0);
+#pragma unroll
+      for (int c = 0; c < C::NSLAB; ++c)
+        hopper::wgmma_rs_tf32<BN>(s, q_lo[c], kmajor(k_hi + c * BN * SLAB_BYTES), 1);
+#pragma unroll
+      for (int c = 0; c < C::NSLAB; ++c)
+        hopper::wgmma_rs_tf32<BN>(s, q_hi[c], kmajor(k_hi + c * BN * SLAB_BYTES), 1);
+    } else {
+#pragma unroll
+      for (int c = 0; c < C::NSLAB; ++c)
+        hopper::wgmma_ss_tf32<BN>(s, kmajor(qh + c * C::BM * SLAB_BYTES),
+                                  kmajor(k_lo + c * BN * SLAB_BYTES), c > 0);
+#pragma unroll
+      for (int c = 0; c < C::NSLAB; ++c)
+        hopper::wgmma_ss_tf32<BN>(s, kmajor(ql + c * C::BM * SLAB_BYTES),
+                                  kmajor(k_hi + c * BN * SLAB_BYTES), 1);
+#pragma unroll
+      for (int c = 0; c < C::NSLAB; ++c)
+        hopper::wgmma_ss_tf32<BN>(s, kmajor(qh + c * C::BM * SLAB_BYTES),
+                                  kmajor(k_hi + c * BN * SLAB_BYTES), 1);
+    }
+    hopper::wgmma_commit();
+  }
+
+  // pv = P V_j (asynchronous), V^T K-major in 8-key slabs of DP rows: a
+  // fresh accumulator a tile, which fp32 FMAs add to O.
+  __device__ __forceinline__ void issue_pv(float (&pv)[DP / 2], const uint32_t (&p_hi)[BN / 8][4],
+                                           const uint32_t (&p_lo)[BN / 8][4], int j) const {
+    const int st = j % C::STAGES;
+    hopper::mbar_wait(v_ready + st, (j / C::STAGES) & 1);
+    const unsigned char* v_hi = vth + st * C::T_BYTES;
+    const unsigned char* v_lo = vtl + st * C::T_BYTES;
+    hopper::fence_regs(pv);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 8; ++kk)
+      hopper::wgmma_rs_tf32<DP>(pv, p_lo[kk], kmajor(v_hi + kk * DP * SLAB_BYTES), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < BN / 8; ++kk)
+      hopper::wgmma_rs_tf32<DP>(pv, p_hi[kk], kmajor(v_lo + kk * DP * SLAB_BYTES), 1);
+#pragma unroll
+    for (int kk = 0; kk < BN / 8; ++kk)
+      hopper::wgmma_rs_tf32<DP>(pv, p_hi[kk], kmajor(v_hi + kk * DP * SLAB_BYTES), 1);
+    hopper::wgmma_commit();
+  }
+};
+
+// o = o * corr + pv, rows g and g + 8
+template <int R>
+__device__ __forceinline__ void rescale_add(float (&o)[R], const float (&corr)[2],
+                                            const float (&pv)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) o[i] = fmaf(o[i], corr[(i >> 1) & 1], pv[i]);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(F32Cfg<DP>::THREADS, 1)
+flash_fwd_tf32(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o,
+               float* __restrict__ lse, int H, int Tq, int Tk, int D, long long o_sb,
+               long long o_st, float scale_log2) {
+  using C = F32Cfg<DP>;
+  constexpr int BN = C::BN, STAGES = C::STAGES, BM = C::BM, TB = C::T_BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qh = align_1k(smem_raw);
+  unsigned char* ql = qh + C::Q_BYTES;
+  unsigned char* kh = ql + C::Q_BYTES;  // stage st of each ring at + st * TB
+  unsigned char* kl = kh + STAGES * TB;
+  unsigned char* vr = kl + STAGES * TB;
+  unsigned char* vth = vr + STAGES * TB;
+  unsigned char* vtl = vth + STAGES * TB;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vtl + STAGES * TB);
+  uint64_t* q_ready = q_full + 1;
+  uint64_t* full = q_ready + 1;
+  uint64_t* k_ready = full + STAGES;
+  uint64_t* v_ready = k_ready + STAGES;
+  uint64_t* empty = v_ready + STAGES;
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * BM;
+  const int ntiles = (Tk + BN - 1) / BN;
+  const int wg = threadIdx.x / WG_THREADS;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    hopper::mbar_init(q_ready, XF_THREADS);
+    for (int st = 0; st < STAGES; ++st) {
+      hopper::mbar_init(full + st, 1);
+      hopper::mbar_init(k_ready + st, XF_THREADS);
+      hopper::mbar_init(v_ready + st, XF_THREADS);
+      hopper::mbar_init(empty + st, C::NC * WG_THREADS);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ----------------------------------------- producer: TMA, split, V^T
+    if constexpr (C::NC == 2) hopper::setmaxnreg_dec<56>();
+    if (threadIdx.x < 32) {
+      if (threadIdx.x == 0) {
+        hopper::tma_prefetch_desc(&tm_q);
+        hopper::tma_prefetch_desc(&tm_k);
+        hopper::tma_prefetch_desc(&tm_v);
+        hopper::mbar_arrive_expect_tx(q_full, C::Q_BYTES);
+        for (int c = 0; c < C::NSLAB; ++c)
+          hopper::tma_load_4d(qh + c * BM * SLAB_BYTES, &tm_q, q_full, c * F_SLAB, h, q0, b);
+        for (int j = 0; j < ntiles; ++j) {
+          const int st = j % STAGES;
+          if (j >= STAGES) hopper::mbar_wait(empty + st, (j / STAGES - 1) & 1);
+          hopper::mbar_arrive_expect_tx(full + st, 2 * TB);
+          for (int c = 0; c < C::NSLAB; ++c) {
+            hopper::tma_load_4d(kh + st * TB + c * BN * SLAB_BYTES, &tm_k, full + st,
+                                c * F_SLAB, h, j * BN, b);
+            hopper::tma_load_4d(vr + st * TB + c * BN * SLAB_BYTES, &tm_v, full + st,
+                                c * F_SLAB, h, j * BN, b);
+          }
+        }
+      }
+    } else {
+      // Warps 1-3 turn each landed operand into what the TF32 products read;
+      // each hand-over is a proxy fence (generic writes before wgmma's
+      // async reads) and an arrival on the barrier the consumers wait for.
+      const int t = threadIdx.x - 32;
+      hopper::mbar_wait(q_full, 0);
+      split_tile(qh, ql, BM * DP / 4, t);
+      hopper::fence_proxy_async();
+      hopper::mbar_arrive(q_ready);
+      for (int j = 0; j < ntiles; ++j) {
+        const int st = j % STAGES;
+        hopper::mbar_wait(full + st, (j / STAGES) & 1);
+        split_tile(kh + st * TB, kl + st * TB, BN * DP / 4, t);
+        hopper::fence_proxy_async();
+        hopper::mbar_arrive(k_ready + st);
+        transpose_v<DP, BN>(vr + st * TB, vth + st * TB, vtl + st * TB, t);
+        hopper::fence_proxy_async();
+        hopper::mbar_arrive(v_ready + st);
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    if constexpr (C::NC == 2) hopper::setmaxnreg_inc<224>();
+    const int cw = wg - 1;
+    const int local = threadIdx.x - wg * WG_THREADS;
+    const int warp = local >> 5, lane = local & 31;
+    const int g = lane >> 2, tq4 = lane & 3;
+
+    F32Consumer<DP> c;
+    c.qh = qh + cw * WG_BM * SLAB_BYTES;
+    c.ql = ql + cw * WG_BM * SLAB_BYTES;
+    c.kh = kh;
+    c.kl = kl;
+    c.vth = vth;
+    c.vtl = vtl;
+    c.k_ready = k_ready;
+    c.v_ready = v_ready;
+    c.init(Tk, tq4, scale_log2);
+    float s[BN / 2], acc[DP / 2], pv[DP / 2], corr[2], corr_pv[2];
+    uint32_t p_hi[BN / 8][4], p_lo[BN / 8][4];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+    hopper::mbar_wait(q_ready, 0);
+    c.load_q(warp, g, tq4);
+    c.issue_s(s, 0);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    c.softmax(s, 0, corr);
+    to_tf32_fragments<BN>(p_hi, p_lo, s);
+    for (int j = 1; j < ntiles; ++j) {
+      // S_j is issued first; P_{j-1} V_{j-1} runs on the tensor cores while
+      // this warpgroup computes the softmax of S_j
+      c.issue_s(s, j);
+      c.issue_pv(pv, p_hi, p_lo, j - 1);
+      corr_pv[0] = corr[0];
+      corr_pv[1] = corr[1];
+      hopper::wgmma_wait<1>();  // S_j done, P V may still run
+      hopper::fence_regs(s);
+      c.softmax(s, j, corr);
+      hopper::wgmma_wait<0>();  // P_{j-1} V_{j-1} done: stage j-1 is free
+      hopper::fence_regs(pv);
+      hopper::mbar_arrive(empty + (j - 1) % STAGES);
+      rescale_add(acc, corr_pv, pv);
+      to_tf32_fragments<BN>(p_hi, p_lo, s);
+    }
+    c.issue_pv(pv, p_hi, p_lo, ntiles - 1);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(pv);
+    rescale_add(acc, corr, pv);
+
+    const float l[2] = {c.row_sum(0), c.row_sum(1)};
+    float* og = o + b * o_sb + (long long)h * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + cw * WG_BM + warp * 16 + g + r * 8;
+      if (row >= Tq) continue;
+      const float l_safe = l[r] == 0.f ? 1.f : l[r];
+      const float inv = 1.f / l_safe;
+      float* orow = og + (long long)row * o_st;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        const int col = n * 8 + tq4 * 2;
+        if (col < D)
+          *reinterpret_cast<float2*>(orow + col) =
+              make_float2(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
+      }
+      if (tq4 == 0) lse[(long long)bh * Tq + row] = c.m_run[r] * LN2 + logf(l_safe);
+    }
+  }
+}
+
+template <int DP>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
                        int B, int H, int Tq, int Tk, int D, const long long* st, float scale,
                        cudaStream_t stream) {
-  const int smem = (F_BM * D + F_BN * (D + 1) + F_BN * D) * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((Tq + F_BM - 1) / F_BM, B * H);
-  flash_fwd_f32<<<grid, F_WARPS * 32, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, H, Tq, Tk, D, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], scale);
+  using C = F32Cfg<DP>;
+  CUtensorMap mq, mk, mv;
+  cudaError_t e;
+  if ((e = operand_map(&mq, q, B, Tq, H, D, st[0], st[1], C::BM, true)) != cudaSuccess) return e;
+  if ((e = operand_map(&mk, k, B, Tk, H, D, st[2], st[3], C::BN, true)) != cudaSuccess) return e;
+  if ((e = operand_map(&mv, v, B, Tk, H, D, st[4], st[5], C::BN, true)) != cudaSuccess) return e;
+  static bool attr_set = false;
+  if (!attr_set) {
+    e = cudaFuncSetAttribute(flash_fwd_tf32<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::SMEM);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  dim3 grid((Tq + C::BM - 1) / C::BM, B * H);
+  flash_fwd_tf32<DP><<<grid, C::THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, (float*)o, lse, H, Tq, Tk, D, st[6], st[7], scale * LOG2E);
   return cudaGetLastError();
+}
+
+template <int DP>
+int plan_f32(int* out) {
+  using C = F32Cfg<DP>;
+  out[0] = C::BM;
+  out[1] = C::BN;
+  out[2] = C::STAGES;
+  out[3] = C::SMEM;
+  return 0;
 }
 
 }  // namespace
@@ -478,8 +788,13 @@ int rr_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void
   cudaStream_t s = (cudaStream_t)stream;
   float* l = (float*)lse;
   if (dtype == 1) {
-    if (D <= 0 || D > flash::MAX_D) return (int)cudaErrorInvalidValue;
-    return (int)launch_f32(q, k, v, o, l, B, H, Tq, Tk, D, st, scale, s);
+    switch (flash::f32_padded_dim(D)) {
+      case 40: return (int)launch_f32<40>(q, k, v, o, l, B, H, Tq, Tk, D, st, scale, s);
+      case 64: return (int)launch_f32<64>(q, k, v, o, l, B, H, Tq, Tk, D, st, scale, s);
+      case 80: return (int)launch_f32<80>(q, k, v, o, l, B, H, Tq, Tk, D, st, scale, s);
+      case 160: return (int)launch_f32<160>(q, k, v, o, l, B, H, Tq, Tk, D, st, scale, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   switch (flash::padded_dim(D)) {
@@ -487,6 +802,20 @@ int rr_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void
     case 64: return (int)launch_bf16<64>(q, k, v, o, l, B, H, Tq, Tk, D, st, scale, s);
     case 80: return (int)launch_bf16<80>(q, k, v, o, l, B, H, Tq, Tk, D, st, scale, s);
     case 160: return (int)launch_bf16<160>(q, k, v, o, l, B, H, Tq, Tk, D, st, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The tiling of the fp32 instance that takes head dim D, for the Python
+// mirror (`fwd_f32_plan` in ops/kernels/flash_attention.py): out = {query
+// rows a CTA owns, keys per K/V tile, stages, dynamic shared memory bytes}.
+// cudaErrorInvalidValue for a head dim no instance takes.
+int rr_flash_attn_fwd_f32_plan(int D, int* out) {
+  switch (flash::f32_padded_dim(D)) {
+    case 40: return plan_f32<40>(out);
+    case 64: return plan_f32<64>(out);
+    case 80: return plan_f32<80>(out);
+    case 160: return plan_f32<160>(out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -93,15 +93,20 @@ __device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
                                           ~uintptr_t(1023));
 }
 
-// The tensor map of one (B, T, H, D) bf16 operand: dims (D, H, T, B), byte
-// strides of H, T and B, a box of 16 columns x `rows` tokens of one head.
-// Columns past D and tokens past T read as zero.
+// The tensor map of one (B, T, H, D) operand, bf16 or (f32) fp32: dims
+// (D, H, T, B), byte strides of H, T and B, a box of one 32-byte slab (16
+// bf16 or 8 fp32 columns) x `rows` tokens of one head.  Columns past D and
+// tokens past T read as zero.
 inline cudaError_t operand_map(CUtensorMap* map, const void* base, int B, int T, int H, int D,
-                               long long sb, long long st, int rows) {
+                               long long sb, long long st, int rows, bool f32 = false) {
+  const uint64_t item = f32 ? 4 : 2;
   const uint64_t dims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)T, (uint64_t)B};
-  const uint64_t strides[3] = {(uint64_t)D * 2, (uint64_t)st * 2, (uint64_t)sb * 2};
-  const uint32_t box[4] = {SLAB, 1, (uint32_t)rows, 1};
-  return hopper_host::encode_bf16_4d(map, base, dims, strides, box);
+  const uint64_t strides[3] = {(uint64_t)D * item, (uint64_t)st * item, (uint64_t)sb * item};
+  const uint32_t box[4] = {(uint32_t)(SLAB_BYTES / item), 1, (uint32_t)rows, 1};
+  return hopper_host::encode_4d(map,
+                                f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                base, dims, strides, box);
 }
 
 // Padded head dim of the bf16 instance that takes D (0 if none does): the
@@ -109,6 +114,17 @@ inline cudaError_t operand_map(CUtensorMap* map, const void* base, int B, int T,
 inline int padded_dim(int D) {
   if (D <= 0 || D > MAX_D || D % 8 != 0) return 0;
   const int choices[] = {48, 64, 80, 160};
+  for (int c : choices)
+    if (c >= D) return c;
+  return 0;
+}
+
+// Padded head dim of the fp32 (TF32) instance that takes D (0 if none
+// does): its slabs are 8 columns wide, so 40 and 80 are their own; 8-32 pad
+// to 40, 48-56 to 64, 72 to 80, 88-152 to 160.
+inline int f32_padded_dim(int D) {
+  if (D <= 0 || D > MAX_D || D % 8 != 0) return 0;
+  const int choices[] = {40, 64, 80, 160};
   for (int c : choices)
     if (c >= D) return c;
   return 0;

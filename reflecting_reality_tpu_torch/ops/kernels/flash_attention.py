@@ -25,6 +25,20 @@ D come from TMA's out-of-bounds fill).  `tma_geometry` is the map's
 geometry (dims, byte strides, box) with TMA's alignment rules, checked here
 before every launch.
 
+B1's fp32 instance (the test CLI's default dtype and the parity runs) is the
+same warp-specialised kernel on the TF32 tensor cores, each product three
+passes over operands split into TF32 hi and lo parts (hi·lo + lo·hi +
+hi·hi, "3xTF32"), which keeps fp32 accuracy where one TF32 pass would miss
+the fp32 tolerances tenfold.  That is 3 · 4·B·H·T²·D FLOP (0.26 ms at (2,
+4096, 8, 40) at 495 TFLOP/s, against 0.64 ms for the same work on the
+CUDA cores), so the tensor cores bind.  The producer warpgroup's other
+three warps split Q and K into hi and lo and write V transposed (TF32
+wgmma takes no MN-major operand), its keys permuted within each group of 8
+so that the S accumulator already is P's A fragment; its 8-column fp32
+slabs keep D = 40 unpadded.  `fwd_f32_plan` is each fp32 instance's tiling,
+the mirror of the source's `F32Cfg`, held against the library by
+`chip_smoke.py`.
+
 The backward (B3 + B4) does 7·B·H·Tq·Tk·D multiply-adds (3 products in B3,
 4 in B4) against 4 reads of (B, T, H, D) per kernel and 3 writes: at the
 training shape (4, 4096, 8, 40) bf16 that is 3.0e11 FLOP (0.30 ms at 989
@@ -64,7 +78,7 @@ from __future__ import annotations
 import ctypes
 import math
 from collections import Counter
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -78,9 +92,11 @@ DKV_REPLACES = "reflecting_reality_tpu/ops/pallas/flash_attention.py:191"
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _MAX_D = 160  # MAX_D in csrc/flash_common.cuh
-TMA_SLAB = 16   # head-dim columns per TMA box (SLAB in csrc/flash_common.cuh)
+TMA_SLAB_BYTES = 32  # one 32-byte swizzled slab per TMA box (SLAB_BYTES in csrc/flash_common.cuh)
+TMA_SLAB = 16   # bf16 head-dim columns per TMA box (SLAB); fp32 boxes take 8
 TMA_ROWS = 128  # rows a CTA owns (CTA_BM); streamed tiles are 128, 64 or 32 rows
 _PADDED_DIMS = (48, 64, 80, 160)  # the bf16 instances (padded_dim in csrc/flash_common.cuh)
+_F32_DIMS = (40, 64, 80, 160)     # the fp32 instances (f32_padded_dim)
 SMEM_MAX = 232448  # dynamic shared memory a CTA can take on the H100
 
 
@@ -88,10 +104,10 @@ def tma_geometry(shape, strides, data_ptr: int, itemsize: int = 2,
                  rows: int = TMA_ROWS) -> dict:
     """The 4-D TMA tensor map of one (B, T, H, D) operand with element
     `strides`: dims (D, H, T, B) innermost first, byte strides of H, T and B,
-    and a box of `TMA_SLAB` columns x `rows` tokens of one head.  Raises
-    ValueError on what TMA cannot take: (H, D) not packed, a base address or
-    a byte stride that is not a multiple of 16, a stride of 2^40 bytes or
-    more, a box wider than 256 rows."""
+    and a box of one 32-byte slab (16 bf16 or 8 fp32 columns) x `rows`
+    tokens of one head.  Raises ValueError on what TMA cannot take: (H, D)
+    not packed, a base address or a byte stride that is not a multiple of
+    16, a stride of 2^40 bytes or more, a box wider than 256 rows."""
     b, t, h, d = shape
     sb, st, sh, sd = strides
     if sd != 1 or sh != d:
@@ -106,14 +122,53 @@ def tma_geometry(shape, strides, data_ptr: int, itemsize: int = 2,
     if not 0 < rows <= 256:
         raise ValueError(f"a TMA box takes 1 to 256 rows, got {rows}")
     return {"dims": (d, h, t, b), "strides_bytes": byte_strides,
-            "box": (TMA_SLAB, 1, rows, 1)}
+            "box": (TMA_SLAB_BYTES // itemsize, 1, rows, 1)}
 
 
-def padded_dim(d: int) -> int:
-    """The padded head dim of the bf16 instance that takes d, 0 if none does."""
+def padded_dim(d: int, dims=_PADDED_DIMS) -> int:
+    """The padded head dim of the bf16 instance (of the fp32 one with
+    `dims=_F32_DIMS`) that takes d, 0 if none does."""
     if d <= 0 or d > _MAX_D or d % 8:
         return 0
-    return next(c for c in _PADDED_DIMS if c >= d)
+    return next(c for c in dims if c >= d)
+
+
+class FwdF32Plan(NamedTuple):
+    """One fp32 head-dim instance of B1, as `F32Cfg` in csrc/flash_attn_fwd.cu
+    lays it out: `consumers` warpgroups of 64 query rows (`rows` a CTA),
+    `tile` keys per K/V tile, `stages` in the ring, `smem` bytes of dynamic
+    shared memory (Q hi and lo, then per stage K, K lo, raw V, V^T hi and
+    lo, 4 bytes an element), `ss_n` the N of the S = Q Kᵀ wgmma, `rs_n` the
+    N of O += P V, `boxes` the TMA box rows of q, k and v, `threads` of the
+    producer and the consumer warpgroups and `regs` their setmaxnreg (None:
+    ptxas's own count, no setmaxnreg)."""
+    dp: int
+    consumers: int
+    rows: int
+    tile: int
+    stages: int
+    smem: int
+    ss_n: int
+    rs_n: int
+    boxes: Dict[str, int]
+    threads: Tuple[int, int]
+    regs: Optional[Tuple[int, int]]
+
+
+def fwd_f32_plan(d: int) -> FwdF32Plan:
+    """The tiling of B1's fp32 instance for head dim d; pure (no device).
+    Raises ValueError for a head dim no instance takes."""
+    dp = padded_dim(d, _F32_DIMS)
+    if not dp:
+        raise ValueError(f"head dim {d} not taken (needs D % 8 == 0 and D <= {_MAX_D})")
+    nc = 1 if dp == 160 else 2           # Q hi and lo of 128 rows at 160 would take 160 KB
+    rows = 64 * nc
+    tile = {40: 64, 64: 64, 80: 32, 160: 16}[dp]
+    stages = 3 if dp == 40 else 2
+    smem = 2 * rows * dp * 4 + 5 * stages * tile * dp * 4 + 256 + 1024
+    return FwdF32Plan(dp, nc, rows, tile, stages, smem, tile, dp,
+                      {"q": rows, "k": tile, "v": tile}, (128, 128 * nc),
+                      (56, 224) if nc == 2 else None)
 
 
 class BwdPlan(NamedTuple):
@@ -212,15 +267,28 @@ def library_bwd_plan(d: int) -> Dict[str, Tuple[int, int, int]]:
     return plans
 
 
+def library_fwd_f32_plan(d: int) -> Tuple[int, int, int, int]:
+    """(rows, tile, stages, smem) of B1's fp32 instance for head dim d as the
+    built library lays it out, to hold `fwd_f32_plan` against."""
+    fn = _fwd_lib().rr_flash_attn_fwd_f32_plan
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    _raise_on(fn(d, out), "flash_attn_fwd_f32_plan")
+    return tuple(out)
+
+
 def _strides(*xs: torch.Tensor):
     """Batch and token strides of each (B, T, H, D) tensor, in order."""
     return [s for x in xs for s in (x.stride(0), x.stride(1))]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor,
-           who: str = "flash_attention_fwd") -> None:
+           who: str = "flash_attention_fwd", tma=(torch.bfloat16,)) -> None:
     """q (B, Tq, H, D), k and v (B, Tk, H, D), and any further tensors shaped
-    like q (dO), all on one CUDA device in one dtype with packed (H, D)."""
+    like q (dO), all on one CUDA device in one dtype with packed (H, D); for
+    the dtypes in `tma` (those whose kernel reads its operands through TMA)
+    a tensor map must take each of them."""
     if not all(x.is_cuda for x in (q, k, v) + more):
         raise ValueError(f"{who} takes CUDA tensors")
     if not all(x.device == q.device for x in (k, v) + more):
@@ -242,7 +310,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tenso
     for name, x in (("q", q), ("k", k), ("v", v)) + tuple(("dO", x) for x in more):
         if x.stride(3) != 1 or x.stride(2) != d:
             raise ValueError(f"{name} needs packed (H, D) dims, got strides {x.stride()}")
-        if q.dtype == torch.bfloat16:   # every bf16 kernel reads them through TMA
+        if q.dtype in tma:
             tma_geometry(tuple(x.shape), x.stride(), x.data_ptr(), x.element_size())
 
 
@@ -269,7 +337,7 @@ def _raise_on(err: int, name: str) -> None:
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel B1 on (B, T, H, D) CUDA tensors -> (out in q.dtype, lse fp32 (B·H, Tq))."""
-    _check(q, k, v)
+    _check(q, k, v, tma=(torch.bfloat16, torch.float32))
     b, tq, h, d = q.shape
     tk = k.shape[1]
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)

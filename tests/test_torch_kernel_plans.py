@@ -18,6 +18,15 @@ and is held here.
   magnitude (fp32 rounding through a different summation order).
 - `tma_geometry` accepts the q/k/v column slices of a fused qkv projection
   and rejects a stride or a base address TMA cannot take.
+- `fwd_f32_plan`, the tiling of B1's fp32 (3xTF32) instance at every head
+  dim the route sends it (8 to 160 in steps of 8), fits the H100 and its
+  fp32 TMA boxes (8 columns) are boxes TMA takes on fused-qkv slices.  A
+  numpy emulation of that kernel's arithmetic (TF32 hi/lo split by masking,
+  three passes a product, V^T's keys permuted within each
+  group of 8 to match the S accumulator's order, the log2-domain online
+  softmax over the plan's tiles) matches the JAX Pallas kernel in TPU
+  interpret mode to 1e-4 of the output's max and 1e-4 in lse; one TF32
+  pass on the same inputs does not, which is why the kernel takes three.
 - `bwd_plan`, the tiling of the flash backward kernels B3 (dQ) and B4
   (dK/dV) at each bf16 head-dim instance, fits the H100: wgmma widths that
   are multiples of 8 up to 256, shared memory within a CTA's 232,448 bytes,
@@ -30,12 +39,16 @@ and is held here.
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from jax.experimental.pallas import tpu as pltpu
+
 from reflecting_reality_tpu.ops.norms import group_norm as j_group_norm
+from reflecting_reality_tpu.ops.pallas import flash_attention as j_fa
 from reflecting_reality_tpu_torch.ops.kernels import groupnorm as gn
 from reflecting_reality_tpu_torch.ops.kernels import flash_attention as fa
 from reflecting_reality_tpu_torch.ops.kernels.flash_attention import tma_geometry
@@ -313,3 +326,151 @@ def test_dkv_query_tail_adds_exactly_nothing():
 
     for a, b in zip(dkv(q_p, do_p, lse_p, delta_p), dkv(q, do, lse, delta)):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-6 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("d", range(8, 161, 8))
+def test_fwd_f32_plan_fits_the_card(d):
+    """B1's fp32 instance for every head dim the route sends it: shared memory
+    within a CTA's, wgmma widths and TMA boxes the card takes, a register
+    split within the SM's, and 8-column fp32 boxes on fused-qkv slices."""
+    p = fa.fwd_f32_plan(d)
+    assert p.dp == fa.padded_dim(d, fa._F32_DIMS) >= d
+    assert p.dp % 8 == 0                        # whole TF32 k8 steps over 8-column slabs
+    assert p.smem <= fa.SMEM_MAX, p.smem
+    assert p.smem == 2 * p.rows * p.dp * 4 + 5 * p.stages * p.tile * p.dp * 4 + 256 + 1024
+    for n in (p.ss_n, p.rs_n):                  # wgmma takes M = 64 and N = 8, 16, ..., 256
+        assert n % 8 == 0 and 8 <= n <= 256, n
+    assert p.ss_n == p.tile and p.rs_n == p.dp and p.tile % 8 == 0
+    assert p.rows == 64 * p.consumers and p.threads == (128, 128 * p.consumers)
+    assert p.stages >= 2                        # a tile loads while the last one computes
+    if p.regs is None:                          # no setmaxnreg: ptxas's count, <= 255 a thread
+        assert sum(p.threads) * 255 <= 65536
+    else:                                       # the launch's 168 a thread, redistributed
+        assert all(24 <= r <= 256 and r % 8 == 0 for r in p.regs)
+        assert sum(t * r for t, r in zip(p.threads, p.regs)) == sum(p.threads) * 168
+    # fp32 accumulators a consumer thread holds at once: S, P's hi and lo
+    # fragments, O and the tile's P V, with room under setmaxnreg 224
+    assert p.tile // 2 + p.tile + p.dp <= 200
+    b, t, h = 1, 256, 2
+    qkv = torch.zeros(b, t, 3 * h * d, dtype=torch.float32)
+    for name, x in zip(("q", "k", "v"), (x.view(b, t, h, d) for x in qkv.split(h * d, -1))):
+        geo = tma_geometry(tuple(x.shape), x.stride(), x.data_ptr(), 4, rows=p.boxes[name])
+        assert geo["box"] == (8, 1, p.boxes[name], 1)
+        assert geo["strides_bytes"] == (4 * d, 4 * 3 * h * d, 4 * 3 * h * d * t)
+
+
+@pytest.mark.parametrize("d", [0, 36, 168, 256])
+def test_fwd_f32_plan_raises_for_a_head_dim_no_instance_takes(d):
+    with pytest.raises(ValueError, match="head dim"):
+        fa.fwd_f32_plan(d)
+
+
+def tf32_trunc(x):
+    """x with its low 13 mantissa bits cleared (fp32 -> TF32 by truncation)."""
+    return (np.asarray(x, np.float32).view(np.uint32) & np.uint32(0xffffe000)).view(np.float32)
+
+
+def tf32_split(x):
+    """`hopper::tf32_split`: hi = x truncated to TF32, lo = x - hi (exact in
+    fp32) truncated too."""
+    hi = tf32_trunc(x)
+    return hi, tf32_trunc(x - hi)
+
+
+def tf32_mm(a, b, passes):
+    """a @ b over the last two dims as the kernel's wgmmas sum it: three
+    passes of TF32 products (hi·lo + lo·hi, then hi·hi) in fp32, or one."""
+    if passes == 1:
+        return np.matmul(tf32_trunc(a), tf32_trunc(b))
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    return (np.matmul(ah, bl) + np.matmul(al, bh)) + np.matmul(ah, bh)
+
+
+def emulate_b1_f32(q, k, v, passes=3):
+    """B1's fp32 instance in numpy over (B, T, H, D) fp32 -> (out, lse (B·H, Tq))."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    plan = fa.fwd_f32_plan(d)
+    bn, dp = plan.tile, plan.dp
+    nt = -(-tk // bn)
+
+    def heads(x, rows):   # (B, H, rows, DP), zero-filled past T and D as TMA gives them
+        out = np.zeros((b, h, rows, dp), np.float32)
+        out[:, :, :x.shape[1], :d] = x.transpose(0, 2, 1, 3)
+        return out
+
+    qh = heads(q, -(-tq // plan.rows) * plan.rows)
+    kh, vh = heads(k, nt * bn), heads(v, nt * bn)
+    scale_log2 = np.float32(np.log2(np.e) / np.sqrt(d))
+    # slot s of a group of 8 takes key 2 * (s % 4) + s // 4 (V^T's order)
+    perm = np.concatenate([8 * n + np.array([2 * (s % 4) + s // 4 for s in range(8)])
+                           for n in range(bn // 8)])
+    m = np.full(qh.shape[:3], -np.inf, np.float32)
+    l = np.zeros(qh.shape[:3], np.float32)
+    acc = np.zeros(qh.shape, np.float32)
+    for j in range(nt):
+        kt, vt = kh[:, :, j * bn:(j + 1) * bn], vh[:, :, j * bn:(j + 1) * bn]
+        s = tf32_mm(qh, kt.transpose(0, 1, 3, 2), passes)
+        masked = j * bn + np.arange(bn) >= tk
+        s[..., masked] = -np.inf
+        m_new = np.maximum(m, s.max(-1) * scale_log2)
+        mu = np.where(m_new == -np.inf, np.float32(0), m_new)
+        corr = np.exp2(m - mu)
+        p = np.exp2(s * scale_log2 - mu[..., None])
+        l = l * corr + p.sum(-1)
+        m = m_new
+        # the A fragment from the accumulator as each thread (g, c) holds it:
+        # columns 2c and 2c + 1 of each group of 8 go to slots c and c + 4
+        frag = np.empty_like(p)
+        for n in range(bn // 8):
+            for c in range(4):
+                frag[..., 8 * n + c] = p[..., 8 * n + 2 * c]
+                frag[..., 8 * n + c + 4] = p[..., 8 * n + 2 * c + 1]
+        assert np.array_equal(frag, p[..., perm])
+        vt_perm = vt[:, :, perm]
+        # keys past Tk stay masked after the permutation: p = 0, V rows zero
+        assert not frag[..., masked[perm]].any() and not vt_perm[:, :, masked[perm]].any()
+        acc = acc * corr[..., None] + tf32_mm(frag, vt_perm, passes)
+    l_safe = np.where(l == 0, np.float32(1), l)
+    out = (acc / l_safe[..., None])[:, :, :tq, :d].transpose(0, 2, 1, 3)
+    lse = (m * np.float32(np.log(2)) + np.log(l_safe))[:, :, :tq].reshape(b * h, tq)
+    return out, lse
+
+
+@functools.lru_cache(maxsize=None)
+def jax_flash_fwd(b, tq, tk, h, d, seed):
+    """Seeded randn q/k/v and the JAX Pallas forward kernel's (out, lse) on
+    them, in TPU interpret mode (the path of tests/test_torch_ops.py)."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, tq, h, d).astype(np.float32)
+    k, v = (rng.randn(b, tk, h, d).astype(np.float32) for _ in range(2))
+
+    def fold(x):
+        x = jnp.swapaxes(jnp.asarray(x), 1, 2).reshape(b * h, x.shape[1], d)
+        return j_fa._pad_head_dim(x)[0]
+
+    with pltpu.force_tpu_interpret_mode():
+        out, lse = j_fa._flash_fwd(fold(q), fold(k), fold(v), float(1 / np.sqrt(d)), 128, 128)
+    out = np.asarray(out)[:, :, :d].reshape(b, h, tq, d).transpose(0, 2, 1, 3)
+    return q, k, v, out, np.asarray(lse)[:, :, 0]
+
+
+EMULATION_SHAPES = [(1, 264, 264, 2, 40),     # ragged for the D = 40 instance's 64-key tiles
+                    (1, 96, 152, 1, 160)]     # Tq != Tk, ragged 16-key tiles at D = 160
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d", EMULATION_SHAPES)
+def test_f32_kernel_emulation_matches_jax_flash(b, tq, tk, h, d):
+    q, k, v, ref, ref_lse = jax_flash_fwd(b, tq, tk, h, d, 0)
+    out, lse = emulate_b1_f32(q, k, v)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4 * np.abs(ref).max())
+    np.testing.assert_allclose(lse, ref_lse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d", EMULATION_SHAPES)
+def test_one_tf32_pass_misses_the_fp32_tolerance(b, tq, tk, h, d):
+    """The same inputs with every product one TF32 pass: the output is off by
+    more than 1e-4 of its max, so the kernel's three passes are needed."""
+    q, k, v, ref, _ = jax_flash_fwd(b, tq, tk, h, d, 0)
+    out, _ = emulate_b1_f32(q, k, v, passes=1)
+    assert np.abs(out - ref).max() > 1e-4 * np.abs(ref).max()

@@ -72,6 +72,9 @@ def assert_flash_close(out, ref, dtype):
     ((1, 72, 1, 64), torch.bfloat16),
     ((1, 2056, 2, 40), torch.float32),
     ((1, 2048, 1, 160), torch.float32),
+    ((2, 4096, 8, 40), torch.float32),      # the test CLI's default step
+    ((1, 2056, 1, 152), torch.float32),     # D = 160 instance, ragged rows and columns
+    ((1, 72, 1, 64), torch.float32),
 ])
 def test_flash_matches_plain(cuda, shape, dtype):
     g = torch.Generator(cuda).manual_seed(0)
@@ -85,14 +88,40 @@ def test_flash_matches_plain(cuda, shape, dtype):
     assert fa.flash_attention_fwd.launches_by_shape[(shape, str(dtype)[6:])] >= 1
 
 
-def test_flash_reads_fused_qkv_slices(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_reads_fused_qkv_slices(cuda, dtype):
     """q/k/v as column slices of one (B, T, 3·H·D) projection, read in place."""
     b, t, h, d = 2, 2048, 4, 40
-    qkv = torch.randn(b, t, 3 * h * d, device=cuda, dtype=torch.bfloat16)
+    qkv = torch.randn(b, t, 3 * h * d, device=cuda, dtype=dtype)
     q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
     out, _ = fa.flash_attention_fwd(q, k, v)
     ref = fa.attention_plain(q, k, v)
-    assert_flash_close(out, ref, torch.bfloat16)
+    assert_flash_close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("tq,tk,d,dtype", [
+    (301, 517, 64, torch.float32),
+    (2048, 1000, 40, torch.float32),
+    (200, 3000, 160, torch.float32),
+    (2056, 77, 80, torch.float32),      # a cross-attention's key count
+    (301, 517, 64, torch.bfloat16),
+    (200, 3000, 160, torch.bfloat16),
+])
+def test_flash_fwd_unequal_lengths(cuda, tq, tk, d, dtype):
+    """Tq != Tk: query tails in the last CTA, key tails in the last tile."""
+    g = torch.Generator(cuda).manual_seed(6)
+    q = torch.randn(1, tq, 2, d, generator=g, device=cuda, dtype=dtype)
+    k, v = (torch.randn(1, tk, 2, d, generator=g, device=cuda, dtype=dtype) for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    ref, ref_lse = fa.attention_plain(q, k, v, return_lse=True)
+    assert_flash_close(out, ref, dtype)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+
+
+def test_fwd_f32_plan_is_the_library_tiling(cuda):
+    for d in (8, 40, 48, 64, 72, 80, 88, 152, 160):
+        p = fa.fwd_f32_plan(d)
+        assert fa.library_fwd_f32_plan(d) == (p.rows, p.tile, p.stages, p.smem)
 
 
 def _randn(cuda, shape, dtype, seed=0):
