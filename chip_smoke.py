@@ -3,11 +3,16 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab-main-path OTHER_CHECKOUT [BLOCKS]
+    python3 chip_smoke.py --ab-train-cli-fp32 OTHER_CHECKOUT [BLOCKS]
+    python3 chip_smoke.py --train-cli-fp32 [CHECKOUT]
 
 The second form times the main path (phases 2 and 5 below) of another
 checkout (e.g. the parent commit unpacked with `git archive`) and of this
 one in turns, BLOCKS (default 1) times other, this, this, other, each run in
-a process of its own, and prints one `ab_main_path` line.
+a process of its own, and prints one `ab_main_path` line.  The third does
+the same for phase 12 (the training CLI at its default fp32), each run a
+process of the fourth form, which runs that phase alone with the package
+of CHECKOUT (default this one) on a base folder and latent cache it writes.
 
 Phases, each printing one JSON line:
   1. env     torch/CUDA versions, device name and compute capability,
@@ -19,13 +24,14 @@ Phases, each printing one JSON line:
              of every kernel instance, and the count of wgmma (HGMMA),
              TMA-load (UTMALDG) and cluster-barrier (UCGABAR) instructions in
              each library's SASS (`cuobjdump -sass`): both flash libraries
-             must hold HGMMA and UTMALDG, each of B1's four fp32 instances
-             (`flash_fwd_tf32<DP>`) TF32 HGMMA and UTMALDG of its own, the
-             GroupNorm library cluster barriers; no wgmma instance of the
-             flash backward and no fp32 instance of B1 may spill, ptxas may
-             give neither flash library a performance warning (C75xx:
-             wgmmas serialised, setmaxnreg ignored), and the libraries'
-             tilings must be `bwd_plan`'s and `fwd_f32_plan`'s.
+             must hold HGMMA and UTMALDG, each of the twelve fp32 instances
+             of B1, B3 and B4 (`flash_fwd_tf32<DP>`, `flash_bwd_dq_tf32<DP>`,
+             `flash_bwd_dkv_tf32<DP>`) TF32 HGMMA and UTMALDG of its own,
+             the GroupNorm library cluster barriers; no wgmma or fp32
+             instance of the flash libraries may spill, ptxas may give
+             neither flash library a performance warning (C75xx: wgmmas
+             serialised, setmaxnreg ignored), and the libraries' tilings
+             must be `bwd_plan`'s, `bwd_f32_plan`'s and `fwd_f32_plan`'s.
   3. kernels every kernel against its plain PyTorch version on the card, at
              the shapes the main path, the training step and the test CLI
              give it (every GroupNorm shape of a denoise step and of the
@@ -111,7 +117,14 @@ Phases, each printing one JSON line:
              the card against the CPU (LPIPS 1e-4 relative, PSNR 1e-3 dB,
              SSIM 1e-5), `metrics/evaluate.py --mode avg` (best and avg CSVs)
              on CSVs written from the card's scores, LPIPS ms per 512² pair.
- 12. modes   a full-width 512² bf16 pipeline call, 4 steps, depth `latents`
+ 12. train_cli_fp32  the training CLI at its default `--mixed_precision no`
+             (fp32, the users' default step) on train_cli's base folder and
+             latent cache: 6 steps, 512² batch 4, depth concat, no checkpoint
+             within the run (the CLI's final one is deleted), no validation.
+             Checks: finite losses, BrushNet moved, B1/B3/B4 each launched 5
+             times a step at (4, 4096, 8, 40) fp32.  Prints s/step (median of
+             steps 2-6), samples/s, peak memory and the launches.
+ 13. modes   a full-width 512² bf16 pipeline call, 4 steps, depth `latents`
              + normals `concat` (BrushNet with 12 conditioning channels):
              a finite, non-constant uint8 image, B1 20 launches; then fp32
              depth `concat` + normals `latents`, one denoise step, TF32 off,
@@ -119,7 +132,8 @@ Phases, each printing one JSON line:
 Then `kernels_detail` (every measured kernel and shape with the launches
 each path gave that shape: the main path's 8-step call, the timed training
 steps, the CLI's first 8 steps, the test CLI's bf16 8-step and fp32
-4-step runs and train_parity's fp32 step, 0 where none), the `{"kernels": [...]}`
+4-step runs, train_parity's fp32 step and the fp32 CLI's 6 steps, 0 where
+none), the `{"kernels": [...]}`
 summary line (the
 kernels and shapes the paths launched), the nvidia-smi name/power-limit
 line, and last `{"ok": true, "device": {...}}`.  Any failed check raises and
@@ -240,10 +254,12 @@ def bf16_ulp(x: float) -> float:
 SASS_COUNTS = ("HGMMA", "UTMALDG", "UCGABAR")   # wgmma, TMA tensor load, cluster barrier
 SASS_WANT = {"flash_attn_fwd": ("HGMMA", "UTMALDG"), "flash_attn_bwd": ("HGMMA", "UTMALDG"),
              "groupnorm": ("UCGABAR",)}
-# library: (the instances that may not spill, how many there are)
-NO_SPILLS = {"flash_attn_bwd": ("wgmma", 8), "flash_attn_fwd": ("tf32", 4)}
-F32_DIMS = (40, 64, 80, 160)               # B1's fp32 instances
+# (library, the instances that may not spill, how many there are)
+NO_SPILLS = (("flash_attn_bwd", "wgmma", 8), ("flash_attn_bwd", "tf32", 8),
+             ("flash_attn_fwd", "tf32", 4))
+F32_DIMS = (40, 64, 80, 160)               # the fp32 instances of B1, B3 and B4
 NO_C75 = ("flash_attn_fwd", "flash_attn_bwd")  # libraries ptxas may not warn about
+LIBRARIES = ("flash_attn_fwd", "flash_attn_bwd", "groupnorm")
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -300,26 +316,32 @@ def cuobjdump() -> str:
     raise RuntimeError("cuobjdump not found")
 
 
-def phase_build(torch):
+def build_libraries() -> dict:
+    """Every kernel library built and loaded, one nvcc per source, all
+    started together -> {library: seconds from the start until it loaded}."""
     from concurrent.futures import ThreadPoolExecutor
 
     from reflecting_reality_tpu_torch.ops.kernels import build
 
-    names = ("flash_attn_fwd", "flash_attn_bwd", "groupnorm")
-    built_now = {n: not build.library_path(n).exists() for n in names}
     t0 = time.perf_counter()
 
     def nvcc_build(name: str) -> float:
         build.load(name)
         return time.perf_counter() - t0
 
-    # one nvcc per source, all started together
-    with ThreadPoolExecutor(len(names)) as pool:
-        t_nvcc = {n: f.result() for n, f in
-                  {n: pool.submit(nvcc_build, n) for n in names}.items()}
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        return {n: f.result() for n, f in
+                {n: pool.submit(nvcc_build, n) for n in LIBRARIES}.items()}
+
+
+def phase_build(torch):
+    from reflecting_reality_tpu_torch.ops.kernels import build
     from reflecting_reality_tpu_torch.ops.kernels import flash_attention as fa
 
-    ptxas, warnings, sass = {}, {}, {}
+    names = LIBRARIES
+    built_now = {n: not build.library_path(n).exists() for n in names}
+    t_nvcc = build_libraries()
+    ptxas, warnings, sass, f32_sass = {}, {}, {}, {}
     tool = cuobjdump()
     for n in names:
         lib = build.library_path(n)
@@ -330,28 +352,34 @@ def phase_build(torch):
         text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                               timeout=300, check=True).stdout
         sass[n] = {op: sum(ln.count(op) for ln in text.splitlines()) for op in SASS_COUNTS}
-        if n == "flash_attn_fwd":   # B1's fp32 instances, each on its own
-            f32_sass = sass_by_function(text, "flash_fwd_tf32")
-    # the backward library's tiling against its Python mirror, per head dim
+        if n != "groupnorm":   # the fp32 instances of B1, B3 and B4, each on its own
+            f32_sass.update(sass_by_function(text, "_tf32"))
+    # the backward library's tilings against their Python mirrors, per head dim
     plans = {d: {k: (p.tile, p.stages, p.smem) for k, p in fa.bwd_plan(d).items()}
              for d in (40, 64, 80, 160)}
     lib_plans = {d: fa.library_bwd_plan(d) for d in plans}
+    bwd_f32_plans = {d: {k: (p.rows, p.cols, p.tile, p.stages, p.smem)
+                         for k, p in fa.bwd_f32_plan(d).items()} for d in F32_DIMS}
+    lib_bwd_f32_plans = {d: fa.library_bwd_f32_plan(d) for d in F32_DIMS}
     # and B1's fp32 (3xTF32) tiling, per instance
     f32_plans = {d: (lambda p: (p.rows, p.tile, p.stages, p.smem))(fa.fwd_f32_plan(d))
                  for d in F32_DIMS}
     lib_f32_plans = {d: fa.library_fwd_f32_plan(d) for d in F32_DIMS}
     emit({"phase": "build", "nvcc_s": {n: round(t, 2) for n, t in t_nvcc.items()},
-          "built_now": built_now, "sass_counts": sass, "fwd_f32_sass": f32_sass,
+          "built_now": built_now, "sass_counts": sass, "f32_sass": f32_sass,
           "ptxas": ptxas, "ptxas_warnings": warnings,
           "bwd_plan": {d: {k: list(v) for k, v in p.items()} for d, p in lib_plans.items()},
+          "bwd_f32_plan": {d: {k: list(v) for k, v in p.items()}
+                           for d, p in lib_bwd_f32_plans.items()},
           "fwd_f32_plan": {d: list(p) for d, p in lib_f32_plans.items()}})
     missing = {n: op for n, ops in SASS_WANT.items() for op in ops if sass[n][op] == 0}
     missing.update({fn: op for fn, counts in f32_sass.items() for op, c in counts.items()
                     if c == 0})
-    if missing or len(f32_sass) != len(F32_DIMS):
+    if missing or len(f32_sass) != 3 * len(F32_DIMS):
         raise AssertionError(f"the SASS lacks the instructions of its design: {missing} "
-                             f"({len(f32_sass)} of {len(F32_DIMS)} fp32 B1 instances found)")
-    for n, (sub, count) in NO_SPILLS.items():
+                             f"({len(f32_sass)} of {3 * len(F32_DIMS)} fp32 instances of "
+                             f"B1, B3 and B4 found)")
+    for n, sub, count in NO_SPILLS:
         checked = {k: v for k, v in ptxas[n].items() if sub in k}
         spills = {k: v for k, v in checked.items()
                   if v.get("spill_stores") or v.get("spill_loads")}
@@ -366,6 +394,9 @@ def phase_build(torch):
     if lib_f32_plans != f32_plans:
         raise AssertionError(f"the library's fp32 B1 tiling {lib_f32_plans} is not "
                              f"fwd_f32_plan's {f32_plans}")
+    if lib_bwd_f32_plans != bwd_f32_plans:
+        raise AssertionError(f"the library's fp32 B3/B4 tiling {lib_bwd_f32_plans} is not "
+                             f"bwd_f32_plan's {bwd_f32_plans}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -558,6 +589,7 @@ FLASH_SHAPES = [((2, 4096, 8, 40), "bfloat16"), ((4, 4096, 8, 40), "bfloat16"),
                 ((2, 4096, 8, 80), "bfloat16"), ((2, 4608, 8, 40), "bfloat16"),
                 ((1, 2048, 8, 160), "bfloat16"), ((2, 4096, 8, 40), "float32"),
                 ((1, 4096, 8, 40), "float32"),          # train_parity's batch
+                ((4, 4096, 8, 40), "float32"),          # the training CLI's default step
                 # the UNet's other self-attentions, which the routing rule sends
                 # to the plain path: B1 against it, for the crossover
                 ((2, 1024, 8, 80), "bfloat16"), ((2, 256, 8, 160), "bfloat16"),
@@ -565,7 +597,8 @@ FLASH_SHAPES = [((2, 4096, 8, 40), "bfloat16"), ((4, 4096, 8, 40), "bfloat16"),
                 ((2, 256, 8, 160), "float32")]
 FLASH_BWD_SHAPES = [((4, 4096, 8, 40), "bfloat16"), ((2, 4096, 8, 40), "bfloat16"),
                     ((2, 4608, 8, 40), "bfloat16"), ((1, 2048, 8, 160), "bfloat16"),
-                    ((2, 4096, 8, 40), "float32"), ((1, 4096, 8, 40), "float32")]
+                    ((4, 4096, 8, 40), "float32"), ((2, 4096, 8, 40), "float32"),
+                    ((1, 4096, 8, 40), "float32")]
 GN_SHAPES = [(2, 320, 64, 64), (4, 320, 64, 64), (2, 2560, 16, 16), (2, 1280, 8, 8),
              (1, 512, 64, 64), (1, 128, 512, 512), (4, 128, 512, 512)]
 
@@ -1416,6 +1449,82 @@ def phase_train_cli(torch, gpu_line: str, train_main_s_step: float, tmp: str) ->
     return cli_by_shape
 
 
+CLI_FP32_STEPS = 6                  # steps of the train_cli_fp32 phase
+FP32_TRAIN_KEY = ((TRAIN_BATCH, 4096, 8, 40), "float32")   # its level-0 self-attentions
+
+
+def phase_train_cli_fp32(torch, gpu_line: str, tmp: str) -> dict:
+    """The training CLI at its default `--mixed_precision no` on train_cli's
+    base folder and latent cache in `tmp` -> {(kernel, key): launches} over
+    its CLI_FP32_STEPS steps.  No checkpoint within the run (the CLI writes
+    its final one, deleted here) and no validation."""
+    from unittest import mock
+
+    from reflecting_reality_tpu_torch.cli import train as cli
+
+    t_phase = time.perf_counter()
+    out = os.path.join(tmp, "fp32_run")
+    argv = ["--pretrained_model_name_or_path", os.path.join(tmp, "base"),
+            "--train_data_dir", os.path.join(tmp, "data"), "--output_dir", out,
+            "--logging_dir", os.path.join(out, "logs"), "--train_batch_size", str(TRAIN_BATCH),
+            "--depth_conditioning_mode", "concat", "--learning_rate", "5e-6",
+            "--lr_warmup_steps", "0", "--precomputed_latents_dir", os.path.join(tmp, "cache"),
+            "--dataloader_num_workers", "4", "--log_every", "1", "--validation_steps", "0",
+            "--report_to", "none", "--seed", "0", "--max_train_steps", str(CLI_FP32_STEPS),
+            "--checkpointing_steps", str(10 * CLI_FP32_STEPS)]
+    seen = {}
+    real_load_models = cli.load_models
+
+    def load_models(args):
+        models = real_load_models(args)
+        seen["brushnet0"] = {k: v.detach().cpu().clone()
+                             for k, v in models[1].state_dict().items()}
+        seen["dtype"] = str(next(models[1].parameters()).dtype)
+        return models
+
+    with mock.patch.object(cli, "load_models", load_models):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        state = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched, by_shape = read_counters(), read_counters_by_shape()
+    peak = torch.cuda.max_memory_allocated()
+    moved = max((v.detach().cpu() - seen["brushnet0"][k]).abs().max().item()
+                for k, v in state.trainable["brushnet"].state_dict().items())
+    del state
+    torch.cuda.empty_cache()
+    rows = [r for r in read_metrics(out) if "loss" in r]
+    shutil.rmtree(out)
+    losses = [r["loss"] for r in rows]
+    timed = [r["s_per_step"] for r in rows if r["step"] >= 2]
+    per_step = {k: by_shape.get((k, FP32_TRAIN_KEY), 0) / CLI_FP32_STEPS
+                for k in ("flash", "flash_bwd_dq", "flash_bwd_dkv")}
+    res = {"phase": "train_cli_fp32", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}",
+           "batch": TRAIN_BATCH, "mixed_precision": "no (the default)",
+           "brushnet_dtype": seen["dtype"], "steps": CLI_FP32_STEPS,
+           "cli_s_per_step_median_steps_2_on": statistics.median(timed),
+           "cli_s_per_step_each": [round(r["s_per_step"], 4) for r in rows],
+           "cli_samples_per_s_median": TRAIN_BATCH / statistics.median(timed),
+           "max_memory_allocated_bytes": peak, "run_wall_s": wall, "losses": losses,
+           "brushnet_max_abs_change": moved, "launches": launched,
+           f"launches_per_step_at_{'x'.join(map(str, FP32_TRAIN_KEY[0]))}_fp32": per_step,
+           "phase_wall_s": time.perf_counter() - t_phase}
+    emit(res)
+    bad = []
+    if len(losses) != CLI_FP32_STEPS or not all(math.isfinite(x) for x in losses):
+        bad.append(f"losses {losses}")
+    if not moved > 0:
+        bad.append("BrushNet did not move")
+    if any(n != 5 for n in per_step.values()) or launched["groupnorm"] == 0:
+        bad.append(f"launches per step at {FP32_TRAIN_KEY}: {per_step} (want 5 each)")
+    if bad:
+        raise AssertionError(f"train_cli_fp32 failed: {bad}")
+    return by_shape
+
+
 # ---------------------------------------------------------------- phase 10
 
 CLI_SEEDS = 4                       # the test CLI's --num_images_per_validation default
@@ -1817,6 +1926,40 @@ def ab_main_path(other: str, blocks: int) -> None:
                                          for n in ("other", "this")}})
 
 
+def train_cli_fp32_alone() -> None:
+    """The train_cli_fp32 phase on its own: the libraries built, a base
+    folder and latent cache written to a tempfile dir, the phase's line."""
+    import torch
+
+    build_libraries()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        os.makedirs(os.path.join(tmp, "data"))
+        write_base_folder(torch, os.path.join(tmp, "base"))
+        write_latent_cache(os.path.join(tmp, "data"), os.path.join(tmp, "cache"), CLI_SAMPLES)
+        phase_train_cli_fp32(torch, nvidia_smi(), tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ab_train_cli_fp32(other: str, blocks: int) -> None:
+    """The train_cli_fp32 phase with the package of another checkout and
+    with this one in turns, each in a process of its own: `blocks` times
+    other, this, this, other; one `ab_train_cli_fp32` line."""
+    runs = []
+    order = [("other", other), ("this", ROOT), ("this", ROOT), ("other", other)] * blocks
+    for name, tree in order:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--train-cli-fp32", tree],
+                             capture_output=True, text=True, timeout=900, check=True).stdout
+        res = next(json.loads(ln) for ln in out.splitlines()
+                   if ln.startswith('{"phase": "train_cli_fp32"'))
+        runs.append({"tree": name, **{k: v for k, v in res.items() if k not in ("phase", "gpu")}})
+    emit({"phase": "ab_train_cli_fp32", "gpu": nvidia_smi(), "other": other, "runs": runs,
+          "median_s_per_step": {n: statistics.median(r["cli_s_per_step_median_steps_2_on"]
+                                                     for r in runs if r["tree"] == n)
+                                for n in ("other", "this")}})
+
+
 def main() -> int:
     import torch
 
@@ -1824,11 +1967,20 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a GPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    alone = sys.argv[1:2] == ["--train-cli-fp32"]
+    # the package of this checkout, or of the one --train-cli-fp32 names
+    sys.path.insert(0, os.path.abspath(sys.argv[2]) if alone and len(sys.argv) > 2 else ROOT)
     import reflecting_reality_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     if sys.argv[1:2] == ["--ab-main-path"]:
         ab_main_path(os.path.abspath(sys.argv[2]), int(sys.argv[3]) if len(sys.argv) > 3 else 1)
+        return 0
+    if alone:
+        train_cli_fp32_alone()
+        return 0
+    if sys.argv[1:2] == ["--ab-train-cli-fp32"]:
+        ab_train_cli_fp32(os.path.abspath(sys.argv[2]),
+                          int(sys.argv[3]) if len(sys.argv) > 3 else 1)
         return 0
     gpu_line = nvidia_smi()
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
@@ -1849,6 +2001,7 @@ def main() -> int:
         test_by_shape, sheets, data = phase_test_cli(torch, gpu_line, tmp, main_per_step,
                                                      entries)
         phase_evaluate(torch, gpu_line, tmp, sheets, data)
+        cli32_by_shape = phase_train_cli_fp32(torch, gpu_line, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_modes(torch, gpu_line)
@@ -1856,14 +2009,15 @@ def main() -> int:
     # each entry carries the launches of its own kernel, shape and dtype on
     # each path: the main path's 8-step call (and per denoise step), the
     # TRAIN_REPEATS timed training steps (and per training step), the
-    # training CLI's first run (8 steps) and the test CLI's bf16 8-step and
-    # fp32 4-step runs (2 rows of 4 seeds each), and train_parity's fp32 loss
-    # and backward
+    # training CLI's first run (8 steps), the test CLI's bf16 8-step and
+    # fp32 4-step runs (2 rows of 4 seeds each), train_parity's fp32 loss
+    # and backward, and the training CLI's default fp32 run
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     test_paths = {"test_cli_bf16_8_steps": test_by_shape["a_8_steps"],
                   "test_cli_fp32_4_steps": test_by_shape["b_fp32_4_steps"],
-                  "train_parity": parity_by_shape}
+                  "train_parity": parity_by_shape,
+                  f"train_cli_fp32_{CLI_FP32_STEPS}_steps": cli32_by_shape}
     rows = []
     for e in entries:
         row = {k: e.get(k) for k in keys if k != "launches"}

@@ -92,7 +92,8 @@ class MetricsCalculator:
                 SegmentPoints, load_cam_pose_map,
             )
 
-            self._segmenter = SegmentPoints(version="vit_h", checkpoint_folder=ckpt_path)
+            self._segmenter = SegmentPoints(version="vit_h", checkpoint_folder=ckpt_path,
+                                            device=self.device)
             self._cam_pose_map = load_cam_pose_map(data_dir)
 
     # ------------------------------------------------------------- primitives

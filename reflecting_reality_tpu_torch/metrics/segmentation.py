@@ -40,9 +40,11 @@ _SAM_FILES = {
 
 
 class SegmentPoints:
-    """Wraps segment_anything's SamPredictor (reference segment_reflection.py:12)."""
+    """Wraps segment_anything's SamPredictor (reference segment_reflection.py:12),
+    with the SAM model on `device` (the card by default, as every entry point
+    of the port)."""
 
-    def __init__(self, checkpoint_folder: str, version: str = "vit_h", device: str = "cpu"):
+    def __init__(self, checkpoint_folder: str, version: str = "vit_h", device: str = "cuda"):
         try:
             from segment_anything import SamPredictor, sam_model_registry
         except ImportError as e:
@@ -54,7 +56,7 @@ class SegmentPoints:
         if not os.path.exists(ckpt):
             raise FileNotFoundError(
                 f"SAM {name} checkpoint not found at {ckpt} (the port downloads nothing)")
-        self.predictor = SamPredictor(sam_model_registry[name](checkpoint=ckpt))
+        self.predictor = SamPredictor(sam_model_registry[name](checkpoint=ckpt).to(device))
 
     def set_image(self, image: np.ndarray) -> None:
         self.predictor.set_image(np.asarray(image))

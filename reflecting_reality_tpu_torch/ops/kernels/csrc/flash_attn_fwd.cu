@@ -394,9 +394,6 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
 
 // ---------------------------------------------------------------- fp32 path
 
-constexpr int F_SLAB = 8;                    // fp32 columns per 32-byte slab: one TF32 k step
-constexpr int XF_THREADS = WG_THREADS - 32;  // producer warps 1-3: the hi/lo split and V^T
-
 template <int DP>
 struct F32Cfg {
   static constexpr int NC = DP == 160 ? 1 : 2;  // consumer warpgroups
@@ -414,72 +411,6 @@ struct F32Cfg {
   // and V^T lo; the mbarriers; 1 KB of slack to align the base to 1 KB
   static constexpr int SMEM = 2 * Q_BYTES + 5 * STAGES * T_BYTES + 256 + 1024;
 };
-
-// x (n float4s) -> its TF32 hi in place and its lo into `lo`, one float4 a
-// thread at a time: the layout is kept, so TMA's swizzle holds for both.
-__device__ __forceinline__ void split_tile(unsigned char* x, unsigned char* lo, int n, int t) {
-  for (int i = t; i < n; i += XF_THREADS) {
-    const float4 v = reinterpret_cast<const float4*>(x)[i];
-    uint4 h, l;
-    hopper::tf32_split(v.x, h.x, l.x);
-    hopper::tf32_split(v.y, h.y, l.y);
-    hopper::tf32_split(v.z, h.z, l.z);
-    hopper::tf32_split(v.w, h.w, l.w);
-    reinterpret_cast<uint4*>(x)[i] = h;
-    reinterpret_cast<uint4*>(lo)[i] = l;
-  }
-}
-
-// The raw V tile (BN keys x DP columns in 8-column slabs, 32-byte swizzle, as
-// TMA wrote it) -> V^T hi and lo: per group of 8 keys one slab of DP rows
-// (head-dim columns) x 8 keys, K-major for O += P V, 32-byte swizzle.  Slot
-// s of a group holds key 2 * (s % 4) + s / 4: the order in which the S
-// accumulator hands P to the A fragment (`to_tf32_fragments`).  A thread
-// writes one 16-byte half (the even keys or the odd ones) of one row, so
-// eight neighbouring threads fill four whole rows: the stores meet no bank
-// conflicts (the scalar loads two-way, from two slabs).
-template <int DP, int BN>
-__device__ __forceinline__ void transpose_v(const unsigned char* v, unsigned char* th,
-                                            unsigned char* tl, int t) {
-  for (int u = t; u < 2 * DP * (BN / 8); u += XF_THREADS) {
-    const int par = u & 1, d = (u >> 1) % DP, kg = (u >> 1) / DP;
-    const unsigned char* col = v + (d / 8) * BN * SLAB_BYTES + (d % 4) * 4;
-    float x[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int j = kg * 8 + 2 * i + par;  // slot 4 * par + i
-      x[i] = *reinterpret_cast<const float*>(
-          col + j * SLAB_BYTES + ((((d % 8) >> 2) ^ ((j >> 2) & 1)) << 4));
-    }
-    uint4 h, l;
-    hopper::tf32_split(x[0], h.x, l.x);
-    hopper::tf32_split(x[1], h.y, l.y);
-    hopper::tf32_split(x[2], h.z, l.z);
-    hopper::tf32_split(x[3], h.w, l.w);
-    const int off = kg * DP * SLAB_BYTES + d * SLAB_BYTES + ((par ^ ((d >> 2) & 1)) << 4);
-    *reinterpret_cast<uint4*>(th + off) = h;
-    *reinterpret_cast<uint4*>(tl + off) = l;
-  }
-}
-
-// The S accumulator (64 x N, fp32, softmaxed to P) as TF32 A fragments of
-// O += P V, split into hi and lo.  K step kk covers accumulator columns
-// 8kk..8kk+7; thread (g, c) holds columns 2c and 2c+1 of rows g and g + 8,
-// and the fragment wants slots c and c + 4 of the same rows: slot c takes
-// key 2c and slot c + 4 key 2c + 1, so no value moves between threads and
-// V^T's slots are permuted to match (`transpose_v`).
-template <int N>
-__device__ __forceinline__ void to_tf32_fragments(uint32_t (&hi)[N / 8][4],
-                                                  uint32_t (&lo)[N / 8][4],
-                                                  const float (&c)[N / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 8; ++kk) {
-    hopper::tf32_split(c[4 * kk + 0], hi[kk][0], lo[kk][0]);  // row g, key 2c
-    hopper::tf32_split(c[4 * kk + 2], hi[kk][1], lo[kk][1]);  // row g + 8, key 2c
-    hopper::tf32_split(c[4 * kk + 1], hi[kk][2], lo[kk][2]);  // row g, key 2c + 1
-    hopper::tf32_split(c[4 * kk + 3], hi[kk][3], lo[kk][3]);  // row g + 8, key 2c + 1
-  }
-}
 
 // One consumer warpgroup of the fp32 kernel: its Q rows, the split K/V ring
 // and its softmax state.  Each product is three TF32 wgmma passes into one
@@ -536,18 +467,7 @@ struct F32Consumer : OnlineSoftmax<F32Cfg<DP>::BN> {
       for (int c = 0; c < C::NSLAB; ++c)
         hopper::wgmma_rs_tf32<BN>(s, q_hi[c], kmajor(k_hi + c * BN * SLAB_BYTES), 1);
     } else {
-#pragma unroll
-      for (int c = 0; c < C::NSLAB; ++c)
-        hopper::wgmma_ss_tf32<BN>(s, kmajor(qh + c * C::BM * SLAB_BYTES),
-                                  kmajor(k_lo + c * BN * SLAB_BYTES), c > 0);
-#pragma unroll
-      for (int c = 0; c < C::NSLAB; ++c)
-        hopper::wgmma_ss_tf32<BN>(s, kmajor(ql + c * C::BM * SLAB_BYTES),
-                                  kmajor(k_hi + c * BN * SLAB_BYTES), 1);
-#pragma unroll
-      for (int c = 0; c < C::NSLAB; ++c)
-        hopper::wgmma_ss_tf32<BN>(s, kmajor(qh + c * C::BM * SLAB_BYTES),
-                                  kmajor(k_hi + c * BN * SLAB_BYTES), 1);
+      issue_abt_tf32<DP, C::BM, BN>(s, qh, ql, k_hi, k_lo);
     }
     hopper::wgmma_commit();
   }
@@ -562,15 +482,7 @@ struct F32Consumer : OnlineSoftmax<F32Cfg<DP>::BN> {
     const unsigned char* v_lo = vtl + st * C::T_BYTES;
     hopper::fence_regs(pv);
     hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BN / 8; ++kk)
-      hopper::wgmma_rs_tf32<DP>(pv, p_lo[kk], kmajor(v_hi + kk * DP * SLAB_BYTES), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < BN / 8; ++kk)
-      hopper::wgmma_rs_tf32<DP>(pv, p_hi[kk], kmajor(v_lo + kk * DP * SLAB_BYTES), 1);
-#pragma unroll
-    for (int kk = 0; kk < BN / 8; ++kk)
-      hopper::wgmma_rs_tf32<DP>(pv, p_hi[kk], kmajor(v_hi + kk * DP * SLAB_BYTES), 1);
+    issue_ab_tf32<DP, BN>(pv, p_hi, p_lo, v_hi, v_lo, DP * SLAB_BYTES);
     hopper::wgmma_commit();
   }
 };
@@ -662,7 +574,7 @@ flash_fwd_tf32(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
         split_tile(kh + st * TB, kl + st * TB, BN * DP / 4, t);
         hopper::fence_proxy_async();
         hopper::mbar_arrive(k_ready + st);
-        transpose_v<DP, BN>(vr + st * TB, vth + st * TB, vtl + st * TB, t);
+        transpose_tile<DP, BN, false>(vr + st * TB, nullptr, vth + st * TB, vtl + st * TB, t);
         hopper::fence_proxy_async();
         hopper::mbar_arrive(v_ready + st);
       }

@@ -3,6 +3,7 @@
 // warp-specialised wgmma kernels (one producer and two consumer
 // warpgroups), the 16-column swizzled slabs their operands live in with
 // the two wgmma products over them, the accumulator -> A-fragment packing,
+// the fp32 instances' hi/lo split, transpose and three-pass TF32 products,
 // and the host helper that encodes the 4-D tensor map of one (B, T, H, D)
 // operand.
 #pragma once
@@ -84,6 +85,129 @@ __device__ __forceinline__ void issue_ab(float (&d)[DP / 2], const uint32_t (&a)
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
     hopper::wgmma_rs<DP>(d, a[kk], mnmajor(b + kk * 16 * SLAB_BYTES, K));
+}
+
+// ------------------------------------------------------ fp32 (3xTF32) pieces
+//
+// The fp32 instances of B1, B3 and B4 run on the TF32 tensor cores with
+// error-compensated products: each operand x is split into hi (x with its
+// low 13 mantissa bits cleared) and lo (x - hi, its own cleared), and each
+// product is three passes into one fp32 accumulator, the small terms first:
+// hi * lo, lo * hi, then hi * hi.  TF32 wgmma takes K-major operands only,
+// so an operand whose product runs over its rows is written transposed by
+// the producer warpgroup's warps 1-3.
+
+constexpr int F_SLAB = 8;                    // fp32 columns per 32-byte slab: one TF32 k step
+constexpr int XF_THREADS = WG_THREADS - 32;  // producer warps 1-3: hi/lo splits and transposes
+
+// x (n float4s) -> its TF32 hi in place and its lo into `lo`, one float4 a
+// thread at a time: the layout is kept, so TMA's swizzle holds for both.
+__device__ __forceinline__ void split_tile(unsigned char* x, unsigned char* lo, int n, int t) {
+  for (int i = t; i < n; i += XF_THREADS) {
+    const float4 v = reinterpret_cast<const float4*>(x)[i];
+    uint4 h, l;
+    hopper::tf32_split(v.x, h.x, l.x);
+    hopper::tf32_split(v.y, h.y, l.y);
+    hopper::tf32_split(v.z, h.z, l.z);
+    hopper::tf32_split(v.w, h.w, l.w);
+    reinterpret_cast<uint4*>(x)[i] = h;
+    reinterpret_cast<uint4*>(lo)[i] = l;
+  }
+}
+
+// A raw tile (BN rows x DP columns in 8-column slabs, 32-byte swizzle, as
+// TMA wrote it) -> its transpose, hi and lo: per group of 8 rows one slab of
+// DP rows (head-dim columns) x 8, K-major for a product over the tile's
+// rows, 32-byte swizzle.  Slot s of a group holds row 2 * (s % 4) + s / 4:
+// the order in which an accumulator hands its columns to the A fragment
+// (`to_tf32_fragments`).  A thread writes one 16-byte half (the even rows or
+// the odd ones) of one row, so eight neighbouring threads fill four whole
+// rows: the stores meet no bank conflicts (the scalar loads two-way, from
+// two slabs).  With SPLIT the raw tile is split as well, into hi (in place)
+// and lo (`vl`, the same layout): each raw value is read by one thread,
+// which writes it back as its hi.
+template <int DP, int BN, bool SPLIT>
+__device__ __forceinline__ void transpose_tile(unsigned char* v, unsigned char* vl,
+                                               unsigned char* th, unsigned char* tl, int t) {
+  for (int u = t; u < 2 * DP * (BN / 8); u += XF_THREADS) {
+    const int par = u & 1, d = (u >> 1) % DP, kg = (u >> 1) / DP;
+    const int col = (d / 8) * BN * SLAB_BYTES + (d % 4) * 4;
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = kg * 8 + 2 * i + par;  // slot 4 * par + i
+      const int off = col + j * SLAB_BYTES + ((((d % 8) >> 2) ^ ((j >> 2) & 1)) << 4);
+      hopper::tf32_split(*reinterpret_cast<const float*>(v + off), h[i], l[i]);
+      if constexpr (SPLIT) {
+        *reinterpret_cast<uint32_t*>(v + off) = h[i];
+        *reinterpret_cast<uint32_t*>(vl + off) = l[i];
+      }
+    }
+    const int off = kg * DP * SLAB_BYTES + d * SLAB_BYTES + ((par ^ ((d >> 2) & 1)) << 4);
+    *reinterpret_cast<uint4*>(th + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(tl + off) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// A 64 x N fp32 accumulator as TF32 A fragments (hi and lo) of a product
+// over its N columns.  K step kk covers columns 8kk..8kk+7; thread (g, c)
+// holds columns 2c and 2c+1 of rows g and g + 8, and the fragment wants
+// slots c and c + 4 of the same rows: slot c takes column 2c and slot c + 4
+// column 2c + 1, so no value moves between threads and the B operand's
+// slots are permuted to match (`transpose_tile`).
+template <int N>
+__device__ __forceinline__ void to_tf32_fragments(uint32_t (&hi)[N / 8][4],
+                                                  uint32_t (&lo)[N / 8][4],
+                                                  const float (&c)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    hopper::tf32_split(c[4 * kk + 0], hi[kk][0], lo[kk][0]);  // row g, column 2c
+    hopper::tf32_split(c[4 * kk + 2], hi[kk][1], lo[kk][1]);  // row g + 8, column 2c
+    hopper::tf32_split(c[4 * kk + 1], hi[kk][2], lo[kk][2]);  // row g, column 2c + 1
+    hopper::tf32_split(c[4 * kk + 3], hi[kk][3], lo[kk][3]);  // row g + 8, column 2c + 1
+  }
+}
+
+// d (64 x N) = A B^T over DP columns in three TF32 passes: A this
+// warpgroup's 64 rows of an M-row tile, B an N-row tile, each as hi and lo,
+// all K-major in 8-column slabs.  The first pass overwrites d.  Not
+// committed.
+template <int DP, int M, int N>
+__device__ __forceinline__ void issue_abt_tf32(float (&d)[N / 2], const unsigned char* ah,
+                                               const unsigned char* al, const unsigned char* bh,
+                                               const unsigned char* bl) {
+#pragma unroll
+  for (int c = 0; c < DP / F_SLAB; ++c)
+    hopper::wgmma_ss_tf32<N>(d, kmajor(ah + c * M * SLAB_BYTES), kmajor(bl + c * N * SLAB_BYTES),
+                             c > 0);
+#pragma unroll
+  for (int c = 0; c < DP / F_SLAB; ++c)
+    hopper::wgmma_ss_tf32<N>(d, kmajor(al + c * M * SLAB_BYTES), kmajor(bh + c * N * SLAB_BYTES),
+                             1);
+#pragma unroll
+  for (int c = 0; c < DP / F_SLAB; ++c)
+    hopper::wgmma_ss_tf32<N>(d, kmajor(ah + c * M * SLAB_BYTES), kmajor(bh + c * N * SLAB_BYTES),
+                             1);
+}
+
+// d (64 x N) = A B over K in three TF32 passes, a fresh accumulator (the
+// first pass overwrites d): A in registers (`to_tf32_fragments` of a 64 x K
+// accumulator), B transposed (`transpose_tile`), hi and lo, K / 8 slabs
+// `slab_bytes` apart of which the product reads N rows.  Not committed.
+template <int N, int K>
+__device__ __forceinline__ void issue_ab_tf32(float (&d)[N / 2], const uint32_t (&a_hi)[K / 8][4],
+                                              const uint32_t (&a_lo)[K / 8][4],
+                                              const unsigned char* bh, const unsigned char* bl,
+                                              int slab_bytes) {
+#pragma unroll
+  for (int kk = 0; kk < K / 8; ++kk)
+    hopper::wgmma_rs_tf32<N>(d, a_lo[kk], kmajor(bh + kk * slab_bytes), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < K / 8; ++kk)
+    hopper::wgmma_rs_tf32<N>(d, a_hi[kk], kmajor(bl + kk * slab_bytes), 1);
+#pragma unroll
+  for (int kk = 0; kk < K / 8; ++kk)
+    hopper::wgmma_rs_tf32<N>(d, a_hi[kk], kmajor(bh + kk * slab_bytes), 1);
 }
 
 // The dynamic shared memory base rounded up to 1 KB (every operand then

@@ -53,7 +53,14 @@ two-kernel split, so no atomics are needed and the result is deterministic.
 `bwd_plan` is each head-dim instance's tiling (tiles, stages, shared memory,
 wgmma widths, TMA boxes, register split), the mirror of the source's
 `DqCfg` / `DkvCfg` that the CPU tests check and `chip_smoke.py` holds
-against the library.
+against the library.  Their fp32 instances (the training CLI's default
+`--mixed_precision no`) carry B1's fp32 design over: 3xTF32 wgmma, the
+producer's warps 1-3 splitting each landed tile into hi and lo and writing
+the operand a product runs over the rows of transposed (K^T in B3, Q^T and
+dO^T in B4, rows permuted within groups of 8 so that the dS accumulator
+already is the A fragment), and a fresh accumulator each tile for dQ, dK
+and dV; 3 · 7 · 2·B·H·T²·D FLOP, 1.82 ms at (4, 4096, 8, 40) at 495
+TFLOP/s.  `bwd_f32_plan` mirrors their `DqF32Cfg` / `DkvF32Cfg`.
 
 `flash_attention_fwd`, `flash_attention_bwd_dq` and `flash_attention_bwd_dkv`
 are the wrappers: each checks device, dtype, shape and strides, raises on
@@ -213,6 +220,66 @@ def bwd_plan(d: int) -> Dict[str, BwdPlan]:
     return {"dq": dq, "dkv": dkv}
 
 
+class BwdF32Plan(NamedTuple):
+    """One fp32 head-dim instance of B3 ("dq") or B4 ("dkv"), as `DqF32Cfg`
+    / `DkvF32Cfg` in csrc/flash_attn_bwd.cu lay it out: `consumers`
+    warpgroups over `rows` rows a CTA owns (query rows in B3, keys in B4),
+    each owning `cols` output columns (B4 at DP >= 80: two warpgroups share
+    64 keys and split the columns), `tile` keys per streamed K/V tile (B3)
+    or queries per Q/dO tile (B4), `stages` in the ring, `smem` bytes of
+    dynamic shared memory, `ss_n` the N of the S and dP products (or their
+    transposes), `rs_n` the N of the dQ (or dK and dV) products, `boxes` the
+    TMA box rows of each operand (columns of lse and delta), `threads` and
+    `regs` (setmaxnreg; None: ptxas's own count) of the producer and the
+    consumer warpgroups."""
+    kernel: str
+    dp: int
+    consumers: int
+    rows: int
+    cols: int
+    tile: int
+    stages: int
+    smem: int
+    ss_n: int
+    rs_n: int
+    boxes: Dict[str, int]
+    threads: Tuple[int, int]
+    regs: Optional[Tuple[int, int]]
+
+
+def bwd_f32_plan(d: int) -> Dict[str, BwdF32Plan]:
+    """The tiling of B3's and B4's fp32 (3xTF32) instances for head dim d ->
+    {"dq": ..., "dkv": ...}; pure (no device).  Raises ValueError for a head
+    dim no instance takes."""
+    dp = padded_dim(d, _F32_DIMS)
+    if not dp:
+        raise ValueError(f"head dim {d} not taken (needs D % 8 == 0 and D <= {_MAX_D})")
+    slack = 256 + 1024                   # the mbarriers, and the 1 KB alignment of the base
+    # B3: Q and dO (hi, lo) of `rows` rows; per stage K, K lo, V, V lo, K^T hi and lo
+    nc = 1 if dp == 160 else 2           # S, dP, dS and dQ with its tile sum in registers
+    rows = 64 * nc
+    bn = {40: 32, 64: 32, 80: 16, 160: 8}[dp]
+    stages = 4 if dp == 40 else 2
+    dq = BwdF32Plan("dq", dp, nc, rows, dp, bn, stages,
+                    4 * rows * dp * 4 + 6 * stages * bn * dp * 4 + slack, bn, dp,
+                    {"q": rows, "do": rows, "k": bn, "v": bn}, (128, 128 * nc),
+                    (56, 224) if nc == 2 else None)
+    # B4: K and V (hi, lo); per stage Q, Q lo, dO, dO lo, Q^T and dO^T hi
+    # and lo, and lse and delta in 128-byte slots.  dK and dV of 64 keys
+    # with their tile sums fit a thread's registers up to DP = 64; above it
+    # the two warpgroups share 64 keys and split the columns.
+    split = 2 if dp >= 80 else 1
+    rows, cols = 128 // split, dp // split
+    bq = {40: 32, 64: 16, 80: 16, 160: 8}[dp]
+    stages = {40: 3, 64: 2, 80: 3, 160: 1}[dp]
+    slot = -(-bq * 4 // 128) * 128
+    dkv = BwdF32Plan("dkv", dp, 2, rows, cols, bq, stages,
+                     4 * rows * dp * 4 + stages * (8 * bq * dp * 4 + 2 * slot) + slack, bq, cols,
+                     {"k": rows, "v": rows, "q": bq, "do": bq, "lse": bq, "delta": bq},
+                     (128, 256), (56, 224))
+    return {"dq": dq, "dkv": dkv}
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     return_lse: bool = False):
     """Einsum attention over (B, T, H, D): fp32 logits and softmax, probs cast
@@ -267,6 +334,21 @@ def library_bwd_plan(d: int) -> Dict[str, Tuple[int, int, int]]:
     return plans
 
 
+def library_bwd_f32_plan(d: int) -> Dict[str, Tuple[int, int, int, int, int]]:
+    """(rows, cols, tile, stages, smem) of B3's and B4's fp32 instances for
+    head dim d as the built library lays them out, to hold `bwd_f32_plan`
+    against."""
+    fn = _bwd_lib().rr_flash_attn_bwd_f32_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    plans = {}
+    for code, kernel in enumerate(("dq", "dkv")):
+        _raise_on(fn(code, d, out), "flash_attn_bwd_f32_plan")
+        plans[kernel] = tuple(out)
+    return plans
+
+
 def library_fwd_f32_plan(d: int) -> Tuple[int, int, int, int]:
     """(rows, tile, stages, smem) of B1's fp32 instance for head dim d as the
     built library lays it out, to hold `fwd_f32_plan` against."""
@@ -284,11 +366,10 @@ def _strides(*xs: torch.Tensor):
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor,
-           who: str = "flash_attention_fwd", tma=(torch.bfloat16,)) -> None:
+           who: str = "flash_attention_fwd") -> None:
     """q (B, Tq, H, D), k and v (B, Tk, H, D), and any further tensors shaped
-    like q (dO), all on one CUDA device in one dtype with packed (H, D); for
-    the dtypes in `tma` (those whose kernel reads its operands through TMA)
-    a tensor map must take each of them."""
+    like q (dO), all on one CUDA device in one dtype with packed (H, D), each
+    one a TMA tensor map takes (every kernel reads its operands through TMA)."""
     if not all(x.is_cuda for x in (q, k, v) + more):
         raise ValueError(f"{who} takes CUDA tensors")
     if not all(x.device == q.device for x in (k, v) + more):
@@ -310,8 +391,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tenso
     for name, x in (("q", q), ("k", k), ("v", v)) + tuple(("dO", x) for x in more):
         if x.stride(3) != 1 or x.stride(2) != d:
             raise ValueError(f"{name} needs packed (H, D) dims, got strides {x.stride()}")
-        if q.dtype in tma:
-            tma_geometry(tuple(x.shape), x.stride(), x.data_ptr(), x.element_size())
+        tma_geometry(tuple(x.shape), x.stride(), x.data_ptr(), x.element_size())
 
 
 def _check_rows(q: torch.Tensor, *rows: torch.Tensor) -> None:
@@ -337,7 +417,7 @@ def _raise_on(err: int, name: str) -> None:
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel B1 on (B, T, H, D) CUDA tensors -> (out in q.dtype, lse fp32 (B·H, Tq))."""
-    _check(q, k, v, tma=(torch.bfloat16, torch.float32))
+    _check(q, k, v)
     b, tq, h, d = q.shape
     tk = k.shape[1]
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
@@ -388,8 +468,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, do, who="flash_attention_bwd_dkv")
     _check_rows(q, lse, delta)
     b, tq, h, d = q.shape
-    if q.dtype == torch.bfloat16:       # B4 reads lse and delta through TMA
-        lse, delta = _tma_rows(lse), _tma_rows(delta)
+    lse, delta = _tma_rows(lse), _tma_rows(delta)     # B4 reads them through TMA
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
     err = build.launch(

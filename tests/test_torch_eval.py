@@ -329,6 +329,32 @@ def test_segmentation_helpers_match_jax(tmp_path, monkeypatch):
         t_seg.SegmentPoints(checkpoint_folder=str(tmp_path / "ckpt"))
 
 
+def test_segmenter_follows_the_calculator_device(tmp_path, monkeypatch):
+    """The SAM model moves to the segmenter's device before SamPredictor
+    wraps it: the calculator hands over its own device, and the segmenter's
+    default is the card."""
+    moved = []
+
+    class Sam:
+        def to(self, device):
+            moved.append(str(device))
+            return self
+
+    fake = types.SimpleNamespace(SamPredictor=lambda model: ("predictor", model),
+                                 sam_model_registry={"vit_h": lambda checkpoint: Sam()})
+    monkeypatch.setitem(sys.modules, "segment_anything", fake)
+    (tmp_path / "ckpt").mkdir()
+    (tmp_path / "ckpt" / "sam_vit_h_4b8939.pth").write_bytes(b"")
+    cmap, _ = cam_pose_map_for((1.0, 2.0, 2.0))
+    with open(tmp_path / "cam_pose_map.json", "w") as f:
+        json.dump(cmap, f)
+    calc = t_calc.MetricsCalculator(["IoU"], data_dir=str(tmp_path),
+                                    ckpt_path=str(tmp_path / "ckpt"), device="cpu")
+    assert moved == ["cpu"] and calc._segmenter.predictor[0] == "predictor"
+    t_seg.SegmentPoints(checkpoint_folder=str(tmp_path / "ckpt"))
+    assert moved == ["cpu", "cuda"]
+
+
 # -------------------------------------------------------------- evaluate
 
 N_UIDS = 2

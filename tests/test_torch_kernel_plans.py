@@ -386,6 +386,36 @@ def tf32_mm(a, b, passes):
     return (np.matmul(ah, bl) + np.matmul(al, bh)) + np.matmul(ah, bh)
 
 
+def slot_order(n):
+    """The rows of a transposed operand (`transpose_tile`) for an n-column
+    accumulator: slot s of each group of 8 holds row 2 * (s % 4) + s // 4."""
+    return np.concatenate([8 * g + np.array([2 * (s % 4) + s // 4 for s in range(8)])
+                           for g in range(n // 8)])
+
+
+def a_fragment(acc, perm):
+    """The TF32 A fragment of a product over an accumulator's columns, built
+    from the accumulator's thread map: thread (g, c) holds columns 2c and
+    2c + 1 of each group of 8 and hands them to slots c and c + 4.  Checked
+    equal to the columns in `slot_order`."""
+    frag = np.empty_like(acc)
+    for n in range(acc.shape[-1] // 8):
+        for c in range(4):
+            frag[..., 8 * n + c] = acc[..., 8 * n + 2 * c]
+            frag[..., 8 * n + c + 4] = acc[..., 8 * n + 2 * c + 1]
+    assert np.array_equal(frag, acc[..., perm])
+    return frag
+
+
+def heads(x, rows, dp):
+    """(B, T, H, D) -> (B, H, rows, DP), zero-filled past T and D as TMA
+    gives them."""
+    b, t, h, d = x.shape
+    out = np.zeros((b, h, rows, dp), np.float32)
+    out[:, :, :t, :d] = x.transpose(0, 2, 1, 3)
+    return out
+
+
 def emulate_b1_f32(q, k, v, passes=3):
     """B1's fp32 instance in numpy over (B, T, H, D) fp32 -> (out, lse (B·H, Tq))."""
     b, tq, h, d = q.shape
@@ -394,17 +424,10 @@ def emulate_b1_f32(q, k, v, passes=3):
     bn, dp = plan.tile, plan.dp
     nt = -(-tk // bn)
 
-    def heads(x, rows):   # (B, H, rows, DP), zero-filled past T and D as TMA gives them
-        out = np.zeros((b, h, rows, dp), np.float32)
-        out[:, :, :x.shape[1], :d] = x.transpose(0, 2, 1, 3)
-        return out
-
-    qh = heads(q, -(-tq // plan.rows) * plan.rows)
-    kh, vh = heads(k, nt * bn), heads(v, nt * bn)
+    qh = heads(q, -(-tq // plan.rows) * plan.rows, dp)
+    kh, vh = heads(k, nt * bn, dp), heads(v, nt * bn, dp)
     scale_log2 = np.float32(np.log2(np.e) / np.sqrt(d))
-    # slot s of a group of 8 takes key 2 * (s % 4) + s // 4 (V^T's order)
-    perm = np.concatenate([8 * n + np.array([2 * (s % 4) + s // 4 for s in range(8)])
-                           for n in range(bn // 8)])
+    perm = slot_order(bn)
     m = np.full(qh.shape[:3], -np.inf, np.float32)
     l = np.zeros(qh.shape[:3], np.float32)
     acc = np.zeros(qh.shape, np.float32)
@@ -419,14 +442,7 @@ def emulate_b1_f32(q, k, v, passes=3):
         p = np.exp2(s * scale_log2 - mu[..., None])
         l = l * corr + p.sum(-1)
         m = m_new
-        # the A fragment from the accumulator as each thread (g, c) holds it:
-        # columns 2c and 2c + 1 of each group of 8 go to slots c and c + 4
-        frag = np.empty_like(p)
-        for n in range(bn // 8):
-            for c in range(4):
-                frag[..., 8 * n + c] = p[..., 8 * n + 2 * c]
-                frag[..., 8 * n + c + 4] = p[..., 8 * n + 2 * c + 1]
-        assert np.array_equal(frag, p[..., perm])
+        frag = a_fragment(p, perm)
         vt_perm = vt[:, :, perm]
         # keys past Tk stay masked after the permutation: p = 0, V rows zero
         assert not frag[..., masked[perm]].any() and not vt_perm[:, :, masked[perm]].any()
@@ -474,3 +490,168 @@ def test_one_tf32_pass_misses_the_fp32_tolerance(b, tq, tk, h, d):
     q, k, v, ref, _ = jax_flash_fwd(b, tq, tk, h, d, 0)
     out, _ = emulate_b1_f32(q, k, v, passes=1)
     assert np.abs(out - ref).max() > 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("d", range(8, 161, 8))
+def test_bwd_f32_plan_fits_the_card(d):
+    """B3's and B4's fp32 instances for every head dim the route sends them:
+    shared memory within a CTA's, wgmma widths and TMA boxes the card takes,
+    a register split within the SM's, and what a consumer thread holds in
+    registers at once (S and dP, the hi/lo fragments, each output's sum and
+    the tile's fresh accumulator) within its setmaxnreg."""
+    plans = fa.bwd_f32_plan(d)
+    for kernel, p in plans.items():
+        assert p.kernel == kernel and p.dp == fa.padded_dim(d, fa._F32_DIMS) >= d
+        assert p.smem <= fa.SMEM_MAX, (kernel, p.smem)
+        for n in (p.ss_n, p.rs_n):                # wgmma takes M = 64 and N = 8, 16, ..., 256
+            assert n % 8 == 0 and 8 <= n <= 256, (kernel, n)
+        assert p.tile % 8 == 0 and p.ss_n == p.tile and p.rs_n == p.cols
+        assert p.dp % p.cols == 0 and p.rows * p.dp // p.cols == 64 * p.consumers
+        assert p.threads == (128, 128 * p.consumers)
+        if p.regs is None:
+            assert sum(p.threads) * 255 <= 65536
+        else:
+            assert all(24 <= r <= 256 and r % 8 == 0 for r in p.regs)
+            assert sum(t * r for t, r in zip(p.threads, p.regs)) == sum(p.threads) * 168
+        assert all(0 < rows <= 256 for rows in p.boxes.values())
+        assert p.boxes["lse" if kernel == "dkv" else "k"] * 4 % 16 == 0
+    dq, dkv = plans["dq"], plans["dkv"]
+    # B3 runs tile j - 1's dQ product behind tile j's S and dP, so tile j
+    # needs a stage of its own; B4 does the same with two stages or more
+    assert dq.stages >= 2 and dq.cols == dq.dp and dkv.stages >= 1
+    # registers a consumer thread holds (64 x N fp32 accumulators are N / 2
+    # each, hi/lo fragments of 64 x N are N): S, dP and dS's fragments with
+    # dQ and its tile sum in B3; S^T, dP^T, two pairs of fragments, dK, dV
+    # and their tile sums in B4; with room for addresses and indices
+    assert dq.tile + dq.tile + dq.dp <= (200 if dq.regs else 232)
+    assert dkv.tile + 2 * dkv.tile + 2 * dkv.cols <= 200
+    b, t, h = 1, 256, 2
+    qkv = torch.zeros(b, t, 3 * h * d, dtype=torch.float32)
+    do = torch.zeros(b, t, 2 * h * d)[..., :h * d].unflatten(-1, (h, d))
+    ops = dict(zip(("q", "k", "v"), (x.view(b, t, h, d) for x in qkv.split(h * d, -1))), do=do)
+    for p in plans.values():
+        for name, x in ops.items():
+            geo = tma_geometry(tuple(x.shape), x.stride(), x.data_ptr(), 4, rows=p.boxes[name])
+            assert geo["box"] == (8, 1, p.boxes[name], 1)
+
+
+@pytest.mark.parametrize("d", [0, 36, 168, 256])
+def test_bwd_f32_plan_raises_for_a_head_dim_no_instance_takes(d):
+    with pytest.raises(ValueError, match="head dim"):
+        fa.bwd_f32_plan(d)
+
+
+def emulate_b3_f32(q, k, v, do, lse, delta, passes=3):
+    """B3's fp32 instance in numpy over (B, T, H, D) fp32 with lse and delta
+    (B·H, Tq) -> dq: three passes a product, p from lse in the log2 domain,
+    keys past Tk masked to p = 0, dS as the A fragment against K^T's
+    permuted slots, a fresh accumulator each tile added to dQ."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    plan = fa.bwd_f32_plan(d)["dq"]
+    bn, dp = plan.tile, plan.dp
+    nt, rows = -(-tk // bn), -(-tq // plan.rows) * plan.rows
+    qh, doh = heads(q, rows, dp), heads(do, rows, dp)
+    kh, vh = heads(k, nt * bn, dp), heads(v, nt * bn, dp)
+
+    def per_row(x):          # (B·H, Tq) -> (B, H, rows, 1), rows past Tq read 0
+        out = np.zeros((b, h, rows, 1), np.float32)
+        out[:, :, :tq, 0] = x.reshape(b, h, tq)
+        return out
+
+    lse2, dlt = per_row(lse) * np.float32(np.log2(np.e)), per_row(delta)
+    scale = np.float32(1 / np.sqrt(d))
+    scale_log2 = np.float32(np.log2(np.e)) * scale
+    perm = slot_order(bn)
+    acc = np.zeros(qh.shape, np.float32)
+    for j in range(nt):
+        kt, vt = kh[:, :, j * bn:(j + 1) * bn], vh[:, :, j * bn:(j + 1) * bn]
+        s = tf32_mm(qh, kt.transpose(0, 1, 3, 2), passes)
+        dpm = tf32_mm(doh, vt.transpose(0, 1, 3, 2), passes)
+        p = np.exp2(s * scale_log2 - lse2)
+        masked = j * bn + np.arange(bn) >= tk
+        p[..., masked] = 0
+        ds = p * (dpm - dlt)
+        kt_perm = kt[:, :, perm]
+        frag = a_fragment(ds, perm)
+        # keys past Tk stay masked after the permutation: dS = 0, K^T slots zero
+        assert not frag[..., masked[perm]].any() and not kt_perm[:, :, masked[perm]].any()
+        acc += tf32_mm(frag, kt_perm, passes)
+    return (acc * scale)[:, :, :tq, :d].transpose(0, 2, 1, 3)
+
+
+def emulate_b4_f32(q, k, v, do, lse, delta, passes=3):
+    """B4's fp32 instance in numpy -> (dk, dv): S^T and dP^T per query tile,
+    queries past Tq as TMA gives them (zeros, lse = delta = 0: p = 1 and dS
+    = 0 exactly, adding exactly nothing), p^T and dS^T as A fragments against
+    dO^T's and Q^T's permuted slots, each consumer's columns (`cols`) in its
+    own fresh accumulator a tile."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    plan = fa.bwd_f32_plan(d)["dkv"]
+    bq, dp = plan.tile, plan.dp
+    nt, rows = -(-tq // bq), -(-tk // plan.rows) * plan.rows
+    kh, vh = heads(k, rows, dp), heads(v, rows, dp)
+    qh, doh = heads(q, nt * bq, dp), heads(do, nt * bq, dp)
+
+    def per_col(x):          # (B·H, Tq) -> (B, H, 1, nt·bq), zero past Tq
+        out = np.zeros((b, h, 1, nt * bq), np.float32)
+        out[:, :, 0, :tq] = x.reshape(b, h, tq)
+        return out
+
+    lse2, dlt = per_col(lse) * np.float32(np.log2(np.e)), per_col(delta)
+    scale = np.float32(1 / np.sqrt(d))
+    scale_log2 = np.float32(np.log2(np.e)) * scale
+    perm = slot_order(bq)
+    dk, dv = np.zeros(kh.shape, np.float32), np.zeros(kh.shape, np.float32)
+    for j in range(nt):
+        cols = slice(j * bq, (j + 1) * bq)
+        qt, ot = qh[:, :, cols], doh[:, :, cols]
+        pt = np.exp2(tf32_mm(kh, qt.transpose(0, 1, 3, 2), passes) * scale_log2 - lse2[..., cols])
+        dst = pt * (tf32_mm(vh, ot.transpose(0, 1, 3, 2), passes) - dlt[..., cols])
+        tail = j * bq + np.arange(bq) >= tq
+        assert (pt[..., tail] == 1).all() and (dst[..., tail] == 0).all()
+        qt_perm, ot_perm = qt[:, :, perm], ot[:, :, perm]
+        fp, fds = a_fragment(pt, perm), a_fragment(dst, perm)
+        assert not qt_perm[:, :, tail[perm]].any() and not ot_perm[:, :, tail[perm]].any()
+        for c0 in range(0, dp, plan.cols):
+            part = slice(c0, c0 + plan.cols)
+            dv[..., part] += tf32_mm(fp, ot_perm[..., part], passes)
+            dk[..., part] += tf32_mm(fds, qt_perm[..., part], passes)
+    return tuple(x[:, :, :tk, :d].transpose(0, 2, 1, 3) for x in (dk * scale, dv))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_flash_bwd(b, tq, tk, h, d, seed):
+    """Seeded randn dO beside `jax_flash_fwd`'s inputs, delta = rowsum(dO∘O),
+    and the JAX Pallas backward kernels' (dq, dk, dv) in TPU interpret mode."""
+    q, k, v, out, lse = jax_flash_fwd(b, tq, tk, h, d, seed)
+    do = np.random.RandomState(seed + 1).randn(b, tq, h, d).astype(np.float32)
+
+    def fold(x):
+        x = jnp.swapaxes(jnp.asarray(x), 1, 2).reshape(b * h, x.shape[1], d)
+        return j_fa._pad_head_dim(x)[0]
+
+    lse3 = jnp.broadcast_to(jnp.asarray(lse)[:, :, None], (b * h, tq, 128))
+    with pltpu.force_tpu_interpret_mode():
+        grads = j_fa._flash_bwd(fold(q), fold(k), fold(v), fold(out), lse3, fold(do),
+                                float(1 / np.sqrt(d)), 128, 128)
+    grads = [np.asarray(g)[:, :, :d].reshape(b, h, -1, d).transpose(0, 2, 1, 3) for g in grads]
+    delta = (do * out).sum(-1).transpose(0, 2, 1).reshape(b * h, tq).astype(np.float32)
+    return q, k, v, do, lse, delta, grads
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("b,tq,tk,h,d", EMULATION_SHAPES)
+def test_bwd_f32_kernel_emulation_matches_jax_flash(b, tq, tk, h, d, passes):
+    """Three passes a product meet 1e-4 of each gradient's max against the
+    Pallas backward; one TF32 pass on the same inputs does not, which is why
+    the kernels take three."""
+    q, k, v, do, lse, delta, ref = jax_flash_bwd(b, tq, tk, h, d, 0)
+    got = (emulate_b3_f32(q, k, v, do, lse, delta, passes),
+           *emulate_b4_f32(q, k, v, do, lse, delta, passes))
+    errs = [np.abs(a - r).max() / np.abs(r).max() for a, r in zip(got, ref)]
+    if passes == 3:
+        assert max(errs) <= 1e-4, errs
+    else:
+        assert min(errs) > 1e-4, errs

@@ -149,6 +149,11 @@ def _bwd(q, k, v, do):
     ((1, 72, 1, 64), torch.bfloat16),
     ((1, 2056, 2, 40), torch.float32),
     ((1, 2048, 1, 160), torch.float32),
+    ((2, 4096, 8, 40), torch.float32),
+    ((4, 4096, 8, 40), torch.float32),      # the training CLI's default step
+    ((1, 2048, 2, 64), torch.float32),
+    ((1, 2048, 2, 80), torch.float32),      # B4: two warpgroups split the columns
+    ((1, 2056, 1, 152), torch.float32),     # D = 160 instance, ragged rows and columns
 ])
 def test_flash_bwd_matches_plain(cuda, shape, dtype):
     q, k, v, do = _randn(cuda, shape, dtype)
@@ -170,6 +175,8 @@ def test_flash_bwd_matches_plain(cuda, shape, dtype):
     (2048, 1000, 40, torch.bfloat16),
     (200, 3000, 160, torch.bfloat16),
     (301, 517, 64, torch.float32),
+    (2048, 1000, 40, torch.float32),
+    (200, 3000, 160, torch.float32),
 ])
 def test_flash_bwd_unequal_lengths(cuda, tq, tk, d, dtype):
     """Tq != Tk: query tails in B3's CTAs and B4's tiles, key tails the other way."""
@@ -182,11 +189,12 @@ def test_flash_bwd_unequal_lengths(cuda, tq, tk, d, dtype):
         assert_flash_close(a, r, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(2, 4096, 8, 40), (1, 2056, 2, 152), (1, 2048, 2, 80)])
-def test_flash_bwd_is_deterministic(cuda, shape):
+def test_flash_bwd_is_deterministic(cuda, shape, dtype):
     """Each output element is summed by one CTA in a fixed order, so two
     launches on the same inputs give the same bits."""
-    q, k, v, do = _randn(cuda, shape, torch.bfloat16, seed=5)
+    q, k, v, do = _randn(cuda, shape, dtype, seed=5)
     out, lse = fa.flash_attention_fwd(q, k, v)
     delta = fa.flash_attention_delta(out, do)
     first = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
@@ -203,18 +211,26 @@ def test_bwd_plan_is_the_library_tiling(cuda):
         assert fa.library_bwd_plan(d) == {k: (p.tile, p.stages, p.smem) for k, p in plan.items()}
 
 
-def test_flash_bwd_reads_strided_slices(cuda):
+def test_bwd_f32_plan_is_the_library_tiling(cuda):
+    for d in (8, 40, 48, 64, 72, 80, 88, 152, 160):
+        plan = fa.bwd_f32_plan(d)
+        assert fa.library_bwd_f32_plan(d) == {
+            k: (p.rows, p.cols, p.tile, p.stages, p.smem) for k, p in plan.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_reads_strided_slices(cuda, dtype):
     """q/k/v as column slices of one fused qkv projection and dO as a column
     slice of a wider tensor, all read in place."""
     b, t, h, d = 2, 2048, 4, 40
-    qkv = torch.randn(b, t, 3 * h * d, device=cuda, dtype=torch.bfloat16)
+    qkv = torch.randn(b, t, 3 * h * d, device=cuda, dtype=dtype)
     q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
-    do = torch.randn(b, t, 2 * h * d, device=cuda, dtype=torch.bfloat16)[..., :h * d]
+    do = torch.randn(b, t, 2 * h * d, device=cuda, dtype=dtype)[..., :h * d]
     do = do.unflatten(-1, (h, d))
     assert not do.is_contiguous() and not q.is_contiguous()
     got, ref = _bwd(q, k, v, do)
     for a, r in zip(got, ref):
-        assert_flash_close(a, r, torch.bfloat16)
+        assert_flash_close(a, r, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
