@@ -124,19 +124,53 @@ Phases, each printing one JSON line:
              Checks: finite losses, BrushNet moved, B1/B3/B4 each launched 5
              times a step at (4, 4096, 8, 40) fp32.  Prints s/step (median of
              steps 2-6), samples/s, peak memory and the launches.
- 13. modes   a full-width 512² bf16 pipeline call, 4 steps, depth `latents`
+ 13. ip_adapter  the normals ip_adapter mode at full width, 512²: the
+             pipeline (depth concat + the mean normal's token; IP UNet and
+             NormalProjModel from a seed) in bf16, CFG 7.5, UniPC, 4- and
+             8-step calls in turns (IP_REPEATS each; s/step, s/image, peak
+             memory, B1 40 launches in 8 steps), another normal must change
+             the image, one fp32 step card vs CPU; then the training CLI in
+             ip mode at its default fp32 from the base folder and a latent
+             cache with normals: batch 4, IP_TRAIN_STEPS steps with a
+             checkpoint at the end (unet/ and ip_adapter/normal_proj), a
+             resume to +2.  Checks: every non-IP UNet weight bit-identical
+             to the base folder, every to_k_ip/to_v_ip moved, B1/B3/B4 5/5/5
+             a step at (4, 4096, 8, 40) fp32, finite losses.
+ 14. serve   `cli/serve.py` as started by a user (its parser and
+             `build_pipeline` on the base folder and checkpoint-8's
+             BrushNet, bf16, `--max_batch 4`, `warmup` at 512²) behind its
+             HTTP handler on 127.0.0.1 in a thread: /healthz (the card's
+             name), one solo request, then SERVE_REQUESTS concurrent ones at
+             SERVE_STEPS steps (PNG inputs, a 16-bit depth PNG): latency p50
+             and p95, images/s, the batches formed; the solo reply within 1
+             uint8 level of a direct pipeline call on the same payload; B1
+             and B2 launched.
+ 15. modes   a full-width 512² bf16 pipeline call, 4 steps, depth `latents`
              + normals `concat` (BrushNet with 12 conditioning channels):
              a finite, non-constant uint8 image, B1 20 launches; then fp32
              depth `concat` + normals `latents`, one denoise step, TF32 off,
-             the card against the CPU at slice parity's tolerance.
-Then `kernels_detail` (every measured kernel and shape with the launches
-each path gave that shape: the main path's 8-step call, the timed training
-steps, the CLI's first 8 steps, the test CLI's bf16 8-step and fp32
-4-step runs, train_parity's fp32 step and the fp32 CLI's 6 steps, 0 where
-none), the `{"kernels": [...]}`
-summary line (the
-kernels and shapes the paths launched), the nvidia-smi name/power-limit
-line, and last `{"ok": true, "device": {...}}`.  Any failed check raises and
+             the card against the CPU at slice parity's tolerance (the
+             normals drawn from their own seed).
+ 16. approx  the main path (bf16, 512², 4 and 8 steps in turns) exact, with
+             DeepCache every 3 steps and with encoder reuse every 3 steps in
+             one process: s/step and s/image of each beside the exact
+             path's, each 8-step image's mean and max uint8 difference from
+             the exact one, B1 launches (40, 40, 30 in 8 steps); then
+             `tiled_decode` of a 128x128 latent (a 1024² image) against the
+             plain decode: seconds, peak memory above the inputs, max and
+             mean difference, the tiled decode's launches.
+Then `kernels_late` (any kernel shape a path launched that phase 3 did not
+list, measured and checked against its plain version now), `kernels_detail`
+(every measured kernel and shape with the launches each path gave that
+shape: the main path's 8-step call, the timed training steps, the CLI's
+first 8 steps, the test CLI's bf16 8-step and fp32 4-step runs,
+train_parity's fp32 step, the fp32 CLI's 6 steps, the ip pipeline's 8-step
+call, the ip training CLI's first run, the served requests, the modes
+phase's bf16 call, the cached modes' 8-step calls and the tiled decode, 0
+where none; the run fails if a path launched a shape with no entry), the
+`{"kernels": [...]}` summary line (the kernels and shapes the paths
+launched), the run's seconds, the nvidia-smi name/power-limit line, and
+last `{"ok": true, "device": {...}}`.  Any failed check raises and
 the script exits non-zero; without a CUDA device it exits non-zero at once.
 Weights are random, made from a seed.
 """
@@ -158,6 +192,7 @@ import sys
 import tempfile
 import time
 
+T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 MAIN_REPEATS = 5                    # timed 4- and 8-step calls of each count
@@ -586,6 +621,7 @@ def bench_groupnorm(torch, shape, dtype, silu) -> dict:
 
 FLASH_SHAPES = [((2, 4096, 8, 40), "bfloat16"), ((4, 4096, 8, 40), "bfloat16"),
                 ((8, 4096, 8, 40), "bfloat16"),         # the test CLI's 4 batched seeds
+                ((6, 4096, 8, 40), "bfloat16"),         # the server's batch of 3
                 ((2, 4096, 8, 80), "bfloat16"), ((2, 4608, 8, 40), "bfloat16"),
                 ((1, 2048, 8, 160), "bfloat16"), ((2, 4096, 8, 40), "float32"),
                 ((1, 4096, 8, 40), "float32"),          # train_parity's batch
@@ -642,35 +678,48 @@ def main_path_groupnorms(torch):
     return Counter(seen[:step]), Counter(seen[step:])
 
 
-def phase_kernels(torch):
+def kernel_entries(torch, kern: str, key: tuple) -> list:
+    """The measured entries of one (kernel, shape key) as the wrappers count
+    it, each checked against its plain version; B3's and B4's shapes give
+    both backward entries."""
     from reflecting_reality_tpu_torch.ops.kernels import flash_attention as fa
     from reflecting_reality_tpu_torch.ops.kernels import groupnorm as gn
 
-    entries = []
-    for shape, dt in FLASH_SHAPES:
-        e = bench_flash(torch, shape, getattr(torch, dt))
-        e.update(kernel="flash", route="cuda", source=fa.SOURCE, replaces=fa.REPLACES)
-        entries.append(e)
-    for shape, dt in FLASH_BWD_SHAPES:
-        for e, replaces in zip(bench_flash_bwd(torch, shape, getattr(torch, dt)),
-                               (fa.DQ_REPLACES, fa.DKV_REPLACES)):
+    shape, dt = key[0], getattr(torch, key[1])
+    if kern == "flash":
+        entries = [bench_flash(torch, shape, dt)]
+        entries[0].update(kernel="flash", route="cuda", source=fa.SOURCE, replaces=fa.REPLACES)
+    elif kern == "groupnorm":
+        entries = [bench_groupnorm(torch, shape, dt, key[2])]
+        entries[0].update(kernel="groupnorm", route="cuda", source=gn.SOURCE,
+                          replaces=gn.REPLACES)
+    else:
+        entries = bench_flash_bwd(torch, shape, dt)
+        for e, replaces in zip(entries, (fa.DQ_REPLACES, fa.DKV_REPLACES)):
             e.update(kernel=e["key"][0], route="cuda", source=fa.BWD_SOURCE, replaces=replaces)
-            entries.append(e)
-    gn_cases = {(shape, dt, silu) for shape in GN_SHAPES for dt in (torch.bfloat16, torch.float32)
-                for silu in (False, True)}
-    step_norms, vae_norms = main_path_groupnorms(torch)
-    gn_cases |= {(shape, torch.bfloat16, silu) for shape, silu in step_norms}
-    # the test CLI: bf16 at 4 batched seeds (the step's and the decoder's
-    # batches times 4), and fp32 at the main path's batches
-    gn_cases |= {((shape[0] * CLI_SEEDS,) + shape[1:], torch.bfloat16, silu)
-                 for shape, silu in step_norms + vae_norms}
-    gn_cases |= {(shape, torch.float32, silu) for shape, silu in step_norms + vae_norms}
-    for shape, dt, silu in sorted(gn_cases, key=str):
-        e = bench_groupnorm(torch, shape, dt, silu)
-        e.update(kernel="groupnorm", route="cuda", source=gn.SOURCE, replaces=gn.REPLACES)
-        entries.append(e)
     for e in entries:
         check(e)
+    return entries
+
+
+def phase_kernels(torch):
+    keys = [("flash", (shape, dt)) for shape, dt in FLASH_SHAPES]
+    keys += [("flash_bwd", (shape, dt)) for shape, dt in FLASH_BWD_SHAPES]
+    gn_cases = {(shape, dt, silu) for shape in GN_SHAPES for dt in ("bfloat16", "float32")
+                for silu in (False, True)}
+    step_norms, vae_norms = main_path_groupnorms(torch)
+    # bf16 at every batch of 1 to 4 prompts (the step's and the VAE's batches
+    # times k): the main path's 1, the server's batches at --max_batch 4, the
+    # test CLI's 4 batched seeds, the training step's batch; fp32 at the main
+    # path's batches and the step's at the training batch
+    ks = range(1, max(CLI_SEEDS, SERVE_MAX_BATCH, TRAIN_BATCH) + 1)
+    gn_cases |= {((shape[0] * k,) + shape[1:], "bfloat16", silu)
+                 for shape, silu in step_norms + vae_norms for k in ks}
+    gn_cases |= {(shape, "float32", silu) for shape, silu in step_norms + vae_norms}
+    gn_cases |= {((shape[0] * k,) + shape[1:], "float32", silu)
+                 for shape, silu in step_norms for k in range(1, TRAIN_BATCH + 1)}
+    keys += [("groupnorm", case) for case in sorted(gn_cases, key=str)]
+    entries = [e for kern, key in keys for e in kernel_entries(torch, kern, key)]
     emit({"phase": "kernels", "checked": len(entries), "all_within_tolerance": True})
     return entries
 
@@ -1138,9 +1187,10 @@ def write_base_folder(torch, base: str) -> dict:
     return took
 
 
-def write_latent_cache(data: str, cache: str, n: int) -> None:
+def write_latent_cache(data: str, cache: str, n: int, ip_normals: bool = False) -> None:
     """`n` samples at CLI_PX² in the precompute tool's .npz layout, fp16
-    moments, and a train.csv written with `csv`."""
+    moments, and a train.csv written with `csv`; with `ip_normals` each
+    sample also holds its (1, 3) unit mean mirror normal (ip_adapter mode)."""
     import csv
 
     import numpy as np
@@ -1164,9 +1214,13 @@ def write_latent_cache(data: str, cache: str, n: int) -> None:
     mask = np.zeros((hl, hl, 1), np.float32)
     mask[hl // 4: 3 * hl // 4, hl // 3: 2 * hl // 3] = 1.0
     for i, row in enumerate(rows):
+        extra = {}
+        if ip_normals:
+            v = rng.standard_normal((1, 3))
+            extra["normals"] = (v / np.linalg.norm(v)).astype(np.float32)
         np.savez(os.path.join(cache, cache_name(row, i)), latent_moments=moments(),
                  cond_latent_moments=moments(), masks=mask,
-                 depths=rng.uniform(-1.0, 1.0, (hl, hl, 1)).astype(np.float32))
+                 depths=rng.uniform(-1.0, 1.0, (hl, hl, 1)).astype(np.float32), **extra)
 
 
 def read_metrics(out: str) -> list:
@@ -1799,45 +1853,22 @@ def phase_evaluate(torch, gpu_line: str, tmp: str, sheets_dir: str, data: str) -
                              f"{res['avg']} vs {want_avg}")
 
 
-def phase_modes(torch, gpu_line: str) -> None:
+def phase_modes(torch, gpu_line: str) -> dict:
     """The pipeline's other conditioning modes at full width, 512²: bf16
     depth `latents` + normals `concat` (BrushNet with 12 conditioning
     channels), 4 steps; then fp32 depth `concat` + normals `latents`, one
-    denoise step (slice_parity's depth), the card against the CPU."""
+    denoise step (slice_parity's depth), the card against the CPU
+    -> {path: {(kernel, key): launches}}."""
     import numpy as np
 
-    from reflecting_reality_tpu_torch.cli.train import conditioning_channels_for
-    from reflecting_reality_tpu_torch.data.tokenizer import HashTokenizer
-    from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
-    from reflecting_reality_tpu_torch.models.clip_text import CLIPTextModel
-    from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
-    from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
     from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
         StableDiffusionBrushNetPipeline,
     )
 
     t_phase = time.perf_counter()
-    rng = np.random.RandomState(SEED + 5)
-    mask = np.zeros((CLI_PX, CLI_PX, 3), np.float32)
-    mask[128:384, 160:352] = 1.0
-    kw = dict(prompt="a photo of a mirror on the wall",
-              image=rng.rand(CLI_PX, CLI_PX, 3).astype(np.float32), mask=mask,
-              depth=rng.rand(CLI_PX, CLI_PX, 1).astype(np.float32),
-              normals=rng.rand(CLI_PX, CLI_PX, 3).astype(np.float32), guidance_scale=7.5,
-              seed=SEED)
-
-    def modules(depth_mode, normals_mode):
-        torch.manual_seed(SEED)
-        with torch.device("cuda"):
-            unet, vae, text = UNet2DConditionModel(), AutoencoderKL(), CLIPTextModel()
-            brushnet = BrushNetModel(
-                conditioning_channels=conditioning_channels_for(depth_mode, normals_mode))
-        fill_zero_convs(torch, brushnet, SEED, 0.02)
-        return dict(vae=vae, text_encoder=text, unet=unet, brushnet=brushnet,
-                    tokenizer=HashTokenizer(vocab_size=49408), depth_conditioning_mode=depth_mode,
-                    normals_conditioning_mode=normals_mode)
-
-    mods = modules("latents", "concat")
+    kw = pipeline_inputs(SEED + 5)
+    kw["normals"] = np.random.RandomState(SEED + 6).rand(CLI_PX, CLI_PX, 3).astype(np.float32)
+    mods = full_width_modules(torch, "latents", "concat")
     channels = mods["brushnet"].conditioning_channels
     pipe = StableDiffusionBrushNetPipeline(**mods, dtype=torch.bfloat16, device="cuda")
     reset_counters()
@@ -1846,39 +1877,20 @@ def phase_modes(torch, gpu_line: str) -> None:
     torch.cuda.synchronize()
     bf16 = {"depth": "latents", "normals": "concat", "conditioning_channels": channels,
             "s_4_steps": time.perf_counter() - t0, "launches": read_counters(),
+            "by_shape": read_counters_by_shape(),
             "shape": list(out.shape), "dtype": str(out.dtype), "std": float(out.std())}
     del pipe, mods
     torch.cuda.empty_cache()
 
-    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    mods = modules("concat", "latents")
-    cpu_mods = {k: copy.deepcopy(v).cpu() if isinstance(v, torch.nn.Module) else v
-                for k, v in mods.items()}
-    fp32 = dict(kw, num_inference_steps=1, output_type="latent", deterministic_vae_encode=True,
-                latents=np.random.RandomState(SEED + 6).standard_normal(
-                    (1, CLI_PX // 8, CLI_PX // 8, 4)).astype(np.float32))
-    reset_counters()
-    t0 = time.perf_counter()
-    card = StableDiffusionBrushNetPipeline(**mods, device="cuda")(**fp32)
-    t_card = time.perf_counter() - t0
-    launched = read_counters()
-    t0 = time.perf_counter()
-    cpu = StableDiffusionBrushNetPipeline(**cpu_mods, device="cpu")(**fp32)
-    t_cpu = time.perf_counter() - t0
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    scale = float(np.abs(cpu).max())
-    err = float(np.abs(card - cpu).max())
+    mods = full_width_modules(torch, "concat", "latents")
+    p = {"depth": "concat", "normals": "latents",
+         "conditioning_channels": mods["brushnet"].conditioning_channels,
+         **card_vs_cpu_one_step(torch, mods, kw)}
+    by_shape = bf16.pop("by_shape")
     res = {"phase": "modes", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}", "bf16": bf16,
-           "fp32_parity": {"depth": "concat", "normals": "latents",
-                           "conditioning_channels": mods["brushnet"].conditioning_channels,
-                           "steps": 1, "max_abs_err": err, "max_abs_tol": 1e-3 * scale,
-                           "output_max_abs": scale, "finite": bool(np.isfinite(card).all()),
-                           "launches": launched, "card_s": t_card, "cpu_s": t_cpu},
-           "phase_wall_s": time.perf_counter() - t_phase}
+           "fp32_parity": p, "phase_wall_s": time.perf_counter() - t_phase}
     emit(res)
-    del mods, cpu_mods
+    del mods
     torch.cuda.empty_cache()
     bad = []
     if bf16["shape"] != [1, CLI_PX, CLI_PX, 3] or bf16["dtype"] != "uint8" or \
@@ -1886,12 +1898,466 @@ def phase_modes(torch, gpu_line: str) -> None:
         bad.append(f"bf16 image {bf16}")
     if bf16["launches"]["flash"] != 20 or bf16["launches"]["groupnorm"] == 0:
         bad.append(f"bf16 launches {bf16['launches']}")
-    p = res["fp32_parity"]
-    if not (p["finite"] and err <= p["max_abs_tol"]) or launched["flash"] != 5 \
-            or launched["groupnorm"] == 0:
+    if not (p["finite"] and p["max_abs_err"] <= p["max_abs_tol"]) \
+            or p["launches"]["flash"] != 5 or p["launches"]["groupnorm"] == 0:
         bad.append(f"fp32 parity {p}")
     if bad:
         raise AssertionError(f"modes failed: {bad}")
+    return {"modes_bf16_4_steps": by_shape}
+
+
+# ------------------------------------------------- phases 14-16 (PR 9 paths)
+
+IP_REPEATS = 3                      # timed 4- and 8-step calls of each count
+IP_TRAIN_STEPS = 4                  # the ip training CLI's first run (checkpoint at its end)
+SERVE_REQUESTS = 8                  # concurrent requests of the serve phase
+SERVE_MAX_BATCH = 4
+SERVE_STEPS = 8
+
+
+def full_width_modules(torch, depth_mode: str = "concat", normals_mode=None) -> dict:
+    """Seeded full-width SD-1.5 modules for the pipeline in these
+    conditioning modes (BrushNet's zero convs given small values); normals
+    `ip_adapter` gives an IP-Adapter UNet (to_k_ip/to_v_ip copied from
+    to_k/to_v) and a NormalProjModel."""
+    from reflecting_reality_tpu_torch.cli.train import conditioning_channels_for
+    from reflecting_reality_tpu_torch.data.tokenizer import HashTokenizer
+    from reflecting_reality_tpu_torch.models import ip_adapter
+    from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
+    from reflecting_reality_tpu_torch.models.clip_text import CLIPTextModel
+    from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
+    from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+
+    ip = normals_mode == "ip_adapter"
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        unet = UNet2DConditionModel(ip_num_tokens=ip_adapter.DEFAULT_NUM_TOKENS if ip else None)
+        mods = dict(unet=unet, vae=AutoencoderKL(), text_encoder=CLIPTextModel(),
+                    brushnet=BrushNetModel(conditioning_channels=conditioning_channels_for(
+                        depth_mode, normals_mode)))
+        if ip:
+            ip_adapter.init_ip_params_from_unet(unet)
+            mods["normal_proj"] = ip_adapter.NormalProjModel(768)
+    fill_zero_convs(torch, mods["brushnet"], SEED, 0.02)
+    return dict(mods, tokenizer=HashTokenizer(vocab_size=49408),
+                depth_conditioning_mode=depth_mode, normals_conditioning_mode=normals_mode)
+
+
+def pipeline_inputs(seed: int, normal=None) -> dict:
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    mask = np.zeros((CLI_PX, CLI_PX, 3), np.float32)
+    mask[128:384, 160:352] = 1.0
+    kw = dict(prompt="a photo of a mirror on the wall",
+              image=rng.rand(CLI_PX, CLI_PX, 3).astype(np.float32), mask=mask,
+              depth=rng.rand(CLI_PX, CLI_PX, 1).astype(np.float32), guidance_scale=7.5,
+              scheduler="unipc", seed=SEED)
+    if normal is not None:
+        kw["normals"] = np.asarray(normal, np.float32).reshape(1, 3)
+    return kw
+
+
+def timed_calls(torch, pipe, kw, repeats: int) -> dict:
+    """A 2-step warm call, then 4- and 8-step calls in turns, `repeats` of
+    each -> s/step (two-point difference of the medians), s/image (the 8-step
+    median), peak memory, the 8-step call's launches (total and by shape)
+    and its uint8 image."""
+    import numpy as np
+
+    pipe(**kw, num_inference_steps=2, output_type="latent")
+    each = {4: [], 8: []}
+    out = {}
+    for _ in range(repeats):
+        for steps in (4, 8):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            t0 = time.perf_counter()
+            img = pipe(**kw, num_inference_steps=steps, output_type="np")
+            torch.cuda.synchronize()
+            each[steps].append(time.perf_counter() - t0)
+            out[steps] = dict(launches=read_counters(), by_shape=read_counters_by_shape(),
+                              peak=torch.cuda.max_memory_allocated(), image=img)
+    med = {k: statistics.median(v) for k, v in each.items()}
+    img = out[8]["image"]
+    if img.shape != (1, CLI_PX, CLI_PX, 3) or img.dtype != np.uint8 or not img.std() > 0:
+        raise AssertionError(f"8-step image {img.shape} {img.dtype} std {img.std()}")
+    return {"s_each": {str(k): v for k, v in each.items()}, "s_per_step": (med[8] - med[4]) / 4,
+            "s_per_image_8_steps": med[8], "max_memory_allocated_bytes": out[8]["peak"],
+            "launches_8_steps": out[8]["launches"], "launches_4_steps": out[4]["launches"],
+            "by_shape_8": out[8]["by_shape"], "image_8": img}
+
+
+def card_vs_cpu_one_step(torch, mods, kw) -> dict:
+    """One fp32 denoise step (TF32 off, deterministic encode, given latents)
+    of a pipeline on `mods`, the card against the CPU's plain paths."""
+    import numpy as np
+
+    from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
+        StableDiffusionBrushNetPipeline,
+    )
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_mods = {k: copy.deepcopy(v).cpu() if isinstance(v, torch.nn.Module) else v
+                for k, v in mods.items()}
+    fp32 = dict(kw, num_inference_steps=1, output_type="latent", deterministic_vae_encode=True,
+                latents=np.random.RandomState(SEED + 6).standard_normal(
+                    (1, CLI_PX // 8, CLI_PX // 8, 4)).astype(np.float32))
+    try:
+        reset_counters()
+        t0 = time.perf_counter()
+        card = StableDiffusionBrushNetPipeline(**mods, device="cuda")(**fp32)
+        t_card = time.perf_counter() - t0
+        launched = read_counters()
+        t0 = time.perf_counter()
+        cpu = StableDiffusionBrushNetPipeline(**cpu_mods, device="cpu")(**fp32)
+        t_cpu = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    scale = float(np.abs(cpu).max())
+    err = float(np.abs(card - cpu).max())
+    return {"steps": 1, "max_abs_err": err, "max_abs_tol": 1e-3 * scale, "output_max_abs": scale,
+            "finite": bool(np.isfinite(card).all()), "launches": launched, "card_s": t_card,
+            "cpu_s": t_cpu}
+
+
+def phase_ip_adapter(torch, gpu_line: str, tmp: str) -> dict:
+    """The normals ip_adapter mode at full width, 512²: the pipeline (depth
+    concat + the mean normal's token) in bf16 at 4 and 8 steps and one fp32
+    step card vs CPU; then the training CLI in ip mode at its default fp32
+    (batch 4, a latent cache with normals, a checkpoint at step
+    IP_TRAIN_STEPS, a resume to +2) -> {path: {(kernel, key): launches}}."""
+    from reflecting_reality_tpu_torch.cli import train as cli
+    from reflecting_reality_tpu_torch.core.io import WEIGHTS_NAME, load_safetensors
+    from reflecting_reality_tpu_torch.models.ip_adapter import NORMAL_PROJ_FILE, is_ip_param_name
+    from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
+        StableDiffusionBrushNetPipeline,
+    )
+
+    t_phase = time.perf_counter()
+    normal = [0.0, 0.6, 0.8]
+    kw = pipeline_inputs(SEED + 7, normal)
+    mods = full_width_modules(torch, "concat", "ip_adapter")
+    pipe = StableDiffusionBrushNetPipeline(**mods, dtype=torch.bfloat16, device="cuda")
+    bf16 = timed_calls(torch, pipe, kw, IP_REPEATS)
+    other = pipe(**dict(kw, normals=[[0.0, -0.6, 0.8]]), num_inference_steps=4,
+                 output_type="np")
+    token_moves = int(abs(other.astype(int) - pipe(**kw, num_inference_steps=4,
+                                                    output_type="np").astype(int)).max())
+    del pipe, mods
+    torch.cuda.empty_cache()
+    parity = card_vs_cpu_one_step(torch, full_width_modules(torch, "concat", "ip_adapter"), kw)
+    torch.cuda.empty_cache()
+
+    data, cache = os.path.join(tmp, "data_ip"), os.path.join(tmp, "cache_ip")
+    os.makedirs(data)
+    write_latent_cache(data, cache, CLI_SAMPLES, ip_normals=True)
+    base, out = os.path.join(tmp, "base"), os.path.join(tmp, "ip_run")
+
+    def argv(*extra):
+        return ["--pretrained_model_name_or_path", base, "--train_data_dir", data,
+                "--output_dir", out, "--logging_dir", os.path.join(out, "logs"),
+                "--train_batch_size", str(TRAIN_BATCH), "--depth_conditioning_mode", "concat",
+                "--normals_conditioning_mode", "ip_adapter", "--learning_rate", "5e-6",
+                "--lr_warmup_steps", "0", "--precomputed_latents_dir", cache,
+                "--dataloader_num_workers", "4", "--log_every", "1", "--validation_steps", "0",
+                "--report_to", "none", "--seed", "0",
+                "--checkpointing_steps", str(IP_TRAIN_STEPS), *extra]
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    state = cli.main(argv("--max_train_steps", str(IP_TRAIN_STEPS)))
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_launches, train_by_shape = read_counters(), read_counters_by_shape()
+    peak = torch.cuda.max_memory_allocated()
+    ref = load_safetensors(os.path.join(base, "unet", WEIGHTS_NAME))
+    frozen_same, ip_moved, n_ip = True, True, 0
+    for name, p in state.trainable["unet"].named_parameters():
+        if is_ip_param_name(name):
+            n_ip += 1
+            twin = ref[name.replace("_ip.", ".")].to(p.device, p.dtype)
+            ip_moved &= not torch.equal(p.detach(), twin)
+        else:
+            frozen_same &= torch.equal(p.detach(), ref[name].to(p.device, p.dtype))
+    trainable = sorted(state.trainable)
+    opt_params = len(state.params)
+    del state
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(out, f"checkpoint-{IP_TRAIN_STEPS}")
+    ckpt_files = sorted(os.listdir(ckpt))
+    has_proj = os.path.isfile(os.path.join(ckpt, NORMAL_PROJ_FILE))
+    ckpt_gb = sum(os.path.getsize(os.path.join(d, f))
+                  for d, _, fs in os.walk(ckpt) for f in fs) / 1e9
+
+    reset_counters()
+    t0 = time.perf_counter()
+    state = cli.main(argv("--max_train_steps", str(IP_TRAIN_STEPS + 2),
+                          "--resume_from_checkpoint", "latest"))
+    torch.cuda.synchronize()
+    resume_wall, resumed_step = time.perf_counter() - t0, state.step
+    del state
+    torch.cuda.empty_cache()
+    rows = [r for r in read_metrics(out) if "loss" in r]
+    shutil.rmtree(out)
+    timed = [r["s_per_step"] for r in rows if 2 <= r["step"] <= IP_TRAIN_STEPS]
+    per_step = {k: train_by_shape.get((k, FP32_TRAIN_KEY), 0) / IP_TRAIN_STEPS
+                for k in ("flash", "flash_bwd_dq", "flash_bwd_dkv")}
+    res = {"phase": "ip_adapter", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}",
+           "pipeline_bf16": {k: v for k, v in bf16.items() if k not in ("by_shape_8", "image_8")},
+           "pipeline_other_normal_max_uint8_diff": token_moves,
+           "pipeline_fp32_parity": parity,
+           "train_cli_fp32": {
+               "batch": TRAIN_BATCH, "mixed_precision": "no (the default)",
+               "steps": IP_TRAIN_STEPS, "s_per_step_median_steps_2_on": statistics.median(timed),
+               "s_per_step_each": [round(r["s_per_step"], 4) for r in rows],
+               "losses": [r["loss"] for r in rows], "max_memory_allocated_bytes": peak,
+               "run_wall_s": train_wall, "launches": train_launches,
+               f"launches_per_step_at_{'x'.join(map(str, FP32_TRAIN_KEY[0]))}_fp32": per_step,
+               "trainable": trainable, "optimizer_params": opt_params, "ip_leaves": n_ip,
+               "non_ip_unet_bit_identical": frozen_same, "every_ip_leaf_moved": ip_moved,
+               "checkpoint_files": ckpt_files, "checkpoint_gb": ckpt_gb,
+               "resume_wall_s": resume_wall, "resumed_to_step": resumed_step},
+           "phase_wall_s": time.perf_counter() - t_phase}
+    emit(res)
+    bad = []
+    if bf16["launches_8_steps"]["flash"] != 40 or bf16["launches_8_steps"]["groupnorm"] == 0:
+        bad.append(f"pipeline launches {bf16['launches_8_steps']}")
+    if not token_moves > 0:
+        bad.append("another normal gave the same image")
+    if not (parity["finite"] and parity["max_abs_err"] <= parity["max_abs_tol"]) \
+            or parity["launches"]["flash"] != 5 or parity["launches"]["groupnorm"] == 0:
+        bad.append(f"fp32 parity {parity}")
+    t = res["train_cli_fp32"]
+    if not all(math.isfinite(x) for x in t["losses"]) or len(t["losses"]) != IP_TRAIN_STEPS + 2:
+        bad.append(f"losses {t['losses']}")
+    if not (frozen_same and ip_moved and n_ip > 0 and has_proj and "unet" in ckpt_files):
+        bad.append(f"frozen {frozen_same}, IP moved {ip_moved} ({n_ip}), files {ckpt_files}")
+    if any(n != 5 for n in per_step.values()) or train_launches["groupnorm"] == 0:
+        bad.append(f"training launches per step at {FP32_TRAIN_KEY}: {per_step}")
+    if resumed_step != IP_TRAIN_STEPS + 2:
+        bad.append(f"resumed to step {resumed_step}")
+    if bad:
+        raise AssertionError(f"ip_adapter failed: {bad}")
+    return {"ip_pipeline_8_steps": bf16["by_shape_8"],
+            f"ip_train_cli_fp32_{IP_TRAIN_STEPS}_steps": train_by_shape}
+
+
+def phase_approx(torch, gpu_line: str) -> dict:
+    """The approximate modes at full width, bf16, 512²: the main path exact,
+    with DeepCache every 3 steps and with encoder reuse every 3 steps, timed
+    in turns in one process, each image against the exact one; then
+    `tiled_decode` of a 128x128 latent (a 1024² image) against the plain
+    decode -> {path: {(kernel, key): launches}}."""
+    import numpy as np
+
+    from reflecting_reality_tpu_torch.parallel.sharded_vae import tiled_decode
+    from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
+        StableDiffusionBrushNetPipeline,
+    )
+
+    t_phase = time.perf_counter()
+    kw = pipeline_inputs(SEED)
+    pipe = StableDiffusionBrushNetPipeline(**full_width_modules(torch), dtype=torch.bfloat16,
+                                           device="cuda")
+    modes = {}
+    for name in ("exact", "deep_cache", "encoder_reuse"):
+        pipe.disable_deep_cache()
+        pipe.disable_encoder_reuse()
+        if name != "exact":
+            getattr(pipe, f"enable_{name}")(3)
+        modes[name] = timed_calls(torch, pipe, kw, MAIN_REPEATS)
+    pipe.disable_deep_cache()
+    pipe.disable_encoder_reuse()
+    exact = modes["exact"]["image_8"].astype(np.int16)
+    res = {"phase": "approx", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}",
+           "dtype": "bfloat16", "interval": 3}
+    for name, m in modes.items():
+        diff = np.abs(m["image_8"].astype(np.int16) - exact)
+        res[name] = {k: v for k, v in m.items() if k not in ("by_shape_8", "image_8")}
+        res[name].update(uint8_diff_from_exact_mean=float(diff.mean()),
+                         uint8_diff_from_exact_max=int(diff.max()),
+                         s_per_step_vs_exact=m["s_per_step"] / modes["exact"]["s_per_step"],
+                         s_per_image_8_steps_vs_exact=(m["s_per_image_8_steps"]
+                                                       / modes["exact"]["s_per_image_8_steps"]))
+
+    vae = pipe.vae
+    z = torch.randn(1, 4, 128, 128, generator=torch.Generator("cuda").manual_seed(SEED),
+                    device="cuda").to(torch.bfloat16)
+    decodes = {}
+    with torch.inference_mode():
+        for name, fn in (("plain", lambda: vae.decode(z)),
+                         ("tiled", lambda: tiled_decode(vae, z, num_tiles=4, overlap=8))):
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            reset_counters()
+            t0 = time.perf_counter()
+            img = fn()
+            torch.cuda.synchronize()
+            decodes[name] = {"s": time.perf_counter() - t0, "by_shape": read_counters_by_shape(),
+                             "peak_bytes_above_inputs": torch.cuda.max_memory_allocated() - before,
+                             "image": img.float()}
+    shapes = {tuple(d["image"].shape) for d in decodes.values()}
+    tiled_by_shape = decodes["tiled"]["by_shape"]
+    diff = (decodes["tiled"]["image"] - decodes["plain"]["image"]).abs()
+    res["tiled_decode"] = {"latent": [1, 4, 128, 128], "num_tiles": 4, "overlap": 8,
+                           "max_abs_diff": diff.max().item(), "mean_abs_diff": diff.mean().item(),
+                           "launches": {k: sum(n for (kern, _), n in tiled_by_shape.items()
+                                               if kern == k) for k in counters()},
+                           **{f"{k}_{m}": v[m] for k, v in decodes.items()
+                              for m in ("s", "peak_bytes_above_inputs")}}
+    del pipe, vae, decodes
+    torch.cuda.empty_cache()
+    res["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(res)
+    bad = []
+    for name in ("deep_cache", "encoder_reuse"):
+        r = res[name]
+        if not r["uint8_diff_from_exact_max"] > 0 or not r["launches_8_steps"]["flash"] > 0 \
+                or r["launches_8_steps"]["groupnorm"] == 0:
+            bad.append(f"{name}: {r}")
+    # B1 runs at the 4096-token level only: 2 self-attentions in down block
+    # 0, 3 in the last up block.  Full steps (0, 3, 6 of 8) launch all 5; a
+    # DeepCache step recomputes both blocks (5), an encoder-reuse step only
+    # the up block (3)
+    want = {"exact": 40, "deep_cache": 40, "encoder_reuse": 3 * 5 + 5 * 3}
+    for name, n in want.items():
+        if res[name]["launches_8_steps"]["flash"] != n:
+            bad.append(f"{name} B1 launches {res[name]['launches_8_steps']} (want {n})")
+    t = res["tiled_decode"]
+    if not (math.isfinite(t["max_abs_diff"]) and shapes == {(1, 3, 1024, 1024)}) \
+            or t["launches"]["groupnorm"] == 0:
+        bad.append(f"tiled decode {t}, shapes {shapes}")
+    if bad:
+        raise AssertionError(f"approx failed: {bad}")
+    return {**{f"approx_{name}_8_steps": modes[name]["by_shape_8"]
+               for name in ("deep_cache", "encoder_reuse")},
+            "approx_tiled_decode_128x128": tiled_by_shape}
+
+
+def phase_serve(torch, gpu_line: str, tmp: str) -> dict:
+    """`cli/serve.py` as a user starts it (its parser, `build_pipeline` on the
+    base folder and train_cli's checkpoint-8, `--max_batch 4`, `warmup` at
+    512²) behind its handler on 127.0.0.1 in a thread: /healthz, one solo
+    request, then SERVE_REQUESTS concurrent ones at SERVE_STEPS steps
+    -> {path: {(kernel, key): launches}}."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    from PIL import Image
+
+    from reflecting_reality_tpu_torch.cli import serve
+
+    t_phase = time.perf_counter()
+    args = serve.build_parser().parse_args([
+        "--base_model_path", os.path.join(tmp, "base"),
+        "--brushnet_path", os.path.join(tmp, "run", "checkpoint-8", "brushnet"),
+        "--depth_conditioning_mode", "concat", "--max_batch", str(SERVE_MAX_BATCH),
+        "--num_inference_steps", str(SERVE_STEPS), "--warmup", str(CLI_PX), "--port", "0"])
+    t0 = time.perf_counter()
+    pipe = serve.build_pipeline(args)
+    load_s = time.perf_counter() - t0
+    server = serve.make_server(args, pipe)
+    t0 = time.perf_counter()
+    serve.warmup(server, args.warmup, args.num_inference_steps,
+                 depth=args.depth_conditioning_mode is not None)
+    warmup_s = time.perf_counter() - t0
+    httpd = ThreadingHTTPServer((args.host, 0), serve.make_handler(server))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://{args.host}:{httpd.server_port}"
+
+    def png(arr):
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format="PNG")
+        return base64.b64encode(buf.getvalue()).decode()
+
+    def payload(k):
+        rng = np.random.RandomState(SEED + 100 + k)
+        mask = np.zeros((CLI_PX, CLI_PX), np.uint8)
+        mask[128:384, 160:352] = 255
+        depth = (rng.rand(CLI_PX, CLI_PX) * 65535).astype(np.uint16)
+        return {"prompt": f"a framed mirror in a hallway, request {k}",
+                "image": png(rng.randint(0, 256, (CLI_PX, CLI_PX, 3), np.uint8)),
+                "mask": png(mask), "depth": png(depth), "seed": k}
+
+    def post(body):
+        req = urllib.request.Request(url + "/generate", data=json.dumps(body).encode(),
+                                     method="POST")
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, reply = r.status, json.loads(r.read())
+        return status, reply, time.perf_counter() - t
+
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        reset_counters()
+        solo_status, solo, solo_s = post(payload(0))
+        results = [None] * SERVE_REQUESTS
+
+        def go(k):
+            results[k] = post(payload(k + 1))
+
+        threads = [threading.Thread(target=go, args=(k,)) for k in range(SERVE_REQUESTS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        burst_s = time.perf_counter() - t0
+        launched, by_shape = read_counters(), read_counters_by_shape()
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            stats = json.loads(r.read())
+        # the solo reply against a direct pipeline call on the same payload
+        direct = pipe(**serve._parse_payload(payload(0), pipe, SERVE_STEPS))[0]
+        got = np.asarray(Image.open(io.BytesIO(base64.b64decode(solo["images"][0]))))
+        solo_diff = int(np.abs(got.astype(np.int16) - direct.astype(np.int16)).max())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+    lat = sorted(r[2] for r in results if r is not None)
+    statuses = [r[0] for r in results if r is not None]
+    res = {"phase": "serve", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}", "dtype": "bfloat16",
+           "steps": SERVE_STEPS, "max_batch": SERVE_MAX_BATCH, "requests": SERVE_REQUESTS,
+           "healthz": health, "load_s": load_s, "warmup_s": warmup_s,
+           "solo": {"status": solo_status, "latency_s": solo_s,
+                    "max_uint8_diff_from_direct_call": solo_diff},
+           "burst": {"statuses": statuses, "wall_s": burst_s,
+                     "images_per_s": len(statuses) / burst_s,
+                     "latency_p50_s": float(np.percentile(lat, 50)) if lat else None,
+                     "latency_p95_s": float(np.percentile(lat, 95)) if lat else None,
+                     "batch_sizes": sorted(r[1]["batch_size"] for r in results if r)},
+           "stats": stats, "launches": launched, "phase_wall_s": time.perf_counter() - t_phase}
+    emit(res)
+    del pipe, server
+    torch.cuda.empty_cache()
+    bad = []
+    if health.get("device") != torch.cuda.get_device_name(0) or solo_status != 200:
+        bad.append(f"healthz {health}, solo {solo_status}")
+    if statuses != [200] * SERVE_REQUESTS or solo_diff > 1:
+        bad.append(f"statuses {statuses}, solo vs direct {solo_diff}")
+    if stats["requests"] < 1 + SERVE_REQUESTS or stats["batches"] < 2 + 1 + 1 \
+            or not max(res["burst"]["batch_sizes"]) > 1:
+        bad.append(f"stats {stats}, batch sizes {res['burst']['batch_sizes']}")
+    if launched["flash"] == 0 or launched["groupnorm"] == 0:
+        bad.append(f"launches {launched}")
+    if bad:
+        raise AssertionError(f"serve failed: {bad}")
+    return {"serve_requests": by_shape}
 
 
 # ------------------------------------------------------------------ main
@@ -2002,35 +2468,50 @@ def main() -> int:
                                                      entries)
         phase_evaluate(torch, gpu_line, tmp, sheets, data)
         cli32_by_shape = phase_train_cli_fp32(torch, gpu_line, tmp)
+        new_paths = phase_ip_adapter(torch, gpu_line, tmp)
+        new_paths.update(phase_serve(torch, gpu_line, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    phase_modes(torch, gpu_line)
+    new_paths.update(phase_modes(torch, gpu_line))
+    new_paths.update(phase_approx(torch, gpu_line))
 
     # each entry carries the launches of its own kernel, shape and dtype on
     # each path: the main path's 8-step call (and per denoise step), the
     # TRAIN_REPEATS timed training steps (and per training step), the
     # training CLI's first run (8 steps), the test CLI's bf16 8-step and
     # fp32 4-step runs (2 rows of 4 seeds each), train_parity's fp32 loss
-    # and backward, and the training CLI's default fp32 run
+    # and backward, the training CLI's default fp32 run, and the paths of
+    # the ip_adapter, serve, modes and approx phases
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    test_paths = {"test_cli_bf16_8_steps": test_by_shape["a_8_steps"],
-                  "test_cli_fp32_4_steps": test_by_shape["b_fp32_4_steps"],
-                  "train_parity": parity_by_shape,
-                  f"train_cli_fp32_{CLI_FP32_STEPS}_steps": cli32_by_shape}
+    paths = {"main_path_8_steps": by_shape[8],
+             f"train_main_{TRAIN_REPEATS}_steps": train_by_shape,
+             "train_cli_8_steps": cli_by_shape,
+             "test_cli_bf16_8_steps": test_by_shape["a_8_steps"],
+             "test_cli_fp32_4_steps": test_by_shape["b_fp32_4_steps"],
+             "train_parity": parity_by_shape,
+             f"train_cli_fp32_{CLI_FP32_STEPS}_steps": cli32_by_shape, **new_paths}
+    # a shape a path launched that phase_kernels did not list (a server's
+    # batch follows its traffic) is measured and checked now, after the paths
+    measured = {e["key"] for e in entries}
+    launched = {k for counts in paths.values() for k, n in counts.items() if n > 0}
+    late = sorted(launched - measured, key=str)
+    for kern, key in late:
+        new = [e for e in kernel_entries(torch, kern, key) if e["key"] not in measured]
+        for e in new:
+            e["measured_after_paths"] = True
+            measured.add(e["key"])
+        entries += new
+    emit({"phase": "kernels_late", "measured": [[k, list(key)] for k, key in late]})
     rows = []
     for e in entries:
         row = {k: e.get(k) for k in keys if k != "launches"}
-        main_n, train_n = by_shape[8].get(e["key"], 0), train_by_shape.get(e["key"], 0)
-        cli_n = cli_by_shape.get(e["key"], 0)
-        test_n = {path: counts.get(e["key"], 0) for path, counts in test_paths.items()}
-        row["launches"] = main_n + train_n + cli_n + sum(test_n.values())
-        row["launches_by_path"] = {"main_path_8_steps": main_n,
-                                   f"train_main_{TRAIN_REPEATS}_steps": train_n,
-                                   "train_cli_8_steps": cli_n, **test_n}
+        row["launches_by_path"] = {path: counts.get(e["key"], 0) for path, counts in paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+        main_n = row["launches_by_path"]["main_path_8_steps"]
         row["launches_per_denoise_step"] = (main_n - by_shape[4].get(e["key"], 0)) / 4
-        row["launches_per_train_step"] = train_n / TRAIN_REPEATS
-        row["launches_per_cli_step"] = cli_n / 8
+        row["launches_per_train_step"] = train_by_shape.get(e["key"], 0) / TRAIN_REPEATS
+        row["launches_per_cli_step"] = cli_by_shape.get(e["key"], 0) / 8
         row.update({k: e[k] for k in e if k not in row and k not in ("key", "kernel", "ms")})
         rows.append(row)
     emit({"phase": "kernels_detail", "kernels": rows})
@@ -2039,7 +2520,11 @@ def main() -> int:
                                                  if r["launches"] > 0}
     if missing:
         raise AssertionError(f"no measured shape of {missing} ran on a path")
+    unmeasured = launched - {e["key"] for e in entries}
+    if unmeasured:
+        raise AssertionError(f"launched on a path, never measured: {sorted(unmeasured, key=str)}")
     emit({"kernels": summary})
+    emit({"phase": "run", "seconds": time.perf_counter() - T_START})
     print(gpu_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -19,11 +19,13 @@ fetch, PIL conversion and PNG writes run while the card denoises this row.
 `h5py` is imported only where an HDF5 sample is read, so `--image_mode`
 runs without it.
 
-Options whose feature the port does not have raise NotImplementedError
-naming their ROADMAP item: `--deep_cache`, `--encoder_reuse`, `--int8`,
-`--int8_all` (item 15), `--data_parallel` (item 16), normals `ip_adapter`
-(item 14) and `--attention_backend xla` (performance follow-up 5: the port
-routes attention by device and shape).
+Normals `ip_adapter` mode reads the checkpoint's `ip_adapter/` beside its
+`brushnet/` and takes `--ip_adapter_scale`; `--deep_cache N` and
+`--encoder_reuse N` switch the pipeline's approximate modes on.  Options
+whose feature the port does not have raise NotImplementedError naming their
+ROADMAP item: `--int8`, `--int8_all` (item 15), `--data_parallel` (item 16)
+and `--attention_backend xla` (performance follow-up 5: the port routes
+attention by device and shape).
 """
 
 from __future__ import annotations
@@ -104,13 +106,9 @@ def refuse_unported(args) -> None:
     """Options whose feature the port does not have yet raise, naming the
     ROADMAP item that ports it."""
     unported = [
-        (args.deep_cache, "--deep_cache", "queue A, item 15"),
-        (args.encoder_reuse, "--encoder_reuse", "queue A, item 15"),
         (args.int8, "--int8", "queue A, item 15"),
         (args.int8_all, "--int8_all", "queue A, item 15"),
         (args.data_parallel, "--data_parallel", "queue A, item 16"),
-        (args.normals_conditioning_mode == "ip_adapter",
-         "--normals_conditioning_mode ip_adapter", "queue A, item 14"),
         (args.attention_backend == "xla",
          "--attention_backend xla (the port routes attention by device and shape)",
          "performance follow-up 5"),
@@ -152,9 +150,14 @@ def run_inference(args, brushnet_path: str, output_dir: str, test_df) -> None:
         unet_path=unet_path,
         depth_conditioning_mode=args.depth_conditioning_mode,
         normals_conditioning_mode=args.normals_conditioning_mode,
+        ip_adapter_scale=args.ip_adapter_scale,
         dtype=dtype,
         device=device,
     )
+    if args.deep_cache:
+        pipe.enable_deep_cache(args.deep_cache)
+    if args.encoder_reuse:
+        pipe.enable_encoder_reuse(args.encoder_reuse)
     os.makedirs(output_dir, exist_ok=True)
 
     common = dict(
@@ -389,9 +392,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--int8_all", action="store_true",
                    help="not ported: raises (ROADMAP.md queue A, item 15)")
     p.add_argument("--deep_cache", type=int, default=None,
-                   help="not ported: raises (ROADMAP.md queue A, item 15)")
+                   help="DeepCache interval: full dual branch every N steps, the shallow "
+                        "UNet between (approximate)")
     p.add_argument("--encoder_reuse", type=int, default=None,
-                   help="not ported: raises (ROADMAP.md queue A, item 15)")
+                   help="encoder-reuse interval: full dual branch every N steps, the UNet's "
+                        "mid block and decoder between (approximate; exclusive with "
+                        "--deep_cache)")
     p.add_argument("--use_ema", action="store_true",
                    help="load the EMA shadow weights (checkpoint-N/ema/) "
                         "instead of the raw trained weights")
@@ -422,8 +428,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--depth_conditioning_mode", type=str, default=None,
                    choices=[None, "concat", "latents"])
     p.add_argument("--normals_conditioning_mode", type=str, default=None,
-                   choices=[None, "concat", "latents", "ip_adapter"],
-                   help="ip_adapter is not ported: raises (ROADMAP.md queue A, item 14)")
+                   choices=[None, "concat", "latents", "ip_adapter"])
     p.add_argument("--ip_adapter_scale", type=float, default=1.0)
     p.add_argument("--geometric_input_data_dir", type=str, default=None)
     p.add_argument("--depth_source", type=str, default="gt",

@@ -15,6 +15,15 @@ paths).
 conditioning_channels follows the reference exactly (:968-979):
 5 + {concat:1, latents:4}(depth) + {concat:3, latents:4}(normals).
 
+Normals `ip_adapter` mode (JAX :85-151, :204-208, :319-363): the UNet is
+built with IP-Adapter fields (`ip_num_tokens=4`, `--ip_adapter_scale`) and
+its to_k_ip/to_v_ip start as copies of to_k/to_v; a fresh
+`NormalProjModel` is drawn from a generator seeded 1 (JAX: PRNGKey(1)); the
+batch's (B, 1, 3) mean mirror normal crosses in fp32 whatever the transport
+dtype; only to_k_ip/to_v_ip, `normal_proj` and BrushNet train, and under
+bf16 the IP leaves keep fp32 masters in the otherwise bf16 UNet.
+Checkpoints add `unet/` and `ip_adapter/normal_proj.safetensors`.
+
 Under `--mixed_precision bf16` the frozen UNet, VAE and CLIP are stored in
 bf16 and the trainables keep fp32 masters; batches cross to the card in
 bf16 (`--input_transport_dtype auto`), which the step consumes unchanged.
@@ -97,8 +106,6 @@ def refuse_unported(args) -> None:
     """Options whose feature the port does not have yet raise, naming the
     queue item that ports it."""
     unported = [
-        (args.normals_conditioning_mode == "ip_adapter",
-         "--normals_conditioning_mode ip_adapter", "item 14"),
         (int(os.environ.get("WORLD_SIZE", "1")) > 1, "multi-process runs (WORLD_SIZE > 1)",
          "item 16"),
     ]
@@ -110,17 +117,31 @@ def refuse_unported(args) -> None:
 
 def load_models(args):
     """SD-1.5 components (CPU, fp32) and the BrushNet twin: loaded from
-    `--brushnet_model_name_or_path`, else built by `from_unet` surgery.
-    -> (unet, brushnet, vae, text_encoder, tokenizer)."""
+    `--brushnet_model_name_or_path`, else built by `from_unet` surgery; in
+    ip_adapter mode the UNet's IP leaves copied from to_k/to_v and a fresh
+    `NormalProjModel`.  -> (unet, brushnet, vae, text_encoder, tokenizer,
+    normal_proj or None)."""
     from reflecting_reality_tpu_torch.core.io import load_pretrained
     from reflecting_reality_tpu_torch.data.tokenizer import CLIPTokenizer
+    from reflecting_reality_tpu_torch.models import ip_adapter
     from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
     from reflecting_reality_tpu_torch.models.clip_text import load_text_encoder
     from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
     from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
 
     base = args.pretrained_model_name_or_path
-    unet = load_pretrained(UNet2DConditionModel, base, subfolder="unet")
+    ip_mode = args.normals_conditioning_mode == "ip_adapter"
+    normal_proj = None
+    if ip_mode:
+        # base SD checkpoints lack the decoupled IP projections: they start
+        # as copies of to_k/to_v
+        unet = ip_adapter.init_ip_params_from_unet(load_pretrained(
+            UNet2DConditionModel, base, subfolder="unet", allow_missing=ip_adapter.IP_NAMES,
+            ip_num_tokens=ip_adapter.DEFAULT_NUM_TOKENS, ip_scale=args.ip_adapter_scale))
+        normal_proj = ip_adapter.build_normal_proj(
+            unet.cross_attention_dim, generator=torch.Generator().manual_seed(1))
+    else:
+        unet = load_pretrained(UNet2DConditionModel, base, subfolder="unet")
     vae = load_pretrained(AutoencoderKL, base, subfolder="vae")
     text = load_text_encoder(base)
     tokenizer = CLIPTokenizer.from_pretrained(base, subfolder="tokenizer")
@@ -130,7 +151,7 @@ def load_models(args):
         torch.manual_seed(args.seed or 0)
         brushnet = BrushNetModel.from_unet(unet, conditioning_channels=conditioning_channels_for(
             args.depth_conditioning_mode, args.normals_conditioning_mode))
-    return unet, brushnet, vae, text, tokenizer
+    return unet, brushnet, vae, text, tokenizer, normal_proj
 
 
 def _dir_gb(path: str) -> float:
@@ -152,10 +173,13 @@ def main(argv=None):
     if args.input_transport_dtype == "bf16" or (
             args.input_transport_dtype == "auto" and args.mixed_precision == "bf16"):
         transport_dtype = torch.bfloat16
+    # ip_adapter mode reads batch["normals"] in fp32 (freq_encode to 2^5):
+    # the host-side cast would change it
+    transport_exempt = ("normals",) if args.normals_conditioning_mode == "ip_adapter" else ()
 
     t_load = time.time()
     logger.info("Loading models from %s ...", args.pretrained_model_name_or_path)
-    unet, brushnet, vae, text, tokenizer = load_models(args)
+    unet, brushnet, vae, text, tokenizer, normal_proj = load_models(args)
     logger.info("Models loaded in %.1fs", time.time() - t_load)
 
     rows = read_rows(os.path.join(args.train_data_dir, args.train_csv), args.max_train_samples)
@@ -177,7 +201,8 @@ def main(argv=None):
 
             max_gb = float(os.environ.get("RR_DEVICE_CACHE_MAX_GB", 4.0))
             host_cache = materialize_cache(dataset, transport_dtype=transport_dtype,
-                                           max_bytes=int(max_gb * 1e9))
+                                           max_bytes=int(max_gb * 1e9),
+                                           transport_exempt=transport_exempt)
             dataset = DeviceCacheIndexDataset(dataset)
     elif args.device_cache:
         raise SystemExit("--device_cache requires --precomputed_latents_dir")
@@ -217,10 +242,17 @@ def main(argv=None):
     if args.mixed_precision == "bf16":
         # reference policy (train_brushnet_mirror.py:1125-1167): frozen modules
         # stored in half precision, trainables keep fp32 masters
-        for m in (vae, text) + (() if args.train_base_unet else (unet,)):
+        for m in (vae, text):
             m.to(torch.bfloat16)
+        if not args.train_base_unet:
+            # in ip_adapter mode the IP leaves are trainable: fp32 masters
+            from reflecting_reality_tpu_torch.models.ip_adapter import is_ip_param_name
+
+            for name, p in unet.named_parameters():
+                if normal_proj is None or not is_ip_param_name(name):
+                    p.data = p.data.to(torch.bfloat16)
     step_fn, init_state = make_train_step(unet, brushnet, vae, text, config, dtype=dtype,
-                                          device=device)
+                                          device=device, normal_proj=normal_proj)
     t_up = time.time()
     state = init_state()
     logger.info("State resident in %.1fs", time.time() - t_up)
@@ -255,7 +287,7 @@ def main(argv=None):
         with open(os.path.join(args.output_dir, "args.json"), "w") as f:
             json.dump(vars(args), f, indent=2, default=str)
         _train_loop(args, state, step_fn, loader, trackers, device, dtype, tokenizer,
-                    transport_dtype, device_cache)
+                    transport_dtype, device_cache, transport_exempt)
         log_to_trackers(trackers, {"device_memory": device_memory_stats()}, state.step)
     finally:
         for t in trackers:
@@ -266,7 +298,7 @@ def main(argv=None):
 
 
 def _train_loop(args, state, step_fn, loader, trackers, device, dtype, tokenizer,
-                transport_dtype, device_cache):
+                transport_dtype, device_cache, transport_exempt=()):
     on_card = device.type == "cuda"
     generator = torch.Generator(device).manual_seed(args.seed or 0)
     custom_steps = set(args.custom_checkpoints or [])
@@ -316,7 +348,7 @@ def _train_loop(args, state, step_fn, loader, trackers, device, dtype, tokenizer
 
     h2d_events = [] if on_card else None
     stream = prefetch_to_device(epochs(), device, group=K, transport_dtype=transport_dtype,
-                                h2d_events=h2d_events)
+                                transport_exempt=transport_exempt, h2d_events=h2d_events)
     t_window, window_start = time.time(), step
     t_ready = time.perf_counter()
     try:
@@ -414,7 +446,8 @@ def run_validation(args, state, tokenizer, trackers, step, dtype, device):
     from PIL import Image, ImageDraw
 
     from reflecting_reality_tpu_torch.data.synmirror import (
-        apply_transforms_depth, extract_data_from_hdf5, normals_to_uint8, read_rows,
+        apply_transforms_depth, apply_transforms_normals, extract_data_from_hdf5,
+        normals_to_uint8, read_rows,
     )
     from reflecting_reality_tpu_torch.metrics.functional import psnr_ssim
     from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
@@ -429,6 +462,7 @@ def run_validation(args, state, tokenizer, trackers, step, dtype, device):
         brushnet=state.trainable["brushnet"],
         depth_conditioning_mode=args.depth_conditioning_mode,
         normals_conditioning_mode=args.normals_conditioning_mode,
+        normal_proj=state.trainable.get("normal_proj"),
         dtype=dtype, device=device, cast_modules=False)
     rows = read_rows(os.path.join(args.train_data_dir, args.test_csv))
     if args.validation_csv_indices:
@@ -481,6 +515,10 @@ def run_validation(args, state, tokenizer, trackers, step, dtype, device):
                 # the raw normals image; the pipeline preprocesses it
                 # (reference get_hdf5_data :131-132)
                 normals = Image.fromarray(normals_to_uint8(data["normals"]), mode="RGB")
+            elif args.normals_conditioning_mode == "ip_adapter":
+                # the (1, 3) unit mean mirror normal (JAX :746-750)
+                normals = apply_transforms_normals(data["normals"], mask=data["mask"],
+                                                   normals_conditioning_mode="ip_adapter")
             prompt = args.mirror_prompt + str(row[args.caption_column])
             if summarize is not None:
                 prompt = summarize(prompt)
@@ -642,8 +680,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--depth_conditioning_mode", type=str, default=None,
                    choices=[None, "concat", "latents"])
     p.add_argument("--normals_conditioning_mode", type=str, default=None,
-                   choices=[None, "concat", "latents", "ip_adapter"],
-                   help="ip_adapter is not ported yet (raises; ROADMAP queue A item 14)")
+                   choices=[None, "concat", "latents", "ip_adapter"])
     p.add_argument("--ip_adapter_scale", type=float, default=1.0)
     p.add_argument("--train_base_unet", action="store_true")
     # validation

@@ -12,7 +12,9 @@ numpy arrays) across to the port's `state_dict` layout without importing JAX:
   * dense  `kernel` (2D)  (in, out) -> (out, in), named ``weight``
   * norm   `scale`                    named ``weight``
   * embed  `embedding`                named ``weight``
-  * ``resnets_0`` -> ``resnets.0`` for the container stems below
+  * ``resnets_0`` -> ``resnets.0`` for the container stems below (and
+    ``proj_0`` -> ``proj.0``, `NormalProjModel`'s Linear); the IP-Adapter
+    leaves ``to_k_ip`` / ``to_v_ip`` keep their names
 
 The safetensors format is read and written here, without the `safetensors`
 package: an 8-byte little-endian header length, a JSON header (`dtype`,
@@ -47,7 +49,7 @@ _ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
 _CONTAINER_STEMS = {
     "down_blocks", "up_blocks", "resnets", "attentions", "transformer_blocks",
     "downsamplers", "upsamplers", "brushnet_down_blocks", "brushnet_up_blocks",
-    "layers", "net", "to_out", "blocks",
+    "layers", "net", "to_out", "blocks", "proj",
 }
 
 
@@ -110,13 +112,18 @@ def convert_deprecated_attention_keys(state_dict: Dict[str, Any]) -> Dict[str, A
     return state_dict
 
 
+def _allowed(key: str, allow_missing: Iterable[str]) -> bool:
+    return any(part in allow_missing for part in key.split("."))
+
+
 def validate_state_dict(module: nn.Module, state: Mapping[str, Any],
-                        where: str = "checkpoint") -> None:
+                        where: str = "checkpoint", allow_missing: Iterable[str] = ()) -> None:
     """Raise :class:`WeightMappingError` listing every missing key,
-    unexpected key and shape mismatch between `state` and `module`."""
+    unexpected key and shape mismatch between `state` and `module`.  Keys
+    with a part named in `allow_missing` (e.g. "to_k_ip") may be missing."""
     exp = {k: tuple(v.shape) for k, v in module.state_dict().items()}
     got = {k: tuple(v.shape) for k, v in state.items()}
-    missing = sorted(set(exp) - set(got))
+    missing = sorted(k for k in set(exp) - set(got) if not _allowed(k, allow_missing))
     unexpected = sorted(set(got) - set(exp))
     mismatched = sorted(
         f"{k}: checkpoint {got[k]} vs model {exp[k]}"
@@ -138,12 +145,14 @@ def validate_state_dict(module: nn.Module, state: Mapping[str, Any],
         )
 
 
-def load_into(module: nn.Module, state: Mapping[str, Any], where: str = "checkpoint") -> nn.Module:
-    """Strict load: validate keys and shapes, then `load_state_dict(strict=True)`."""
+def load_into(module: nn.Module, state: Mapping[str, Any], where: str = "checkpoint",
+              allow_missing: Iterable[str] = ()) -> nn.Module:
+    """Strict load: validate keys and shapes, then `load_state_dict`
+    (strict unless `allow_missing` names leaves the caller fills itself)."""
     state = {k: torch.as_tensor(np.asarray(v)) if not isinstance(v, torch.Tensor) else v
              for k, v in state.items()}
-    validate_state_dict(module, state, where)
-    module.load_state_dict(state, strict=True)
+    validate_state_dict(module, state, where, allow_missing)
+    module.load_state_dict(state, strict=not allow_missing)
     return module
 
 
@@ -241,9 +250,12 @@ def empty_module(cls, config: Mapping[str, Any], **overrides) -> nn.Module:
 
 
 def load_pretrained(cls, pretrained_path: str, subfolder: Optional[str] = None,
-                    **overrides) -> nn.Module:
+                    allow_missing: Iterable[str] = (), **overrides) -> nn.Module:
     """Build `cls` from a reference-layout folder's config.json and load its
-    safetensors strictly (on the CPU, in fp32; the caller moves it)."""
+    safetensors strictly (on the CPU, in fp32; the caller moves it).  Leaves
+    named in `allow_missing` may be absent from the file: they are left
+    uninitialised for the caller to fill (the IP-Adapter's to_k_ip/to_v_ip,
+    copied from to_k/to_v by `models.ip_adapter.init_ip_params_from_unet`)."""
     root = os.path.join(pretrained_path, subfolder) if subfolder else pretrained_path
     module = empty_module(cls, cls.load_config(root), **overrides)
     for name in (WEIGHTS_NAME, "diffusion_pytorch_model.fp16.safetensors"):
@@ -254,4 +266,4 @@ def load_pretrained(cls, pretrained_path: str, subfolder: Optional[str] = None,
     else:
         raise FileNotFoundError(f"no safetensors weights under {root}")
     weights = {k: v.float() for k, v in convert_deprecated_attention_keys(weights).items()}
-    return load_into(module, weights, where=root)
+    return load_into(module, weights, where=root, allow_missing=allow_missing)

@@ -10,8 +10,11 @@ and add them after conv_in, after every down resnet(+attn) and downsampler
 resnet(+attn) and upsampler.  `temb` takes a precomputed time embedding
 (`ops.embeddings.precompute_time_embeddings`).
 
-DeepCache, encoder reuse, IP-Adapter tokens and SDXL's text_time embedding
-are not ported yet.
+`ip_num_tokens` / `ip_scale` (IP-Adapter, JAX :49-52) give every
+cross-attention its decoupled `to_k_ip` / `to_v_ip` over the last
+`ip_num_tokens` context tokens.  The forward's DeepCache and encoder-reuse
+arguments (JAX :100-117) are described in `forward`.  SDXL's text_time
+embedding is not ported yet.
 """
 
 from __future__ import annotations
@@ -55,6 +58,8 @@ class UNet2DConditionModel(nn.Module, ConfigMixin):
         use_linear_projection: bool = False,
         flip_sin_to_cos: bool = True,
         freq_shift: int = 0,
+        ip_num_tokens: Optional[int] = None,
+        ip_scale: float = 1.0,
     ):
         super().__init__()
         self.sample_size = sample_size
@@ -74,13 +79,16 @@ class UNet2DConditionModel(nn.Module, ConfigMixin):
         self.use_linear_projection = use_linear_projection
         self.flip_sin_to_cos = flip_sin_to_cos
         self.freq_shift = freq_shift
+        self.ip_num_tokens = ip_num_tokens
+        self.ip_scale = ip_scale
 
         n = len(bocs)
         heads = _per_block(attention_head_dim, n)
         tlayers = _per_block(transformer_layers_per_block, n)
         temb_ch = bocs[0] * 4
         cross = dict(cross_attention_dim=cross_attention_dim,
-                     use_linear_projection=use_linear_projection)
+                     use_linear_projection=use_linear_projection,
+                     ip_num_tokens=ip_num_tokens, ip_scale=ip_scale)
 
         self.conv_in = nn.Conv2d(in_channels, bocs[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(bocs[0], temb_ch)
@@ -131,7 +139,26 @@ class UNet2DConditionModel(nn.Module, ConfigMixin):
         mid_block_add_sample: Optional[torch.Tensor] = None,
         up_block_add_samples: Optional[Sequence[torch.Tensor]] = None,
         temb: Optional[torch.Tensor] = None,  # precomputed (B or 1, 4*bocs[0])
-    ) -> torch.Tensor:
+        cached_deep: Optional[torch.Tensor] = None,
+        return_deep: bool = False,
+        cached_encoder: Optional[Tuple] = None,
+        return_encoder: bool = False,
+    ):
+        """DeepCache (arXiv:2312.03209): `return_deep=True` also returns the
+        hidden state entering the LAST up block; passing it back as
+        `cached_deep` skips down blocks 1..N, the mid block and up blocks
+        0..N-2 and recomputes only the shallow encoder/decoder around it ->
+        (sample, cached_deep).
+
+        Encoder reuse ("Faster Diffusion", arXiv:2312.09608):
+        `return_encoder=True` also returns `(sample entering the mid block,
+        skip stack)`, with any BrushNet down residuals already added;
+        passing it back as `cached_encoder` skips conv_in and every down
+        block and recomputes the mid block and the decoder.
+
+        The same step's cache gives the full forward's output exactly."""
+        if cached_deep is not None and cached_encoder is not None:
+            raise ValueError("cached_deep and cached_encoder are exclusive")
         b = sample.shape[0]
         if temb is not None:
             emb = temb.to(sample.dtype).expand(b, temb.shape[-1])
@@ -139,35 +166,58 @@ class UNet2DConditionModel(nn.Module, ConfigMixin):
             t = torch.as_tensor(timesteps, device=sample.device).reshape(-1).expand(b)
             emb = time_embedding(self, t)
 
-        sample = self.conv_in(sample)
-        down_adds = list(down_block_add_samples) if down_block_add_samples is not None else None
         up_adds = list(up_block_add_samples) if up_block_add_samples is not None else None
-
-        res_samples = (sample,)
-        if down_adds is not None:
-            sample = sample + down_adds.pop(0)
+        kw = dict(encoder_hidden_states=encoder_hidden_states)
+        shallow = cached_deep is not None
         n = len(self.block_out_channels)
-        for i, block in enumerate(self.down_blocks):
-            n_take = self.layers_per_block + (0 if i == n - 1 else 1)
-            adds = [down_adds.pop(0) for _ in range(n_take)] if down_adds is not None else None
-            sample, states = block(sample, emb, encoder_hidden_states=encoder_hidden_states,
-                                   add_samples=adds)
-            res_samples += states
+        num_layers = self.layers_per_block + 1
 
-        sample = self.mid_block(sample, emb, encoder_hidden_states=encoder_hidden_states)
+        if cached_encoder is not None:
+            sample, res_samples = cached_encoder
+            res_samples = tuple(res_samples)
+        else:
+            sample = self.conv_in(sample)
+            down_adds = (list(down_block_add_samples) if down_block_add_samples is not None
+                         else None)
+            res_samples = (sample,)
+            if down_adds is not None:
+                sample = sample + down_adds.pop(0)
+            for i, block in enumerate(self.down_blocks):
+                if shallow and i > 0:
+                    break
+                n_take = self.layers_per_block + (0 if i == n - 1 else 1)
+                adds = [down_adds.pop(0) for _ in range(n_take)] if down_adds is not None else None
+                sample, states = block(sample, emb, add_samples=adds, **kw)
+                res_samples += states
+        encoder_cache = (sample, res_samples)
+
+        if shallow:
+            # the last up block over the cached deep trunk, then the output
+            adds = up_adds[-num_layers:] if up_adds is not None else None
+            sample, _ = self.up_blocks[-1](cached_deep, res_samples[:num_layers], emb,
+                                           add_samples=adds, **kw)
+            return self.conv_out(self.conv_norm_out(sample, apply_silu=True)), cached_deep
+
+        sample = self.mid_block(sample, emb, **kw)
         if mid_block_add_sample is not None:
             sample = sample + mid_block_add_sample
 
         res_samples = list(res_samples)
-        num_layers = self.layers_per_block + 1
+        deep = None
         for i, block in enumerate(self.up_blocks):
+            if i == n - 1:
+                deep = sample               # the DeepCache point
             skips = tuple(res_samples[-num_layers:])
             res_samples = res_samples[:-num_layers]
             upsample_size = tuple(res_samples[-1].shape[2:]) if res_samples else None
             n_take = num_layers + (0 if i == n - 1 else 1)
             adds = [up_adds.pop(0) for _ in range(n_take)] if up_adds is not None else None
-            sample, _ = block(sample, skips, emb, encoder_hidden_states=encoder_hidden_states,
-                              add_samples=adds, upsample_size=upsample_size)
+            sample, _ = block(sample, skips, emb, add_samples=adds,
+                              upsample_size=upsample_size, **kw)
 
-        sample = self.conv_norm_out(sample, apply_silu=True)
-        return self.conv_out(sample)
+        sample = self.conv_out(self.conv_norm_out(sample, apply_silu=True))
+        if return_deep:
+            return sample, deep
+        if return_encoder:
+            return sample, encoder_cache
+        return sample

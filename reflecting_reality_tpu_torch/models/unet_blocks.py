@@ -7,6 +7,8 @@ src/diffusers/models/unets/unet_2d_blocks.py), with the BrushNet extensions:
 - Up blocks accept `add_samples` and/or `capture_res`; captured states are
   taken BEFORE the additive injection.
 - `MidBlock2D` is the conv-only mid block BrushNet uses.
+- The cross-attention blocks pass `ip_num_tokens` / `ip_scale` (IP-Adapter)
+  to their transformers (JAX :83-84, :191-192, :256-257).
 
 Injection lists are consumed in the exact pop order of the JAX `_pop`.
 """
@@ -75,7 +77,7 @@ class CrossAttnDownBlock2D(_DownBase):
                  add_downsample=True, resnet_eps=1e-5, resnet_groups=32,
                  downsample_padding=1, transformer_layers_per_block=1,
                  num_attention_heads=8, cross_attention_dim=768,
-                 use_linear_projection=False):
+                 use_linear_projection=False, ip_num_tokens=None, ip_scale=1.0):
         super().__init__(in_channels, out_channels, temb_channels, num_layers,
                          add_downsample, resnet_eps, resnet_groups, downsample_padding)
         self.attentions = nn.ModuleList([
@@ -84,7 +86,8 @@ class CrossAttnDownBlock2D(_DownBase):
                                num_layers=transformer_layers_per_block,
                                cross_attention_dim=cross_attention_dim,
                                norm_num_groups=resnet_groups,
-                               use_linear_projection=use_linear_projection)
+                               use_linear_projection=use_linear_projection,
+                               ip_num_tokens=ip_num_tokens, ip_scale=ip_scale)
             for _ in range(num_layers)
         ])
 
@@ -138,7 +141,8 @@ class CrossAttnUpBlock2D(_UpBase):
     def __init__(self, in_channels, prev_output_channel, out_channels, temb_channels,
                  num_layers=3, add_upsample=True, resnet_eps=1e-5, resnet_groups=32,
                  transformer_layers_per_block=1, num_attention_heads=8,
-                 cross_attention_dim=768, use_linear_projection=False):
+                 cross_attention_dim=768, use_linear_projection=False, ip_num_tokens=None,
+                 ip_scale=1.0):
         super().__init__(in_channels, prev_output_channel, out_channels, temb_channels,
                          num_layers, add_upsample, resnet_eps, resnet_groups)
         self.attentions = nn.ModuleList([
@@ -147,7 +151,8 @@ class CrossAttnUpBlock2D(_UpBase):
                                num_layers=transformer_layers_per_block,
                                cross_attention_dim=cross_attention_dim,
                                norm_num_groups=resnet_groups,
-                               use_linear_projection=use_linear_projection)
+                               use_linear_projection=use_linear_projection,
+                               ip_num_tokens=ip_num_tokens, ip_scale=ip_scale)
             for _ in range(num_layers)
         ])
 
@@ -157,7 +162,8 @@ class UNetMidBlock2DCrossAttn(nn.Module):
 
     def __init__(self, in_channels, temb_channels, num_layers=1, resnet_eps=1e-5,
                  resnet_groups=32, transformer_layers_per_block=1, num_attention_heads=8,
-                 cross_attention_dim=768, use_linear_projection=False):
+                 cross_attention_dim=768, use_linear_projection=False, ip_num_tokens=None,
+                 ip_scale=1.0):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(in_channels, in_channels, groups=resnet_groups, eps=resnet_eps,
@@ -170,7 +176,8 @@ class UNetMidBlock2DCrossAttn(nn.Module):
                                num_layers=transformer_layers_per_block,
                                cross_attention_dim=cross_attention_dim,
                                norm_num_groups=resnet_groups,
-                               use_linear_projection=use_linear_projection)
+                               use_linear_projection=use_linear_projection,
+                               ip_num_tokens=ip_num_tokens, ip_scale=ip_scale)
             for _ in range(num_layers)
         ])
 

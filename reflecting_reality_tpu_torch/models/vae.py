@@ -137,11 +137,19 @@ class Decoder(nn.Module):
         self.conv_norm_out = GroupNorm(norm_num_groups, rb[-1], eps=1e-6)
         self.conv_out = nn.Conv2d(rb[-1], out_channels, 3, padding=1)
 
-    def forward(self, z):
-        x = self.mid_block(self.conv_in(z))
+    def head(self, z):
+        """conv_in -> mid block (the global attention lives here)."""
+        return self.mid_block(self.conv_in(z))
+
+    def tail(self, x):
+        """The conv-only up blocks -> GroupNorm+SiLU -> conv_out (a finite
+        receptive field, so `parallel.sharded_vae.tiled_decode` tiles it)."""
         for block in self.up_blocks:
             x = block(x)
         return self.conv_out(self.conv_norm_out(x, apply_silu=True))
+
+    def forward(self, z):
+        return self.tail(self.head(z))
 
 
 class AutoencoderKL(nn.Module, ConfigMixin):

@@ -19,7 +19,11 @@ routes by the tensors' device and shape, never by a process global:
 
 `Attention` keeps separate to_q/to_k/to_v parameters (diffusers names) and
 concatenates them for one fused qkv (self) or kv (cross) product (:196-214);
-the kernel reads the q/k/v column slices of that product in place.
+the kernel reads the q/k/v column slices of that product in place.  With
+`ip_num_tokens` (IP-Adapter, JAX :124-131, :223-230) the last
+`ip_num_tokens` context tokens attend through bias-free `to_k_ip` /
+`to_v_ip` and are added with `ip_scale`; that attention has Tq != Tk, so it
+takes the plain path, as in JAX.
 """
 
 from __future__ import annotations
@@ -58,7 +62,8 @@ class Attention(nn.Module):
 
     def __init__(self, query_dim: int, heads: int = 8, dim_head: int = 64,
                  cross_attention_dim: Optional[int] = None, qkv_bias: bool = False,
-                 residual_connection: bool = False, norm_num_groups: Optional[int] = None):
+                 residual_connection: bool = False, norm_num_groups: Optional[int] = None,
+                 ip_num_tokens: Optional[int] = None, ip_scale: float = 1.0):
         super().__init__()
         inner = heads * dim_head
         ctx_dim = cross_attention_dim or query_dim
@@ -70,6 +75,10 @@ class Attention(nn.Module):
         self.to_k = nn.Linear(ctx_dim, inner, bias=qkv_bias)
         self.to_v = nn.Linear(ctx_dim, inner, bias=qkv_bias)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim), nn.Identity()])
+        self.ip_num_tokens, self.ip_scale = ip_num_tokens, ip_scale
+        if ip_num_tokens:
+            self.to_k_ip = nn.Linear(ctx_dim, inner, bias=False)
+            self.to_v_ip = nn.Linear(ctx_dim, inner, bias=False)
 
     def _fused(self, x: torch.Tensor, projs) -> torch.Tensor:
         w = torch.cat([p.weight for p in projs], dim=0)
@@ -88,6 +97,11 @@ class Attention(nn.Module):
             hidden_states = hidden_states.reshape(b, c, h * w).transpose(1, 2)
 
         inner = self.heads * self.dim_head
+        ip_context = None
+        if self.ip_num_tokens and encoder_hidden_states is not None:
+            end = encoder_hidden_states.shape[1] - self.ip_num_tokens
+            encoder_hidden_states, ip_context = (encoder_hidden_states[:, :end],
+                                                 encoder_hidden_states[:, end:])
         if encoder_hidden_states is None:
             q, k, v = self._fused(hidden_states, (self.to_q, self.to_k, self.to_v)).split(inner, -1)
         else:
@@ -96,11 +110,17 @@ class Attention(nn.Module):
 
         bq, tq = q.shape[:2]
         tk = k.shape[1]
+        q = q.view(bq, tq, self.heads, self.dim_head)
         out = dot_product_attention(
-            q.view(bq, tq, self.heads, self.dim_head),
+            q,
             k.view(bq, tk, self.heads, self.dim_head),
             v.view(bq, tk, self.heads, self.dim_head),
         )
+        if ip_context is not None:
+            ti = ip_context.shape[1]
+            out = out + self.ip_scale * dot_product_attention(
+                q, self.to_k_ip(ip_context).view(bq, ti, self.heads, self.dim_head),
+                self.to_v_ip(ip_context).view(bq, ti, self.heads, self.dim_head))
         out = self.to_out[0](out.reshape(bq, tq, inner))
 
         if spatial:

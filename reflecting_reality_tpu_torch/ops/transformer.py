@@ -4,7 +4,9 @@ src/diffusers/models/transformers/transformer_2d.py:44, attention.py:97).
 
 SD-1.5 uses use_linear_projection=False: GroupNorm -> 1x1 conv proj_in ->
 flatten to tokens -> [self-attn, cross-attn, GEGLU-FF] x N -> 1x1 conv
-proj_out -> residual add.  LayerNorm eps is 1e-5; gelu is exact.
+proj_out -> residual add.  LayerNorm eps is 1e-5; gelu is exact.  The
+IP-Adapter fields (`ip_num_tokens`, `ip_scale`) reach the cross-attention
+`attn2` only (JAX :52-66, :86-113).
 """
 
 from __future__ import annotations
@@ -45,13 +47,15 @@ class FeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, num_attention_heads: int, attention_head_dim: int,
-                 cross_attention_dim: Optional[int] = None):
+                 cross_attention_dim: Optional[int] = None,
+                 ip_num_tokens: Optional[int] = None, ip_scale: float = 1.0):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn1 = Attention(dim, num_attention_heads, attention_head_dim)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.attn2 = Attention(dim, num_attention_heads, attention_head_dim,
-                               cross_attention_dim=cross_attention_dim)
+                               cross_attention_dim=cross_attention_dim,
+                               ip_num_tokens=ip_num_tokens, ip_scale=ip_scale)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
@@ -65,7 +69,8 @@ class BasicTransformerBlock(nn.Module):
 class Transformer2DModel(nn.Module):
     def __init__(self, in_channels: int, num_attention_heads: int, attention_head_dim: int,
                  num_layers: int = 1, cross_attention_dim: Optional[int] = None,
-                 norm_num_groups: int = 32, use_linear_projection: bool = False):
+                 norm_num_groups: int = 32, use_linear_projection: bool = False,
+                 ip_num_tokens: Optional[int] = None, ip_scale: float = 1.0):
         super().__init__()
         inner = num_attention_heads * attention_head_dim
         self.use_linear_projection = use_linear_projection
@@ -78,7 +83,8 @@ class Transformer2DModel(nn.Module):
             self.proj_out = nn.Conv2d(inner, in_channels, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, num_attention_heads, attention_head_dim,
-                                  cross_attention_dim=cross_attention_dim)
+                                  cross_attention_dim=cross_attention_dim,
+                                  ip_num_tokens=ip_num_tokens, ip_scale=ip_scale)
             for _ in range(num_layers)
         ])
 

@@ -26,13 +26,28 @@ different numbers; parity tests pass `latents=` and
 `deterministic_vae_encode=True`.
 
 The host boundary is numpy NHWC, as in JAX; inside, tensors are NCHW on the
-pipeline's device.  DeepCache, encoder reuse, int8, VAE tiling, the sharded
-VAE, data parallelism, per-step dispatch, the normals ip_adapter mode and
-SDXL are not ported yet.
+pipeline's device.
+
+Normals `ip_adapter` mode (JAX :72-88, :116-180, :1099-1115): `normals` is
+the (1, 3) unit mean mirror normal; `normal_proj` freq-encodes and projects
+it to one token, appended to both CFG halves of the UNet's prompt embeds
+(whose cross-attentions split it off into `to_k_ip`/`to_v_ip`), while
+BrushNet keeps the 77 text tokens.
+
+Approximate modes, each off by default: DeepCache (`enable_deep_cache`)
+and encoder reuse (`enable_encoder_reuse`) run the full dual branch on
+steps i % interval == 0, caching the UNet's deep trunk (or its encoder
+output and skip stack) and the BrushNet residuals, and on the other steps
+only the shallow (or decoder-only) UNet forward (JAX :598-703); VAE tiling
+(`enable_vae_tiling`, `parallel.sharded_vae.tiled_decode`).  The call's
+`dispatch` ("scan" | "per_step") is accepted for JAX's callers: the loop
+here is already one step at a time, so both give the same images.  int8,
+the sharded VAE, data parallelism and SDXL are not ported yet.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -44,10 +59,6 @@ from reflecting_reality_tpu_torch.pipelines.image_processor import ImageProcesso
 from reflecting_reality_tpu_torch.schedulers.common import NoiseSchedule, ddim_timesteps
 from reflecting_reality_tpu_torch.schedulers.ddim import ddim_step
 from reflecting_reality_tpu_torch.schedulers.unipc import UniPCSampler
-
-
-IP_ADAPTER_UNPORTED = ("normals_conditioning_mode='ip_adapter' is not ported to the PyTorch "
-                       "package yet (ROADMAP.md queue A, item 14)")
 
 
 def _tile(res):
@@ -86,7 +97,8 @@ class StableDiffusionBrushNetPipeline:
         brushnet,
         schedule: Optional[NoiseSchedule] = None,
         depth_conditioning_mode: Optional[str] = None,     # None | "concat" | "latents"
-        normals_conditioning_mode: Optional[str] = None,   # None | "concat" | "latents"
+        normals_conditioning_mode: Optional[str] = None,   # + "ip_adapter"
+        normal_proj=None,         # NormalProjModel, ip_adapter mode
         vae_scale_factor: int = 8,
         scaling_factor: float = 0.18215,
         dtype: torch.dtype = torch.float32,
@@ -97,12 +109,13 @@ class StableDiffusionBrushNetPipeline:
         `device` if they are elsewhere, never cast) and runs every call
         under `torch.autocast` in `dtype`: the training CLI's validation
         runs the live modules this way, fp32 BrushNet masters and all."""
-        if normals_conditioning_mode == "ip_adapter":
-            raise NotImplementedError(IP_ADAPTER_UNPORTED)
         if depth_conditioning_mode not in (None, "concat", "latents"):
             raise ValueError(f"depth_conditioning_mode={depth_conditioning_mode!r}")
-        if normals_conditioning_mode not in (None, "concat", "latents"):
+        if normals_conditioning_mode not in (None, "concat", "latents", "ip_adapter"):
             raise ValueError(f"normals_conditioning_mode={normals_conditioning_mode!r}")
+        if normals_conditioning_mode == "ip_adapter" and normal_proj is None:
+            raise ValueError("normals_conditioning_mode='ip_adapter' needs normal_proj "
+                             "(a NormalProjModel)")
         self.device = resolve_device(device)
         self.dtype = dtype
         to = (dtype,) if cast_modules else ()
@@ -110,6 +123,8 @@ class StableDiffusionBrushNetPipeline:
         self.text_encoder = text_encoder.to(self.device, *to).eval()
         self.unet = unet.to(self.device, *to).eval()
         self.brushnet = brushnet.to(self.device, *to).eval()
+        self.normal_proj = (normal_proj.to(self.device, *to).eval()
+                            if normal_proj is not None else None)
         self.autocast = not cast_modules and dtype != torch.float32
         self.tokenizer = tokenizer
         self.schedule = schedule or NoiseSchedule.create(
@@ -122,6 +137,9 @@ class StableDiffusionBrushNetPipeline:
         self.scaling_factor = scaling_factor
         self.image_processor = ImageProcessor(vae_scale_factor=vae_scale_factor)
         self._prompt_cache = {}
+        self._vae_tiling = None     # (num_tiles, overlap) when enabled
+        self._deep_cache = None     # interval when enabled (DeepCache)
+        self._encoder_reuse = None  # interval when enabled (encoder reuse)
 
     @classmethod
     def from_pretrained(
@@ -131,12 +149,20 @@ class StableDiffusionBrushNetPipeline:
         unet_path: Optional[str] = None,
         depth_conditioning_mode: Optional[str] = None,
         normals_conditioning_mode: Optional[str] = None,
+        ip_adapter_path: Optional[str] = None,
+        ip_adapter_scale: float = 1.0,
         dtype: torch.dtype = torch.float32,
         device: Union[str, torch.device, None] = None,
     ) -> "StableDiffusionBrushNetPipeline":
         """Load from diffusers-layout folders: a base SD-1.5 folder with
         unet/vae/text_encoder/tokenizer subfolders, a MirrorFusion brushnet
-        folder, and optionally a fine-tuned unet folder."""
+        folder, and optionally a fine-tuned unet folder.
+
+        ip_adapter mode: the UNet is built with IP-Adapter fields
+        (`ip_num_tokens=4`, `ip_scale=ip_adapter_scale`) and its trained
+        to_k_ip/to_v_ip come from the unet folder; `NormalProjModel` loads
+        from `ip_adapter_path`, by default the `ip_adapter/` folder beside
+        the brushnet folder (the layout `training.checkpoint` writes)."""
         from reflecting_reality_tpu_torch.core.io import load_pretrained
         from reflecting_reality_tpu_torch.data.tokenizer import CLIPTokenizer
         from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
@@ -145,20 +171,69 @@ class StableDiffusionBrushNetPipeline:
         from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
 
         device = resolve_device(device)  # fail before loading anything
+        unet_overrides, normal_proj = {}, None
         if normals_conditioning_mode == "ip_adapter":
-            raise NotImplementedError(IP_ADAPTER_UNPORTED)
+            from reflecting_reality_tpu_torch.models.ip_adapter import (
+                DEFAULT_NUM_TOKENS, NORMAL_PROJ_FILE, build_normal_proj,
+            )
+
+            unet_overrides = dict(ip_num_tokens=DEFAULT_NUM_TOKENS, ip_scale=ip_adapter_scale)
+        unet = load_pretrained(UNet2DConditionModel, unet_path or base_path,
+                               subfolder=None if unet_path else "unet", **unet_overrides)
+        if normals_conditioning_mode == "ip_adapter":
+            ip_dir = ip_adapter_path or os.path.join(
+                os.path.dirname(os.path.normpath(brushnet_path)), "ip_adapter")
+            normal_proj = build_normal_proj(
+                unet.cross_attention_dim,
+                path=os.path.join(ip_dir, os.path.basename(NORMAL_PROJ_FILE)))
         return cls(
             vae=load_pretrained(AutoencoderKL, base_path, subfolder="vae"),
             text_encoder=load_text_encoder(base_path),
             tokenizer=CLIPTokenizer.from_pretrained(base_path, subfolder="tokenizer"),
-            unet=load_pretrained(UNet2DConditionModel, unet_path or base_path,
-                                 subfolder=None if unet_path else "unet"),
+            unet=unet,
             brushnet=load_pretrained(BrushNetModel, brushnet_path),
             depth_conditioning_mode=depth_conditioning_mode,
             normals_conditioning_mode=normals_conditioning_mode,
+            normal_proj=normal_proj,
             dtype=dtype,
             device=device,
         )
+
+    # ------------------------------------------------------ approximate modes
+
+    def enable_vae_tiling(self, num_tiles: int = 4, overlap: int = 8) -> None:
+        """Tiled VAE decode (`parallel.sharded_vae.tiled_decode`): bounds the
+        decoder's peak memory at high resolution; approximate."""
+        self._vae_tiling = (num_tiles, overlap)
+
+    def disable_vae_tiling(self) -> None:
+        self._vae_tiling = None
+
+    def enable_deep_cache(self, interval: int = 2) -> None:
+        """DeepCache (arXiv:2312.03209): every `interval`-th step runs the
+        full dual branch and caches the UNet's deep trunk and the BrushNet
+        residuals; the steps between recompute only the shallow encoder and
+        decoder around them.  Approximate; interval 1 is the exact path."""
+        if interval < 1:
+            raise ValueError("deep_cache interval must be >= 1")
+        self._deep_cache = None if interval == 1 else int(interval)
+
+    def disable_deep_cache(self) -> None:
+        self._deep_cache = None
+
+    def enable_encoder_reuse(self, interval: int = 2) -> None:
+        """Encoder reuse ("Faster Diffusion", arXiv:2312.09608): every
+        `interval`-th step runs the full dual branch and caches the UNet's
+        encoder output and skip stack (BrushNet down residuals applied) and
+        the BrushNet mid/up residuals; the steps between skip conv_in, the
+        down blocks and BrushNet and run the mid block and the decoder.
+        Approximate; interval 1 is the exact path."""
+        if interval < 1:
+            raise ValueError("encoder_reuse interval must be >= 1")
+        self._encoder_reuse = None if interval == 1 else int(interval)
+
+    def disable_encoder_reuse(self) -> None:
+        self._encoder_reuse = None
 
     # ------------------------------------------------------------------ text
 
@@ -257,6 +332,7 @@ class StableDiffusionBrushNetPipeline:
         guess_mode: bool = False,
         scheduler: str = "unipc",
         solver_order: int = 2,
+        dispatch: str = "scan",                 # "scan" | "per_step": the same loop here
         output_type: str = "np",
         deterministic_vae_encode: bool = False,
     ):
@@ -264,6 +340,13 @@ class StableDiffusionBrushNetPipeline:
         "pil", "latent" (the decoded float image, NHWC numpy, before the
         uint8 conversion, as in JAX) or "device" (uint8 NHWC tensor left on
         the device)."""
+        if dispatch not in ("scan", "per_step"):
+            raise ValueError(dispatch)
+        deep_cache, encoder_reuse = self._deep_cache, self._encoder_reuse
+        if deep_cache and encoder_reuse:
+            raise ValueError("deep_cache and encoder_reuse are mutually exclusive")
+        if (deep_cache or encoder_reuse) and guess_mode:
+            raise ValueError("cached modes + guess_mode unsupported")
         dev, dtype, sf = self.device, self.dtype, self.scaling_factor
         do_cfg = guidance_scale > 1.0
         if generator is None:
@@ -292,9 +375,9 @@ class StableDiffusionBrushNetPipeline:
             depth_np = self.image_processor.preprocess(depth, h, w)[..., :1]
             if depth_np.shape[0] == 1 and uniq > 1:
                 depth_np = np.repeat(depth_np, uniq, axis=0)
-        if self.normals_conditioning_mode is not None:
-            if normals is None:
-                raise ValueError("normals_conditioning_mode set but no normals given")
+        if normals is None and self.normals_conditioning_mode is not None:
+            raise ValueError("normals_conditioning_mode set but no normals given")
+        if self.normals_conditioning_mode in ("concat", "latents"):
             normals_np = self.image_processor.preprocess(normals, h, w)
             if normals_np.shape[0] == 1 and uniq > 1:
                 normals_np = np.repeat(normals_np, uniq, axis=0)
@@ -344,6 +427,21 @@ class StableDiffusionBrushNetPipeline:
             cond = torch.cat([cond, encode(normals_dev).to(cond.dtype)], dim=1)
         cond = cond.to(dtype)
 
+        brushnet_embeds = prompt_embeds
+        if self.normals_conditioning_mode == "ip_adapter":
+            # the (1, 3) mean mirror normal -> one token appended to both CFG
+            # halves of the UNet's embeds; BrushNet keeps the text tokens
+            from reflecting_reality_tpu_torch.models.ip_adapter import normal_tokens
+
+            normal = torch.as_tensor(np.asarray(normals, np.float32).reshape(-1, 1, 3),
+                                     device=dev)
+            tok = normal_tokens(normal, self.normal_proj)
+            if tok.shape[0] == 1 and batch_size > 1:
+                tok = tok.repeat_interleave(batch_size, dim=0)
+            if do_cfg:
+                tok = torch.cat([tok, tok])
+            prompt_embeds = torch.cat([prompt_embeds, tok.to(prompt_embeds.dtype)], dim=1)
+
         # 4. brushnet_keep windowing
         keeps = [
             1.0 - float(i / num_inference_steps < control_guidance_start
@@ -365,14 +463,38 @@ class StableDiffusionBrushNetPipeline:
         temb_b = precompute_time_embeddings(self.brushnet, timesteps)
 
         lat = latents0
+        interval = deep_cache or encoder_reuse
+        cache = None
         for i in range(num_inference_steps):
             latent_in = torch.cat([lat, lat]) if do_cfg else lat
-            down_res, mid_res, up_res = self._residuals(
-                lat, latent_in, prompt_embeds, cond, cond_scales[i], temb_b[i:i + 1],
-                do_cfg, guess_mode)
-            pred = self.unet(latent_in.to(dtype), None, prompt_embeds,
-                             down_block_add_samples=down_res, mid_block_add_sample=mid_res,
-                             up_block_add_samples=up_res, temb=temb_u[i:i + 1])
+            unet_kw = dict(temb=temb_u[i:i + 1])
+            if interval is None or i % interval == 0:
+                # the full dual branch (refreshing the cache in a cached mode)
+                down_res, mid_res, up_res = self._residuals(
+                    lat, latent_in, brushnet_embeds, cond, cond_scales[i], temb_b[i:i + 1],
+                    do_cfg, guess_mode)
+                out = self.unet(latent_in.to(dtype), None, prompt_embeds,
+                                down_block_add_samples=down_res, mid_block_add_sample=mid_res,
+                                up_block_add_samples=up_res, return_deep=bool(deep_cache),
+                                return_encoder=bool(encoder_reuse), **unet_kw)
+                if deep_cache:
+                    pred, deep = out
+                    cache = (deep, down_res, mid_res, up_res)
+                elif encoder_reuse:
+                    pred, enc = out
+                    cache = (enc, mid_res, up_res)
+                else:
+                    pred = out
+            elif deep_cache:
+                deep, down_res, mid_res, up_res = cache
+                pred, _ = self.unet(latent_in.to(dtype), None, prompt_embeds,
+                                    down_block_add_samples=down_res, mid_block_add_sample=mid_res,
+                                    up_block_add_samples=up_res, cached_deep=deep, **unet_kw)
+            else:
+                enc, mid_res, up_res = cache
+                pred, _ = self.unet(latent_in.to(dtype), None, prompt_embeds,
+                                    mid_block_add_sample=mid_res, up_block_add_samples=up_res,
+                                    cached_encoder=enc, return_encoder=True, **unet_kw)
             if do_cfg:
                 uncond, text = pred.float().chunk(2)
                 pred = uncond + float(np.float32(guidance_scale)) * (text - uncond)
@@ -383,7 +505,15 @@ class StableDiffusionBrushNetPipeline:
                 lat = ddim_step(self.schedule, pred, int(timesteps[i]), t_prev, lat)
 
         # 6. decode
-        image_out = self.vae.decode((lat / sf).to(dtype)).float()
+        z = (lat / sf).to(dtype)
+        if self._vae_tiling is not None:
+            from reflecting_reality_tpu_torch.parallel.sharded_vae import tiled_decode
+
+            image_out = tiled_decode(self.vae, z, num_tiles=self._vae_tiling[0],
+                                     overlap=self._vae_tiling[1],
+                                     scale=self.vae_scale_factor).float()
+        else:
+            image_out = self.vae.decode(z).float()
         if output_type == "latent":
             return _nhwc(image_out).cpu().numpy()
         image_u8 = _nhwc(to_uint8(image_out))

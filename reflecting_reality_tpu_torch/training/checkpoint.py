@@ -5,8 +5,11 @@ train_brushnet_mirror.py:997-1069 save/load hooks, :1473-1498 pruning).
 Layout per step N:
     checkpoint-N/
         brushnet/{config.json, diffusion_pytorch_model.safetensors}
-        unet/...            (iff train_base_unet)
-        ema/brushnet/...    (iff use_ema; ema/unet too with train_base_unet)
+        unet/...            (iff train_base_unet, or ip_adapter mode: it holds
+                             the trained to_k_ip/to_v_ip)
+        ip_adapter/normal_proj.safetensors   (ip_adapter mode)
+        ema/brushnet/...    (iff use_ema; ema/unet too with a trainable unet,
+                             its frozen leaves taken from the module)
         train_state.pt      (AdamW state_dict, step, updates, micro_step and,
                              when accumulating, the running gradient mean)
 
@@ -37,6 +40,11 @@ from reflecting_reality_tpu_torch.core.io import (
     load_into,
     load_safetensors,
     save_pretrained,
+)
+from reflecting_reality_tpu_torch.models.ip_adapter import (
+    NORMAL_PROJ_FILE,
+    load_normal_proj,
+    save_normal_proj,
 )
 
 TRAIN_STATE_NAME = "train_state.pt"
@@ -134,9 +142,14 @@ def save_state(output_dir: str, step: int, state, total_limit: Optional[int] = N
     os.makedirs(path)
     snap = state if isinstance(state, Snapshot) else Snapshot(state)
     for name, module in snap.modules.items():
-        save_pretrained(module, os.path.join(path, name), snap.weights[name])
+        if name == "normal_proj":
+            save_normal_proj(snap.weights[name], path)
+        else:
+            save_pretrained(module, os.path.join(path, name), snap.weights[name])
     for name, shadow in (snap.ema or {}).items():
-        save_pretrained(snap.modules[name], os.path.join(path, "ema", name), shadow)
+        if name != "normal_proj":           # JAX writes ema/brushnet and ema/unet only
+            save_pretrained(snap.modules[name], os.path.join(path, "ema", name),
+                            {**snap.weights[name], **shadow})
     torch.save(snap.train_state, os.path.join(path, TRAIN_STATE_NAME))
     shutil.rmtree(final, ignore_errors=True)      # a re-save of the same step
     os.rename(path, final)
@@ -197,14 +210,17 @@ def load_state(path: str, state):
     counters.  Returns `state`."""
     for name, module in state.trainable.items():
         folder = os.path.join(path, name)
-        if name == "brushnet" or os.path.isdir(folder):
+        if name == "normal_proj":
+            if os.path.isfile(os.path.join(path, NORMAL_PROJ_FILE)):
+                load_normal_proj(module, os.path.join(path, NORMAL_PROJ_FILE))
+        elif name == "brushnet" or os.path.isdir(folder):
             _load_module(module, folder)
     if state.ema is not None:
         for name, shadow in state.ema.items():
             folder = os.path.join(path, "ema", name)
             if os.path.isdir(folder):
                 saved = load_safetensors(os.path.join(folder, WEIGHTS_NAME))
-                if set(saved) != set(shadow):
+                if not set(shadow) <= set(saved):
                     raise ValueError(f"{folder}: EMA keys differ from the module's")
                 for k, t in shadow.items():
                     t.copy_(saved[k])

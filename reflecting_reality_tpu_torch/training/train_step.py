@@ -18,6 +18,17 @@ Per step, with the same contracts as the JAX module:
 - clip by global norm (optax semantics: g·max_norm/‖g‖ when ‖g‖ ≥ max_norm),
   AdamW with the LR schedule, optional EMA (:1459-1466).
 
+Normals `ip_adapter` mode (JAX :216-268, :318-326): `make_train_step` takes
+a `NormalProjModel`; the batch's `normals` (B, 1, 3) is freq-encoded and
+projected to one token, appended after the 77 text tokens for the UNet only
+(BrushNet sees the plain text).  The UNet joins the trainable set, but only
+its `to_k_ip`/`to_v_ip` take gradients (all of it with `train_base_unet`);
+`normal_proj` trains.  AdamW is built over the trainable leaves only, so
+weight decay never moves a frozen leaf (JAX routes them around AdamW with
+`optax.masked`), and the global norm is JAX's, whose frozen gradients are
+zeros.  The EMA shadows the trainable leaves; a checkpoint's `ema/unet`
+fills the frozen ones from the module.
+
 What is PyTorch here rather than JAX: the modules hold their parameters, so
 `TrainState` holds modules and the optimizer; the step updates them in place
 and returns the same state object.  The latents, conditioning and text
@@ -60,10 +71,6 @@ from reflecting_reality_tpu_torch.schedulers.common import (
 )
 from reflecting_reality_tpu_torch.training.ema import ema_update
 from reflecting_reality_tpu_torch.training.lr_schedules import get_schedule
-
-IP_ADAPTER_TODO = ("normals_conditioning_mode='ip_adapter' is not ported yet "
-                   "(ROADMAP.md queue A, item 14)")
-
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -155,7 +162,8 @@ def assemble_conditioning_latents(
     dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (latents, conditioning latents), NCHW, from an NHWC batch (the JAX
-    version's third output, the ip_adapter normal, waits for that mode).
+    version's third output, the ip_adapter normal, is the batch's `normals`
+    as it is: the step reads it there).
     The posterior draws are taken from `vae_noise` ("latents", "cond",
     "depth", "normals": NCHW noise shaped like each latent) where given, else
     from `generator`.  Cached moments are cast to `dtype` first, as the JAX
@@ -198,8 +206,6 @@ def assemble_conditioning_latents(
         n = (from_cache("normals", "normals_latent_moments") if cached
              else enc("normals", _nchw(batch["normals"], device)))
         cond = torch.cat([cond, n.to(cond.dtype)], dim=1)
-    elif config.normals_conditioning_mode == "ip_adapter":
-        raise NotImplementedError(IP_ADAPTER_TODO)
     return latents, cond
 
 
@@ -254,8 +260,10 @@ def _dots_context():
 
 def denoise(unet: nn.Module, brushnet: nn.Module, noisy: torch.Tensor, timesteps: torch.Tensor,
             ehs: torch.Tensor, cond: torch.Tensor, gradient_checkpointing: bool = False,
-            policy: str = "full") -> torch.Tensor:
+            policy: str = "full", unet_ehs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """BrushNet's 28 residuals injected into the UNet -> the UNet's prediction.
+    `unet_ehs` (default `ehs`) is the UNet's context: the text tokens and,
+    in ip_adapter mode, the normal token after them.
     With `gradient_checkpointing` both forwards are checkpointed
     (non-reentrant `torch.utils.checkpoint`): under `policy` "full" they are
     recomputed whole in the backward pass, under "dots" all but the outputs
@@ -268,8 +276,8 @@ def denoise(unet: nn.Module, brushnet: nn.Module, noisy: torch.Tensor, timesteps
         return module(*args, **kwargs)
 
     down, mid, up = run(brushnet, noisy, timesteps, ehs, cond)
-    return run(unet, noisy, timesteps, ehs, down_block_add_samples=down,
-               mid_block_add_sample=mid, up_block_add_samples=up)
+    return run(unet, noisy, timesteps, ehs if unet_ehs is None else unet_ehs,
+               down_block_add_samples=down, mid_block_add_sample=mid, up_block_add_samples=up)
 
 
 def diffusion_loss(pred: torch.Tensor, target: torch.Tensor, timesteps: torch.Tensor,
@@ -291,18 +299,21 @@ def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
 def make_train_step(unet: nn.Module, brushnet: nn.Module, vae: nn.Module,
                     text_encoder: nn.Module, config: TrainConfig,
                     dtype: torch.dtype = torch.float32,
-                    schedule: Optional[NoiseSchedule] = None, device=None):
+                    schedule: Optional[NoiseSchedule] = None, device=None,
+                    normal_proj: Optional[nn.Module] = None):
     """-> (train_step, init_state).
 
-    `init_state()` moves the four modules to `device` (the card unless the
+    `init_state()` moves the modules to `device` (the card unless the
     caller passes "cpu"; raises where CUDA is missing), freezes the frozen
     ones and builds the optimizer and EMA.  `train_step(state, batch,
     generator, draws=None) -> (state, metrics)` with metrics `loss`,
     `grad_norm` and `nonfinite_skipped` (0-d tensors); `batch` is the
     loader's NHWC dict (`pixel_values`, `conditioning_pixel_values`, `masks`,
-    `depths`, `input_ids`, ...), numpy or tensors."""
-    if config.normals_conditioning_mode == "ip_adapter":
-        raise NotImplementedError(IP_ADAPTER_TODO)
+    `depths`, `input_ids`, ...; `normals` (B, 1, 3) in ip_adapter mode),
+    numpy or tensors.  ip_adapter mode needs `normal_proj`."""
+    ip_mode = config.normals_conditioning_mode == "ip_adapter"
+    if ip_mode and normal_proj is None:
+        raise ValueError("ip_adapter mode needs normal_proj (a NormalProjModel)")
     if config.gradient_checkpointing_policy not in ("full", "dots"):
         raise ValueError(config.gradient_checkpointing_policy)
     if config.prediction_type not in ("epsilon", "v_prediction"):
@@ -317,21 +328,30 @@ def make_train_step(unet: nn.Module, brushnet: nn.Module, vae: nn.Module,
     device = resolve_device(device)
 
     def init_state() -> TrainState:
-        for m in (unet, brushnet, vae, text_encoder):
+        from reflecting_reality_tpu_torch.models.ip_adapter import ip_parameters
+
+        for m in (unet, brushnet, vae, text_encoder) + ((normal_proj,) if ip_mode else ()):
             m.to(device)
         trainable = {"brushnet": brushnet}
         frozen = {"vae": vae, "text": text_encoder}
-        (trainable if config.train_base_unet else frozen)["unet"] = unet
+        # ip mode: the UNet is trainable so its to_k_ip/to_v_ip train
+        (trainable if config.train_base_unet or ip_mode else frozen)["unet"] = unet
+        if ip_mode:
+            trainable["normal_proj"] = normal_proj
         for m in frozen.values():
             m.requires_grad_(False)
         for m in trainable.values():
             m.requires_grad_(True)
-        params = [p for m in trainable.values() for p in m.parameters()]
+        if ip_mode and not config.train_base_unet:
+            unet.requires_grad_(False)
+            for p in ip_parameters(unet):
+                p.requires_grad_(True)
+        params = [p for m in trainable.values() for p in m.parameters() if p.requires_grad]
         optimizer, _ = make_optimizer(config, params)
         ema = None
         if config.use_ema:
             ema = {k: {n: p.detach().to(ema_dtype or p.dtype, copy=True)
-                       for n, p in m.named_parameters()}
+                       for n, p in m.named_parameters() if p.requires_grad}
                    for k, m in trainable.items()}
         return TrainState(step=0, trainable=trainable, frozen=frozen, optimizer=optimizer,
                           params=params, ema=ema)
@@ -359,9 +379,17 @@ def make_train_step(unet: nn.Module, brushnet: nn.Module, vae: nn.Module,
         noisy = add_noise(noise_schedule, latents, noise, timesteps)
         model = state.trainable.get("unet", state.frozen.get("unet"))
         with autocast():
+            unet_ehs = None
+            if ip_mode:
+                # the normal token after the text tokens, for the UNet only
+                from reflecting_reality_tpu_torch.models.ip_adapter import normal_tokens
+
+                normal = torch.as_tensor(batch["normals"], device=device).reshape(-1, 1, 3)
+                tok = normal_tokens(normal, state.trainable["normal_proj"])
+                unet_ehs = torch.cat([ehs, tok.to(ehs.dtype)], dim=1).to(dtype)
             pred = denoise(model, brushnet, noisy.to(dtype), timesteps, ehs.to(dtype),
                            cond.to(dtype), config.gradient_checkpointing,
-                           config.gradient_checkpointing_policy)
+                           config.gradient_checkpointing_policy, unet_ehs)
         if config.prediction_type == "epsilon":
             target = noise
         else:

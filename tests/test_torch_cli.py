@@ -323,8 +323,52 @@ def test_validation_summarizer(env, tmp_path, monkeypatch):
     assert prompts == [" ".join(f"w{i}" for i in range(50))]
 
 
+def test_ip_adapter_mode_trains_validates_resumes_and_loads(env, tmp_path):
+    """Normals ip_adapter through the CLI (it raised before the mode was
+    ported): one step with validation (the mean mirror normal reaches the
+    pipeline), checkpoint-1 holds unet/ and ip_adapter/normal_proj, only the
+    UNet's to_k_ip/to_v_ip differ from the base folder (they started as
+    to_k/to_v copies), a resume runs to step 2, and the pipeline loads the
+    checkpoint in ip mode and generates."""
+    from reflecting_reality_tpu_torch.models.ip_adapter import NORMAL_PROJ_FILE, is_ip_param_name
+
+    base, _, _ = env
+    out = str(tmp_path / "run")
+    ip = ("--normals_conditioning_mode", "ip_adapter", "--ip_adapter_scale", "0.7")
+    val = _validate_once(env, out, "--checkpointing_steps", "1", *ip)
+    assert val and np.isfinite(val[-1]["val/psnr"])
+    ckpt1 = os.path.join(out, "checkpoint-1")
+    assert os.path.isfile(os.path.join(ckpt1, NORMAL_PROJ_FILE))
+    trained = load_safetensors(os.path.join(ckpt1, "unet", WEIGHTS_NAME))
+    base_unet = load_safetensors(os.path.join(base, "unet", WEIGHTS_NAME))
+    ip_keys = [k for k in trained if is_ip_param_name(k)]
+    assert ip_keys and sorted(set(trained) - set(ip_keys)) == sorted(base_unet)
+    for k, v in trained.items():
+        if k in base_unet:
+            assert torch.equal(v, base_unet[k]), k
+        else:
+            twin = base_unet[k.replace("_ip.", ".")]
+            assert v.shape == twin.shape and not torch.equal(v, twin), k
+
+    argv = _argv(env, out, "--train_batch_size", "1", "--max_train_steps", "2",
+                 "--resume_from_checkpoint", "latest", "--device", "cpu", *ip)
+    state = train.main(argv)
+    assert state.step == 2 and np.isfinite(_losses(out)[2])
+    assert sorted(state.trainable) == ["brushnet", "normal_proj", "unet"]
+
+    pipe = StableDiffusionBrushNetPipeline.from_pretrained(
+        base, os.path.join(ckpt1, "brushnet"), unet_path=os.path.join(ckpt1, "unet"),
+        depth_conditioning_mode="concat", normals_conditioning_mode="ip_adapter",
+        ip_adapter_scale=0.7, device="cpu")
+    assert pipe.unet.ip_scale == 0.7 and pipe.normal_proj is not None
+    rng = np.random.RandomState(0)
+    img = pipe("a mirror", rng.rand(64, 64, 3).astype(np.float32),
+               np.ones((64, 64, 3), np.float32), depth=rng.rand(64, 64, 1).astype(np.float32),
+               normals=np.array([[0.0, 0.6, 0.8]], np.float32), num_inference_steps=2)
+    assert img.shape == (1, 64, 64, 3) and img.dtype == np.uint8
+
+
 @pytest.mark.parametrize("extra,env_vars,match", [
-    (("--normals_conditioning_mode", "ip_adapter"), {}, "item 14"),
     ((), {"WORLD_SIZE": "2"}, "item 16"),
 ])
 def test_unported_options_raise(env, tmp_path, monkeypatch, extra, env_vars, match):

@@ -53,3 +53,20 @@ def nchw_to_nhwc(x: torch.Tensor) -> np.ndarray:
 
 def randn(seed: int, *shape) -> np.ndarray:
     return np.random.RandomState(seed).standard_normal(shape).astype(np.float32)
+
+
+def port_and_jax(cls, seed: int, **cfg):
+    """A port module with seeded, jittered weights (norm scales off one, zero
+    inits non-zero), eval mode, and the same weights as a JAX param tree
+    through the JAX package's own `torch_to_flax_params` (initialising a
+    JAX UNet or BrushNet eagerly costs most of a minute on the CPU)."""
+    from reflecting_reality_tpu.core.io import torch_to_flax_params
+
+    torch.manual_seed(seed)
+    module = cls(**cfg).eval()
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=g))
+    state = {k: v.numpy() for k, v in module.state_dict().items()}
+    return module, {"params": torch_to_flax_params(state)}

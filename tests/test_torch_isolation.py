@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: neither the package nor chip_smoke.py
-imports jax, flax, the JAX package or the safetensors package (the port
-reads and writes the format itself), the training CLI's latent-cache path
+"""The PyTorch port stands alone: neither the package (cli/serve.py
+included) nor chip_smoke.py imports jax, flax, the JAX package or the
+safetensors package (the port reads and writes the format itself), the
+serving path answers a request with them blocked, the training CLI's latent-cache path
 imports no file-format package, the inference CLI's `--image_mode` path
 imports no h5py, and on CPU tensors the kernel wrappers take their plain
 versions without launching (their counters stay 0)."""
@@ -187,3 +188,60 @@ def test_test_cli_image_mode_imports_no_h5py(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().splitlines()[-2:] == ["['msd0.png', 'msd1.png']", "[]"], res.stdout
+
+
+SERVE_RUN = r'''
+import json, sys, threading, urllib.request
+for m in ("jax", "flax", "reflecting_reality_tpu", "safetensors"):
+    sys.modules[m] = None
+import numpy as np
+import torch
+from http.server import ThreadingHTTPServer
+from reflecting_reality_tpu_torch.cli import serve
+from reflecting_reality_tpu_torch.data.tokenizer import HashTokenizer
+from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
+from reflecting_reality_tpu_torch.models.clip_text import CLIPTextModel
+from reflecting_reality_tpu_torch.models.ip_adapter import NormalProjModel
+from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
+from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
+    StableDiffusionBrushNetPipeline,
+)
+
+cfg = dict(block_out_channels=(8, 16, 16, 16), attention_head_dim=2, cross_attention_dim=32,
+           norm_num_groups=4, layers_per_block=2)
+pipe = StableDiffusionBrushNetPipeline(
+    vae=AutoencoderKL(block_out_channels=(8, 8, 8, 8), norm_num_groups=4),
+    text_encoder=CLIPTextModel(vocab_size=1000, hidden_size=32, num_hidden_layers=1,
+                               num_attention_heads=2, intermediate_size=64),
+    tokenizer=HashTokenizer(vocab_size=1000), unet=UNet2DConditionModel(ip_num_tokens=4, **cfg),
+    brushnet=BrushNetModel(conditioning_channels=6, **cfg), depth_conditioning_mode="concat",
+    normals_conditioning_mode="ip_adapter", normal_proj=NormalProjModel(32), device="cpu")
+pipe.enable_deep_cache(2)
+pipe.enable_vae_tiling(num_tiles=2, overlap=1)
+server = serve.BatchingPipelineServer(pipe, default_steps=3, max_batch=2)
+httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(server))
+threading.Thread(target=httpd.serve_forever, daemon=True).start()
+try:
+    body = json.dumps({"prompt": "a mirror", "image": np.zeros((32, 32, 3)).tolist(),
+                       "mask": np.ones((32, 32, 3)).tolist(),
+                       "depth": np.zeros((32, 32, 1)).tolist(), "normals": [[0, 0, 1]]})
+    req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_port}/generate",
+                                 data=body.encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        print(r.status, len(json.loads(r.read())["images"]))
+finally:
+    httpd.shutdown()
+    server.close()
+'''
+
+
+def test_serving_path_runs_with_jax_blocked():
+    """cli/serve.py's server answers a request (ip_adapter mode, DeepCache,
+    VAE tiling: every module of the serving path, lazy imports included) in
+    a process where jax, flax, the JAX package and safetensors cannot be
+    imported."""
+    res = subprocess.run([sys.executable, "-c", SERVE_RUN], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().splitlines()[-1] == "200 1", res.stdout

@@ -180,15 +180,30 @@ def test_seeds_share_the_conditioning_planes_as_in_jax(pipes, mode_brushnets):
 
 
 def test_ip_adapter_mode_names_its_item(pipes):
+    """The normals ip_adapter mode (queue A item 14, ported; held against
+    JAX in tests/test_torch_ip_adapter.py): refused without its
+    NormalProjModel, as in JAX; with one, an ip UNet (to_k_ip/to_v_ip copied
+    from to_k/to_v) and the (1, 3) mean normal it generates."""
+    from reflecting_reality_tpu_torch.core.io import load_into
+    from reflecting_reality_tpu_torch.models import ip_adapter
+
     _, tpipe = pipes
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="normal_proj"):
         StableDiffusionBrushNetPipeline(
             vae=tpipe.vae, text_encoder=tpipe.text_encoder, tokenizer=tpipe.tokenizer,
             unet=tpipe.unet, brushnet=tpipe.brushnet, normals_conditioning_mode="ip_adapter",
             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        StableDiffusionBrushNetPipeline.from_pretrained(
-            "/nonexistent", "/nonexistent", normals_conditioning_mode="ip_adapter", device="cpu")
+    unet = UNet2DConditionModel(sample_size=8, ip_num_tokens=ip_adapter.DEFAULT_NUM_TOKENS,
+                                **TINY)
+    load_into(unet, tpipe.unet.state_dict(), allow_missing=ip_adapter.IP_NAMES)
+    pipe = StableDiffusionBrushNetPipeline(
+        vae=tpipe.vae, text_encoder=tpipe.text_encoder, tokenizer=tpipe.tokenizer,
+        unet=ip_adapter.init_ip_params_from_unet(unet), brushnet=tpipe.brushnet,
+        depth_conditioning_mode="concat", normals_conditioning_mode="ip_adapter",
+        normal_proj=ip_adapter.NormalProjModel(32), device="cpu")
+    out = pipe(**dict(_call_kwargs(), normals=np.array([[0.0, 0.0, 1.0]], np.float32)),
+               output_type="latent")
+    assert out.shape == (1, H, W, 3) and np.isfinite(out).all()
 
 
 def test_entry_point_defaults_to_the_card(pipes):

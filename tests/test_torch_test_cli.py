@@ -10,7 +10,8 @@ equal.  Row selection (`--num_samples`, `--infer_list`, `--all_ckpt
 Everything here moves data without arithmetic, so every comparison is
 exact.  Then the port's own journey on the tiny checkpoint: train two
 steps, sweep the checkpoints, EMA weights, batched seeds, a restart that
-writes nothing, and the options still to port."""
+writes nothing, the approximate and ip_adapter modes, and the options still
+to port."""
 
 import os
 import sys
@@ -247,10 +248,55 @@ def test_journey_checkpoint_sweep_ema_batched_seeds_restart(trained, tmp_path, m
     assert {f: os.path.getmtime(os.path.join(sheets_dir, f)) for f in before} == before
 
 
+@pytest.mark.parametrize("mode", ["deep_cache", "encoder_reuse"])
+def test_approximate_modes_run(trained, tmp_path, monkeypatch, mode):
+    """--deep_cache 3 and --encoder_reuse 3 (they raised before the modes
+    were ported) switch the pipeline's mode on and write the sheets."""
+    _, _, out = trained
+    seen = []
+    real_call = StableDiffusionBrushNetPipeline.__call__
+
+    def call(self, *a, **kw):
+        seen.append((self._deep_cache, self._encoder_reuse))
+        return real_call(self, *a, **kw)
+
+    monkeypatch.setattr(StableDiffusionBrushNetPipeline, "__call__", call)
+    sheets = str(tmp_path / "sheets")
+    t_test.main(_infer_argv(trained, "--brushnet_path", os.path.join(out, "checkpoint-2"),
+                            f"--{mode}", "3",
+                            "--num_inference_steps", "4", "--output_dir", sheets))
+    want = (3, None) if mode == "deep_cache" else (None, 3)
+    assert seen and set(seen) == {want}
+    assert sorted(os.listdir(sheets)) == ["uid0_0.png", "uid1_1.png"]
+
+
+def test_ip_adapter_mode_runs(trained, tmp_path):
+    """--normals_conditioning_mode ip_adapter (it raised before the mode was
+    ported) on a checkpoint the training CLI wrote in that mode: the
+    pipeline loads its unet/ and ip_adapter/ and takes --ip_adapter_scale;
+    each row's mean mirror normal reaches it."""
+    base, data, _ = trained
+    out = str(tmp_path / "ip_run")
+    ip = ["--normals_conditioning_mode", "ip_adapter"]
+    train.main(["--pretrained_model_name_or_path", base, "--train_data_dir", data,
+                "--output_dir", out, "--logging_dir", os.path.join(out, "logs"),
+                "--resolution", str(SIZE), "--train_batch_size", "1", "--max_train_steps", "1",
+                "--learning_rate", "1e-3", "--lr_warmup_steps", "0",
+                "--depth_conditioning_mode", "concat", "--report_to", "none",
+                "--validation_steps", "0", "--seed", "0", "--device", "cpu", *ip])
+    sheets = str(tmp_path / "sheets")
+    t_test.main(_infer_argv(trained, "--brushnet_path", os.path.join(out, "checkpoint-1"),
+                            "--output_dir", sheets, "--ip_adapter_scale", "0.5", *ip))
+    assert sorted(os.listdir(sheets)) == ["uid0_0.png", "uid1_1.png"]
+    pipe = StableDiffusionBrushNetPipeline.from_pretrained(
+        base, os.path.join(out, "checkpoint-1", "brushnet"),
+        unet_path=os.path.join(out, "checkpoint-1", "unet"), depth_conditioning_mode="concat",
+        normals_conditioning_mode="ip_adapter", ip_adapter_scale=0.5, device="cpu")
+    assert pipe.unet.ip_scale == 0.5
+
+
 @pytest.mark.parametrize("extra,item", [
-    (("--deep_cache", "3"), "item 15"), (("--encoder_reuse", "3"), "item 15"),
     (("--int8",), "item 15"), (("--int8_all",), "item 15"), (("--data_parallel",), "item 16"),
-    (("--normals_conditioning_mode", "ip_adapter"), "item 14"),
     (("--attention_backend", "xla"), "follow-up 5"),
 ])
 def test_unported_options_raise(trained, extra, item):

@@ -333,9 +333,10 @@ def test_entry_point_defaults_to_the_card(jax_models):
 
 
 def test_unported_options_raise(jax_models):
-    """ip_adapter is still to port; a checkpointing policy that neither
+    """ip_adapter mode (ported: tests/test_torch_ip_adapter.py) is refused
+    without its NormalProjModel; a checkpointing policy that neither
     package has is refused."""
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="normal_proj"):
         _tiny_torch_step(jax_models, normals_conditioning_mode="ip_adapter")
     with pytest.raises(ValueError, match="everything"):
         _tiny_torch_step(jax_models, gradient_checkpointing=True,
