@@ -144,14 +144,28 @@ Phases, each printing one JSON line:
              SERVE_STEPS steps (PNG inputs, a 16-bit depth PNG): latency p50
              and p95, images/s, the batches formed; the solo reply within 1
              uint8 level of a direct pipeline call on the same payload; B1
-             and B2 launched.
- 15. modes   a full-width 512² bf16 pipeline call, 4 steps, depth `latents`
+             and B2 launched.  Then the same with `--int8` (`serve_int8`):
+             images/s beside the exact server's, int8 GEMMs launched.
+ 15. baseline  the SD-inpainting baseline at full width: its training step
+             (the whole 10-channel UNet trainable, fp32 as the baseline
+             CLI's default, 512² batch 4, depth concat, AdamW lr 5e-6): a
+             warm step and BASELINE_STEPS timed ones (median s/step, peak
+             memory, B1/B3/B4 5/5/5 a step at (4, 4096, 8, 40) fp32, conv_in
+             moved), one step at batch 1 card vs CPU on the same draws (the
+             loss at 1e-4, the first AdamW moment of four leaves at 1e-3 of
+             each one's largest element), `save_pretrained` to
+             checkpoint-N/unet, then `cli.test_baseline.main --image_mode` on
+             it at its default fp32: 2 rows, 4 seeds, 4 steps, 1024x1024
+             sheets, B1 160 launches.  (The card has no h5py, so the
+             baseline training CLI's HDF5 reader runs only in the CPU
+             tests.)
+ 16. modes   a full-width 512² bf16 pipeline call, 4 steps, depth `latents`
              + normals `concat` (BrushNet with 12 conditioning channels):
              a finite, non-constant uint8 image, B1 20 launches; then fp32
              depth `concat` + normals `latents`, one denoise step, TF32 off,
              the card against the CPU at slice parity's tolerance (the
              normals drawn from their own seed).
- 16. approx  the main path (bf16, 512², 4 and 8 steps in turns) exact, with
+ 17. approx  the main path (bf16, 512², 4 and 8 steps in turns) exact, with
              DeepCache every 3 steps and with encoder reuse every 3 steps in
              one process: s/step and s/image of each beside the exact
              path's, each 8-step image's mean and max uint8 difference from
@@ -159,15 +173,30 @@ Phases, each printing one JSON line:
              `tiled_decode` of a 128x128 latent (a 1024² image) against the
              plain decode: seconds, peak memory above the inputs, max and
              mean difference, the tiled decode's launches.
+ 18. int8    W8A8 int8 (`enable_int8()`, the default policy) at full width,
+             bf16, 512²: the main path exact, then quantized in place, 4-
+             and 8-step calls in turns (INT8_REPEATS each): s/step, s/image,
+             peak memory, the quantized-module counts (256 UNet, 92
+             BrushNet: JAX's selection), the 8-step image's mean and max
+             uint8 difference from the exact one, B1 40 launches, the int8
+             GEMMs launched; what `torch._int_mm` accepts at its edges;
+             every int8 GEMM shape the 8-step call launched, `int8_mm` held
+             exactly against an fp64 product on the card and timed beside
+             the whole int8 layer and the bf16 conv or linear it replaces;
+             one fp32 int8 denoise step card vs CPU, held to the int8
+             mode's own error (within twice the CPU's int8-vs-exact
+             difference, max and mean: a code flip on one side cascades),
+             and the exact fp32 step beside it at 1e-3.
 Then `kernels_late` (any kernel shape a path launched that phase 3 did not
 list, measured and checked against its plain version now), `kernels_detail`
 (every measured kernel and shape with the launches each path gave that
 shape: the main path's 8-step call, the timed training steps, the CLI's
 first 8 steps, the test CLI's bf16 8-step and fp32 4-step runs,
 train_parity's fp32 step, the fp32 CLI's 6 steps, the ip pipeline's 8-step
-call, the ip training CLI's first run, the served requests, the modes
-phase's bf16 call, the cached modes' 8-step calls and the tiled decode, 0
-where none; the run fails if a path launched a shape with no entry), the
+call, the ip training CLI's first run, the served requests (exact and
+int8), the baseline's timed training steps and its test CLI run, the modes
+phase's bf16 call, the cached modes' 8-step calls, the tiled decode and the
+int8 pipeline's 8-step call, 0 where none; the run fails if a path launched a shape with no entry), the
 `{"kernels": [...]}` summary line (the kernels and shapes the paths
 launched), the run's seconds, the nvidia-smi name/power-limit line, and
 last `{"ok": true, "device": {...}}`.  Any failed check raises and
@@ -202,6 +231,7 @@ PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 SMS = 132                           # H100 SXM streaming multiprocessors
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core bf16
               "tf32": 495e12,       # dense tensor-core TF32
+              "int8": 1979e12,      # dense tensor-core int8 (TOP/s)
               "float32": 67e12}     # fp32 outside the tensor cores
 TF32_PASSES = 3                     # an fp32-accurate product on TF32 (hi·lo + lo·hi + hi·hi)
 
@@ -1989,14 +2019,18 @@ def timed_calls(torch, pipe, kw, repeats: int) -> dict:
             "by_shape_8": out[8]["by_shape"], "image_8": img}
 
 
-def card_vs_cpu_one_step(torch, mods, kw) -> dict:
+def card_vs_cpu_one_step(torch, mods, kw, pipeline_cls=None, keep: bool = False):
     """One fp32 denoise step (TF32 off, deterministic encode, given latents)
-    of a pipeline on `mods`, the card against the CPU's plain paths."""
+    of a pipeline on `mods` (`pipeline_cls`, by default the BrushNet
+    pipeline), the card against the CPU's plain paths -> the comparison
+    (and, with `keep`, the card's and the CPU's images after it)."""
     import numpy as np
 
     from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
         StableDiffusionBrushNetPipeline,
     )
+
+    pipeline_cls = pipeline_cls or StableDiffusionBrushNetPipeline
 
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2009,19 +2043,20 @@ def card_vs_cpu_one_step(torch, mods, kw) -> dict:
     try:
         reset_counters()
         t0 = time.perf_counter()
-        card = StableDiffusionBrushNetPipeline(**mods, device="cuda")(**fp32)
+        card = pipeline_cls(**mods, device="cuda")(**fp32)
         t_card = time.perf_counter() - t0
         launched = read_counters()
         t0 = time.perf_counter()
-        cpu = StableDiffusionBrushNetPipeline(**cpu_mods, device="cpu")(**fp32)
+        cpu = pipeline_cls(**cpu_mods, device="cpu")(**fp32)
         t_cpu = time.perf_counter() - t0
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     scale = float(np.abs(cpu).max())
     err = float(np.abs(card - cpu).max())
-    return {"steps": 1, "max_abs_err": err, "max_abs_tol": 1e-3 * scale, "output_max_abs": scale,
-            "finite": bool(np.isfinite(card).all()), "launches": launched, "card_s": t_card,
-            "cpu_s": t_cpu}
+    res = {"steps": 1, "max_abs_err": err, "max_abs_tol": 1e-3 * scale, "output_max_abs": scale,
+           "finite": bool(np.isfinite(card).all()), "launches": launched, "card_s": t_card,
+           "cpu_s": t_cpu}
+    return (res, card, cpu) if keep else res
 
 
 def phase_ip_adapter(torch, gpu_line: str, tmp: str) -> dict:
@@ -2242,12 +2277,13 @@ def phase_approx(torch, gpu_line: str) -> dict:
             "approx_tiled_decode_128x128": tiled_by_shape}
 
 
-def phase_serve(torch, gpu_line: str, tmp: str) -> dict:
+def phase_serve(torch, gpu_line: str, tmp: str, int8: bool = False, exact=None):
     """`cli/serve.py` as a user starts it (its parser, `build_pipeline` on the
     base folder and train_cli's checkpoint-8, `--max_batch 4`, `warmup` at
-    512²) behind its handler on 127.0.0.1 in a thread: /healthz, one solo
-    request, then SERVE_REQUESTS concurrent ones at SERVE_STEPS steps
-    -> {path: {(kernel, key): launches}}."""
+    512², with `--int8` when `int8`) behind its handler on 127.0.0.1 in a
+    thread: /healthz, one solo request, then SERVE_REQUESTS concurrent ones
+    at SERVE_STEPS steps -> ({path: {(kernel, key): launches}}, the burst's
+    images/s).  `exact` is the exact server's images/s, printed beside."""
     import base64
     import io
     import threading
@@ -2264,7 +2300,8 @@ def phase_serve(torch, gpu_line: str, tmp: str) -> dict:
         "--base_model_path", os.path.join(tmp, "base"),
         "--brushnet_path", os.path.join(tmp, "run", "checkpoint-8", "brushnet"),
         "--depth_conditioning_mode", "concat", "--max_batch", str(SERVE_MAX_BATCH),
-        "--num_inference_steps", str(SERVE_STEPS), "--warmup", str(CLI_PX), "--port", "0"])
+        "--num_inference_steps", str(SERVE_STEPS), "--warmup", str(CLI_PX), "--port", "0",
+        *(["--int8"] if int8 else [])])
     t0 = time.perf_counter()
     pipe = serve.build_pipeline(args)
     load_s = time.perf_counter() - t0
@@ -2304,6 +2341,7 @@ def phase_serve(torch, gpu_line: str, tmp: str) -> dict:
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
         reset_counters()
+        int8_counter().launches = 0
         solo_status, solo, solo_s = post(payload(0))
         results = [None] * SERVE_REQUESTS
 
@@ -2331,7 +2369,8 @@ def phase_serve(torch, gpu_line: str, tmp: str) -> dict:
         server.close()
     lat = sorted(r[2] for r in results if r is not None)
     statuses = [r[0] for r in results if r is not None]
-    res = {"phase": "serve", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}", "dtype": "bfloat16",
+    res = {"phase": "serve_int8" if int8 else "serve", "gpu": gpu_line,
+           "size": f"{CLI_PX}x{CLI_PX}", "dtype": "bfloat16",
            "steps": SERVE_STEPS, "max_batch": SERVE_MAX_BATCH, "requests": SERVE_REQUESTS,
            "healthz": health, "load_s": load_s, "warmup_s": warmup_s,
            "solo": {"status": solo_status, "latency_s": solo_s,
@@ -2342,6 +2381,10 @@ def phase_serve(torch, gpu_line: str, tmp: str) -> dict:
                      "latency_p95_s": float(np.percentile(lat, 95)) if lat else None,
                      "batch_sizes": sorted(r[1]["batch_size"] for r in results if r)},
            "stats": stats, "launches": launched, "phase_wall_s": time.perf_counter() - t_phase}
+    if int8:
+        res["int8_mm_launches"] = int8_counter().launches
+        res["exact_server_images_per_s"] = exact
+        res["images_per_s_vs_exact"] = res["burst"]["images_per_s"] / exact
     emit(res)
     del pipe, server
     torch.cuda.empty_cache()
@@ -2355,9 +2398,430 @@ def phase_serve(torch, gpu_line: str, tmp: str) -> dict:
         bad.append(f"stats {stats}, batch sizes {res['burst']['batch_sizes']}")
     if launched["flash"] == 0 or launched["groupnorm"] == 0:
         bad.append(f"launches {launched}")
+    if int8 and not res["int8_mm_launches"] > 0:
+        bad.append("no int8_mm launch")
     if bad:
-        raise AssertionError(f"serve failed: {bad}")
-    return {"serve_requests": by_shape}
+        raise AssertionError(f"{res['phase']} failed: {bad}")
+    return ({"serve_int8_requests" if int8 else "serve_requests": by_shape},
+            res["burst"]["images_per_s"])
+
+
+# ------------------------------------------------------------------ int8
+
+INT8_REPEATS = 3                    # timed 4- and 8-step calls of each mode
+INT8_WANT = {"unet": 256, "brushnet": 92}   # modules JAX's default policy selects
+
+
+def int8_counter():
+    from reflecting_reality_tpu_torch.ops import quant
+
+    return quant.int8_mm
+
+
+def record_int8_gemms(torch, pipe, kw) -> dict:
+    """One 1-step call of an int8 pipeline with the int8 layers' calls
+    recorded -> {padded (M, K, N): what the GEMM replaces} (the conv's input
+    shape, weight shape, stride and padding, or the linear's)."""
+    from unittest import mock
+
+    from reflecting_reality_tpu_torch.ops import attention, quant
+
+    seen = {}
+    real_conv, real_dense = quant.conv_int8_accumulate, quant.dense_int8
+
+    def padded(m, k, n):               # pad_for_int_mm's sizes
+        return (max(m, 17), quant._up8(k), quant._up8(n))
+
+    def conv(xq, wq, stride=(1, 1), padding=(0, 0), dilation=(1, 1), groups=1):
+        b, cin, h, w = xq.shape
+        cout, kh, kw_, _ = wq.shape
+        oh = (h + 2 * padding[0] - kh) // stride[0] + 1
+        ow = (w + 2 * padding[1] - kw_) // stride[1] + 1
+        seen.setdefault(padded(b * oh * ow, kh * kw_ * cin, cout),
+                        {"op": "conv", "x": list(xq.shape), "w": [cout, cin, kh, kw_],
+                         "stride": list(stride), "padding": list(padding)})
+        return real_conv(xq, wq, stride, padding, dilation, groups)
+
+    def dense(x, wq, scale, bias, dtype):
+        m = x.numel() // x.shape[-1]
+        seen.setdefault(padded(m, wq.shape[1], wq.shape[0]),
+                        {"op": "linear", "x": list(x.shape), "w": list(wq.shape)})
+        return real_dense(x, wq, scale, bias, dtype)
+
+    with mock.patch.object(quant, "conv_int8_accumulate", conv), \
+            mock.patch.object(quant, "dense_int8", dense), \
+            mock.patch.object(attention, "dense_int8", dense):
+        pipe(**kw, num_inference_steps=1, output_type="latent")
+    return seen
+
+
+def int8_gemm_table(torch, shapes: dict, launched: dict) -> list:
+    """Each int8 GEMM shape the path launched: `int8_mm` held exactly
+    against its fp64 product on the card, its time, the whole int8 layer's
+    (quantize, im2col, GEMM, dequantize) and the bf16 conv or linear it
+    replaces."""
+    import torch.nn.functional as F
+
+    from reflecting_reality_tpu_torch.ops import quant
+
+    rows = []
+    g = torch.Generator("cuda").manual_seed(SEED + 10)
+    for key in sorted(launched):
+        src = shapes.get(key)
+        m, k, n = key
+        a = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
+        got = quant.int8_mm(a, w.t())
+        exact = bool(torch.equal(got, quant.int8_mm_plain(a, w.t())))
+        mm = lambda: quant.int8_mm(a, w.t())
+        plain_ms = cuda_ms(torch, lambda: quant.int8_mm_plain(a, w.t()), iters=5, warmup=1)
+        ops, nbytes = 2.0 * m * k * n, m * k + k * n + 4 * m * n
+        row = {"mkn": list(key), "launches": launched[key], "exact": exact,
+               "int8_mm_ms": cuda_ms(torch, mm), "int8_mm_device_ms": device_ms(torch, mm),
+               "plain_fp64_ms": plain_ms, "bound_ms": bound(ops, nbytes, "int8")[0],
+               "bound_by": bound(ops, nbytes, "int8")[1]}
+        if src is not None:
+            x = torch.randn(src["x"], generator=g, device="cuda").to(torch.bfloat16)
+            wf = (0.02 * torch.randn(src["w"], generator=g, device="cuda")).to(torch.bfloat16)
+            bias = torch.zeros(src["w"][0], device="cuda", dtype=torch.bfloat16)
+            scale = torch.full((src["w"][0],), 1e-3, device="cuda")
+            if src["op"] == "conv":
+                wq = torch.randint(-127, 128, (src["w"][0], src["w"][2], src["w"][3], src["w"][1]),
+                                   generator=g, device="cuda", dtype=torch.int8)
+                bf16 = lambda: F.conv2d(x, wf, bias, src["stride"], src["padding"])
+                layer = lambda: quant.conv_int8(x, wq, scale, bias, torch.bfloat16, src["stride"],
+                                                src["padding"])
+            else:
+                wq = torch.randint(-127, 128, src["w"], generator=g, device="cuda",
+                                   dtype=torch.int8)
+                bf16 = lambda: F.linear(x, wf, bias)
+                layer = lambda: quant.dense_int8(x, wq, scale, bias, torch.bfloat16)
+            with torch.inference_mode():
+                row.update(source=src, int8_layer_ms=cuda_ms(torch, layer),
+                           int8_layer_device_ms=device_ms(torch, layer),
+                           bf16_op_ms=cuda_ms(torch, bf16), bf16_op_device_ms=device_ms(torch, bf16))
+            del x, wf, wq
+        rows.append(row)
+    return rows
+
+
+def device_ms(torch, fn):
+    """`graph_ms`, or the capture's error where fn cannot be captured."""
+    try:
+        return graph_ms(torch, fn)
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return f"not measured: {str(e).splitlines()[0][:100]}"
+
+
+def int_mm_rules(torch) -> dict:
+    """What this build's `torch._int_mm` accepts (the card's version): M,
+    K, N at the edges and `b` row- or column-major."""
+    out = {}
+    cases = {"m16": (16, 64, 64, True), "m17": (17, 64, 64, True), "k12": (32, 12, 64, True),
+             "n12": (32, 64, 12, True), "b_row_major": (32, 64, 64, False)}
+    for name, (m, k, n, col) in cases.items():
+        a = torch.ones(m, k, device="cuda", dtype=torch.int8)
+        b = (torch.ones(n, k, device="cuda", dtype=torch.int8).t() if col
+             else torch.ones(k, n, device="cuda", dtype=torch.int8))
+        try:
+            torch._int_mm(a, b)
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except RuntimeError as e:
+            out[name] = str(e).splitlines()[0][:120]
+    return out
+
+
+def phase_int8(torch, gpu_line: str) -> dict:
+    """W8A8 int8 at full width, bf16, 512²: the main path exact and after
+    `enable_int8()` in one process (s/step, s/image, peak memory, the
+    quantized-module counts, the images' difference), every int8 GEMM shape
+    the int8 path launched against fp64 and beside the bf16 op it replaces,
+    and one fp32 int8 denoise step card vs CPU -> {path: {(kernel, key):
+    launches}}."""
+    import numpy as np
+
+    from reflecting_reality_tpu_torch.ops import quant
+    from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
+        StableDiffusionBrushNetPipeline,
+    )
+
+    t_phase = time.perf_counter()
+    kw = pipeline_inputs(SEED)
+    res = {"phase": "int8", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}", "dtype": "bfloat16",
+           "int_mm_rules": int_mm_rules(torch)}
+    pipe = StableDiffusionBrushNetPipeline(**full_width_modules(torch), dtype=torch.bfloat16,
+                                           device="cuda")
+    exact = timed_calls(torch, pipe, kw, INT8_REPEATS)
+    t0 = time.perf_counter()
+    pipe.enable_int8()
+    res["quantize_s"] = time.perf_counter() - t0
+    res["quantized"] = {name: len(quant.int8_modules(getattr(pipe, name))) for name in INT8_WANT}
+    shapes = record_int8_gemms(torch, pipe, kw)
+    counter = int8_counter()
+    counter.launches = 0
+    counter.launches_by_shape.clear()
+    q = timed_calls(torch, pipe, kw, INT8_REPEATS)   # the counter holds every call's GEMMs
+    counter.launches = 0
+    counter.launches_by_shape.clear()
+    reset_counters()
+    img = pipe(**kw, num_inference_steps=8, output_type="np")
+    torch.cuda.synchronize()
+    gemm_launches = dict(counter.launches_by_shape)
+    q["int8_mm_launches_8_steps"] = counter.launches
+    diff = np.abs(q["image_8"].astype(np.int16) - exact["image_8"].astype(np.int16))
+    for name, m in (("exact", exact), ("int8", q)):
+        res[name] = {k: v for k, v in m.items() if k not in ("by_shape_8", "image_8")}
+    res["int8"].update(uint8_diff_from_exact_mean=float(diff.mean()),
+                       uint8_diff_from_exact_max=int(diff.max()),
+                       deterministic=bool(np.array_equal(img, q["image_8"])),
+                       s_per_step_vs_exact=q["s_per_step"] / exact["s_per_step"],
+                       s_per_image_8_steps_vs_exact=(q["s_per_image_8_steps"]
+                                                     / exact["s_per_image_8_steps"]))
+    res["gemms"] = int8_gemm_table(torch, shapes, gemm_launches)
+    del pipe
+    torch.cuda.empty_cache()
+
+    # one fp32 int8 denoise step, card vs CPU.  Each side quantizes the same
+    # fp32 weights (identical codes, and every int8 GEMM is exact), but the
+    # float work between the products differs in its last bits, so an
+    # activation at a code boundary rounds to the neighbouring code on one
+    # side only; that moves the next layer's input by a code step, which
+    # flips more codes downstream, until the two differ as much as two
+    # quantizations of the same net.  So the step is held to the int8 mode's
+    # own error: card int8 against CPU int8 within twice CPU int8 against
+    # CPU exact, in max and in mean (the exact step itself at 1e-3, as the
+    # other phases hold it); a wrong layout, scale or bias would stand far
+    # outside that.
+    class Int8Pipeline(StableDiffusionBrushNetPipeline):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.enable_int8()
+
+    mods = full_width_modules(torch)
+    exact1, card_e, cpu_e = card_vs_cpu_one_step(torch, mods, kw, keep=True)
+    parity, card_q, cpu_q = card_vs_cpu_one_step(torch, mods, kw, pipeline_cls=Int8Pipeline,
+                                                 keep=True)
+    # the card's own sensitivity: the same int8 step on latents moved by 1e-6
+    # of themselves (TF32 off, as in the comparison)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    lat = np.random.RandomState(SEED + 6).standard_normal(
+        (1, CLI_PX // 8, CLI_PX // 8, 4)).astype(np.float32)
+    try:
+        moved = StableDiffusionBrushNetPipeline(**mods, device="cuda")(
+            **dict(kw, num_inference_steps=1, output_type="latent",
+                   deterministic_vae_encode=True, latents=lat * np.float32(1 + 1e-6)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    noise = np.abs(cpu_q - cpu_e)
+    err = np.abs(card_q - cpu_q)
+    parity.update(max_abs_tol=2 * float(noise.max()), mean_abs_err=float(err.mean()),
+                  mean_abs_tol=2 * float(noise.mean()),
+                  cpu_int8_vs_exact_max=float(noise.max()),
+                  cpu_int8_vs_exact_mean=float(noise.mean()),
+                  card_int8_vs_input_moved_1e6_max=float(np.abs(moved - card_q).max()),
+                  exact_step_max_abs_err=exact1["max_abs_err"],
+                  exact_step_max_abs_tol=exact1["max_abs_tol"])
+    res["fp32_step_card_vs_cpu"] = parity
+    del mods, card_e, cpu_e, card_q, cpu_q, moved
+    torch.cuda.empty_cache()
+    res["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(res)
+    bad = []
+    if res["quantized"] != INT8_WANT:
+        bad.append(f"quantized {res['quantized']} (want {INT8_WANT})")
+    if not all(r["exact"] for r in res["gemms"]) or not res["gemms"]:
+        bad.append(f"int8_mm not exact: {[r['mkn'] for r in res['gemms'] if not r['exact']]}")
+    if not q["int8_mm_launches_8_steps"] > 0 or not res["int8"]["deterministic"]:
+        bad.append(f"int8_mm launches {q['int8_mm_launches_8_steps']}, "
+                   f"deterministic {res['int8']['deterministic']}")
+    if q["launches_8_steps"]["flash"] != 40 or q["launches_8_steps"]["groupnorm"] == 0:
+        bad.append(f"int8 launches {q['launches_8_steps']} (B1: want 40)")
+    if not res["int8"]["uint8_diff_from_exact_max"] > 0 \
+            or not res["int8"]["uint8_diff_from_exact_mean"] < 16:
+        bad.append(f"int8 vs exact {res['int8']}")
+    if not (parity["finite"] and parity["max_abs_err"] <= parity["max_abs_tol"]
+            and parity["mean_abs_err"] <= parity["mean_abs_tol"]
+            and parity["exact_step_max_abs_err"] <= parity["exact_step_max_abs_tol"]) \
+            or parity["launches"]["flash"] == 0:
+        bad.append(f"fp32 int8 step card vs CPU {parity}")
+    if bad:
+        raise AssertionError(f"int8 failed: {bad}")
+    return {"int8_inference_8_steps": q["by_shape_8"]}
+
+
+# -------------------------------------------------------------- baseline
+
+BASELINE_STEPS = 4                  # timed steps of the baseline training step
+BASELINE_KEY = ((TRAIN_BATCH, 4096, 8, 40), "float32")
+
+
+def baseline_batch(n: int, seed: int) -> dict:
+    """A loader-style NHWC batch at CLI_PX² (pixel values, the masked image,
+    mask, depth, token ids) from a seed."""
+    import numpy as np
+
+    r = np.random.RandomState(seed)
+    mask = np.zeros((n, CLI_PX, CLI_PX, 1), np.float32)
+    mask[:, 128:384, 160:352] = 1.0
+    pixels = r.uniform(-1, 1, (n, CLI_PX, CLI_PX, 3)).astype(np.float32)
+    return {"pixel_values": pixels, "conditioning_pixel_values": pixels * (1 - mask),
+            "masks": mask, "depths": r.uniform(-1, 1, (n, CLI_PX, CLI_PX, 1)).astype(np.float32),
+            "input_ids": r.randint(0, 49408, (n, 77)).astype(np.int64)}
+
+
+def phase_baseline(torch, gpu_line: str, tmp: str, data: str) -> dict:
+    """The SD-inpainting baseline at full width: its training step (the whole
+    10-channel UNet, fp32 as the CLI's default, 512² batch 4, depth concat;
+    a warm step, BASELINE_STEPS timed ones, peak memory), one step card vs
+    CPU at batch 1 on the same draws, `save_pretrained` to
+    checkpoint-N/unet, then `cli.test_baseline.main --image_mode` on it at
+    its default fp32 (2 rows, 4 seeds, 4 steps) -> {path: {(kernel, key):
+    launches}}."""
+    import numpy as np
+    from PIL import Image
+
+    from reflecting_reality_tpu_torch.baseline.sd_inpainting import make_baseline_train_step
+    from reflecting_reality_tpu_torch.cli import test_baseline
+    from reflecting_reality_tpu_torch.core.io import save_pretrained
+    from reflecting_reality_tpu_torch.models.clip_text import CLIPTextModel
+    from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
+    from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+    from reflecting_reality_tpu_torch.training.train_step import TrainConfig
+
+    t_phase = time.perf_counter()
+    config = TrainConfig(learning_rate=5e-6, lr_warmup_steps=0, depth_conditioning_mode="concat")
+
+    def modules(device):
+        torch.manual_seed(SEED + 20)
+        with torch.device(device):
+            return UNet2DConditionModel(in_channels=10), AutoencoderKL(), CLIPTextModel()
+
+    res = {"phase": "baseline", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}",
+           "batch": TRAIN_BATCH, "dtype": "float32 (the CLI's default)", "in_channels": 10}
+    unet, vae, text = modules("cuda")
+    step, init = make_baseline_train_step(unet, vae, text, config, device="cuda")
+    state = init()
+    w0 = unet.conv_in.weight.detach().clone()
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             baseline_batch(TRAIN_BATCH, SEED + 21).items()}
+    g = torch.Generator("cuda").manual_seed(SEED)
+    state, m = step(state, batch, g)             # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    times, losses = [], [float(m["loss"])]
+    for _ in range(BASELINE_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, g)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    train_by_shape = read_counters_by_shape()
+    per_step = {k: train_by_shape.get((k, BASELINE_KEY), 0) / BASELINE_STEPS
+                for k in ("flash", "flash_bwd_dq", "flash_bwd_dkv")}
+    res["train"] = {"s_per_step_median": statistics.median(times), "s_each": times,
+                    "samples_per_s": TRAIN_BATCH / statistics.median(times), "losses": losses,
+                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                    "conv_in_max_abs_change": (unet.conv_in.weight - w0).abs().max().item(),
+                    "launches_per_step_at_4x4096x8x40_fp32": per_step,
+                    "launches": read_counters()}
+    ckpt = os.path.join(tmp, "baseline_run", f"checkpoint-{BASELINE_STEPS + 1}")
+    t0 = time.perf_counter()
+    save_pretrained(unet, os.path.join(ckpt, "unet"))
+    res["checkpoint"] = {"s": time.perf_counter() - t0,
+                         "gb": sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                                   os.walk(ckpt) for f in fs) / 1e9}
+    del state, step, init, unet, vae, text, batch
+    torch.cuda.empty_cache()
+
+    # one step, card vs CPU, batch 1, the same draws, TF32 off: the loss and
+    # the first AdamW moment (0.1 x the clipped gradient) of a few leaves,
+    # each at 1e-3 of its largest element (train_parity's tolerance)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gd = torch.Generator().manual_seed(SEED + 22)
+    shape = (1, 4, CLI_PX // 8, CLI_PX // 8)
+    draws = {"vae_noise": {"latents": torch.randn(shape, generator=gd),
+                           "cond": torch.randn(shape, generator=gd)},
+             "noise": torch.randn(shape, generator=gd), "timesteps": torch.tensor([321])}
+    one = baseline_batch(1, SEED + 23)
+    names = ("conv_in.weight", "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q.weight",
+             "mid_block.resnets.0.conv1.weight", "conv_out.weight")
+    sides = {}
+    try:
+        for device in ("cuda", "cpu"):
+            unet, vae, text = modules("cpu")
+            st_fn, st_init = make_baseline_train_step(unet, vae, text, config, device=device)
+            st = st_init()
+            reset_counters()
+            t0 = time.perf_counter()
+            st, mm = st_fn(st, one, draws=draws)
+            params = dict(unet.named_parameters())
+            sides[device] = {"loss": float(mm["loss"]), "grad_norm": float(mm["grad_norm"]),
+                             "s": time.perf_counter() - t0, "launches": read_counters(),
+                             "mu": {n: st.optimizer.state[params[n]]["exp_avg"].detach().cpu()
+                                    for n in names}}
+            del st, st_fn, st_init, unet, vae, text, params
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    card, cpu = sides["cuda"], sides["cpu"]
+    res["step_card_vs_cpu"] = {
+        "loss": card["loss"], "cpu_loss": cpu["loss"],
+        "loss_rel_err": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]), "loss_rel_tol": 1e-4,
+        "grad_norm": card["grad_norm"], "cpu_grad_norm": cpu["grad_norm"],
+        "card_s": card["s"], "cpu_s": cpu["s"], "launches": card["launches"],
+        "adam_mu": {n: {"max_abs_err": (card["mu"][n] - cpu["mu"][n]).abs().max().item(),
+                        "max_abs_tol": 1e-3 * cpu["mu"][n].abs().max().item(),
+                        "finite": bool(torch.isfinite(card["mu"][n]).all())} for n in names}}
+
+    # the test CLI on the checkpoint, --image_mode, its default fp32
+    out = os.path.join(tmp, "baseline_infer")
+    argv = ["--brushnet_path", ckpt, "--base_model_path", os.path.join(tmp, "base"),
+            "--train_data_dir", data, "--output_dir", out, "--image_mode",
+            "--depth_conditioning_mode", "concat", "--resolution", str(CLI_PX),
+            "--num_inference_steps", "4", "--seed", str(SEED)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    test_baseline.main(argv)
+    torch.cuda.synchronize()
+    test_by_shape = read_counters_by_shape()
+    sheets = sorted(os.listdir(out))
+    arrays = [np.asarray(Image.open(os.path.join(out, f))) for f in sheets]
+    res["test_cli"] = {"wall_s": time.perf_counter() - t0, "sheets": sheets,
+                       "sheet_shapes": [list(a.shape) for a in arrays],
+                       "sheet_std": [float(a.std()) for a in arrays], "launches": read_counters(),
+                       "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    res["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(res)
+    bad = []
+    tr = res["train"]
+    if not all(math.isfinite(x) for x in tr["losses"]) or not tr["conv_in_max_abs_change"] > 0:
+        bad.append(f"train {tr}")
+    if any(n != 5 for n in per_step.values()) or tr["launches"]["groupnorm"] == 0:
+        bad.append(f"launches per step at {BASELINE_KEY}: {per_step} (want 5 each)")
+    p = res["step_card_vs_cpu"]
+    if not p["loss_rel_err"] <= p["loss_rel_tol"] or any(
+            not (r["finite"] and r["max_abs_err"] <= r["max_abs_tol"]) for r in p["adam_mu"].values()):
+        bad.append(f"card vs CPU {p}")
+    if (p["launches"]["flash"], p["launches"]["flash_bwd_dq"], p["launches"]["flash_bwd_dkv"]) \
+            != (5, 5, 5):
+        bad.append(f"card step launches {p['launches']} (want 5/5/5)")
+    t = res["test_cli"]
+    if sheets != ["scene0.png", "scene1.png"] or any(s != [1024, 1024, 3]
+                                                      for s in t["sheet_shapes"]) \
+            or not min(t["sheet_std"]) > 0 or t["launches"]["flash"] != 2 * CLI_SEEDS * 4 * 5:
+        bad.append(f"test_baseline {t}")
+    if bad:
+        raise AssertionError(f"baseline failed: {bad}")
+    shutil.rmtree(os.path.join(tmp, "baseline_run"))
+    return {f"baseline_train_{BASELINE_STEPS}_steps": train_by_shape,
+            "baseline_test_cli_fp32_4_steps": test_by_shape}
 
 
 # ------------------------------------------------------------------ main
@@ -2469,11 +2933,15 @@ def main() -> int:
         phase_evaluate(torch, gpu_line, tmp, sheets, data)
         cli32_by_shape = phase_train_cli_fp32(torch, gpu_line, tmp)
         new_paths = phase_ip_adapter(torch, gpu_line, tmp)
-        new_paths.update(phase_serve(torch, gpu_line, tmp))
+        serve_paths, serve_rate = phase_serve(torch, gpu_line, tmp)
+        new_paths.update(serve_paths)
+        new_paths.update(phase_serve(torch, gpu_line, tmp, int8=True, exact=serve_rate)[0])
+        new_paths.update(phase_baseline(torch, gpu_line, tmp, data))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     new_paths.update(phase_modes(torch, gpu_line))
     new_paths.update(phase_approx(torch, gpu_line))
+    new_paths.update(phase_int8(torch, gpu_line))
 
     # each entry carries the launches of its own kernel, shape and dtype on
     # each path: the main path's 8-step call (and per denoise step), the

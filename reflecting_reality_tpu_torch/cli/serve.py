@@ -35,9 +35,11 @@ and query it:
 
 Every flag of the JAX parser is kept.  `--device` is added (default
 `cuda`, raising without a card; `cpu` runs the plain PyTorch paths).
-`--int8` raises (ROADMAP.md queue A item 15), `--data_parallel` too (item
-16), and `--attention_backend xla` (performance follow-up 5: the port
-routes attention by device and shape); `--compilation_cache_dir` is
+`--int8` serves the W8A8 int8 mode (`ops/quant.py`, the default selection
+policy; approximate); every request of a batch shares one activation scale
+per layer, as in JAX.  `--data_parallel` raises (ROADMAP.md queue A item
+16), and so does `--attention_backend xla` (performance follow-up 5: the
+port routes attention by device and shape); `--compilation_cache_dir` is
 accepted and ignored (no XLA cache).
 """
 
@@ -391,7 +393,6 @@ def refuse_unported(args) -> None:
     """Options whose feature the port does not have yet raise, naming the
     ROADMAP item that ports it."""
     unported = [
-        (args.int8, "--int8", "queue A, item 15"),
         (args.data_parallel, "--data_parallel", "queue A, item 16"),
         (args.attention_backend == "xla",
          "--attention_backend xla (the port routes attention by device and shape)",
@@ -423,6 +424,8 @@ def build_pipeline(args):
         pipe.enable_deep_cache(args.deep_cache)
     if args.encoder_reuse:
         pipe.enable_encoder_reuse(args.encoder_reuse)
+    if args.int8:
+        pipe.enable_int8()
     return pipe
 
 
@@ -468,7 +471,8 @@ def build_parser():
     p.add_argument("--encoder_reuse", type=int, default=None,
                    help="encoder-reuse interval (approximate; exclusive with --deep_cache)")
     p.add_argument("--int8", action="store_true",
-                   help="not ported: raises (ROADMAP.md queue A, item 15)")
+                   help="W8A8 int8 serving (ops/quant.py): the UNet's and BrushNet's large "
+                        "convs and projections in int8 with int32 accumulation; approximate")
     p.add_argument("--data_parallel", action="store_true",
                    help="not ported: raises (ROADMAP.md queue A, item 16)")
     p.add_argument("--max_batch", type=int, default=1,

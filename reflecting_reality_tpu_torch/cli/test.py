@@ -21,11 +21,12 @@ runs without it.
 
 Normals `ip_adapter` mode reads the checkpoint's `ip_adapter/` beside its
 `brushnet/` and takes `--ip_adapter_scale`; `--deep_cache N` and
-`--encoder_reuse N` switch the pipeline's approximate modes on.  Options
-whose feature the port does not have raise NotImplementedError naming their
-ROADMAP item: `--int8`, `--int8_all` (item 15), `--data_parallel` (item 16)
-and `--attention_backend xla` (performance follow-up 5: the port routes
-attention by device and shape).
+`--encoder_reuse N` switch the pipeline's approximate modes on, `--int8`
+the W8A8 int8 mode (`--int8_all` with it: every conv and linear, JAX's
+`select_all`; without `--int8` it does nothing, as in JAX).  Options whose
+feature the port does not have raise NotImplementedError naming their
+ROADMAP item: `--data_parallel` (item 16) and `--attention_backend xla`
+(performance follow-up 5: the port routes attention by device and shape).
 """
 
 from __future__ import annotations
@@ -106,8 +107,6 @@ def refuse_unported(args) -> None:
     """Options whose feature the port does not have yet raise, naming the
     ROADMAP item that ports it."""
     unported = [
-        (args.int8, "--int8", "queue A, item 15"),
-        (args.int8_all, "--int8_all", "queue A, item 15"),
         (args.data_parallel, "--data_parallel", "queue A, item 16"),
         (args.attention_backend == "xla",
          "--attention_backend xla (the port routes attention by device and shape)",
@@ -158,6 +157,11 @@ def run_inference(args, brushnet_path: str, output_dir: str, test_df) -> None:
         pipe.enable_deep_cache(args.deep_cache)
     if args.encoder_reuse:
         pipe.enable_encoder_reuse(args.encoder_reuse)
+    if args.int8:
+        # W8A8 int8 (ops/quant.py): an approximation mode, not for parity evals
+        from reflecting_reality_tpu_torch.ops.quant import select_all
+
+        pipe.enable_int8(select=select_all if args.int8_all else None)
     os.makedirs(output_dir, exist_ok=True)
 
     common = dict(
@@ -168,17 +172,6 @@ def run_inference(args, brushnet_path: str, output_dir: str, test_df) -> None:
         brushnet_conditioning_scale=args.brushnet_conditioning_scale,
         output_type="device",
     )
-
-    def fetch(images: torch.Tensor):
-        """Queue the uint8 images' copy to pinned host memory right behind
-        the call's work -> (host tensor, event that marks the copy done)."""
-        if images.device.type != "cuda":
-            return images, None
-        host = torch.empty(images.shape, dtype=images.dtype, pin_memory=True)
-        host.copy_(images, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
 
     def generate(prompt, validation_image, validation_mask, depth_image, normal_image):
         if args.batch_seeds:
@@ -192,16 +185,31 @@ def run_inference(args, brushnet_path: str, output_dir: str, test_df) -> None:
                            normals=normal_image, **common, **call))
                 for call in calls]
 
-    def finalize(handles):
-        # waits for the copies only; the next row's work is already queued
-        images = []
-        for host, done in handles:
-            if done is not None:
-                done.synchronize()
-            images += pipe.image_processor.postprocess(host.numpy(), output_type="pil")
-        return images
+    drive_rows(args, test_df, output_dir, generate,
+               lambda handles: fetched_images(pipe.image_processor, handles))
 
-    drive_rows(args, test_df, output_dir, generate, finalize)
+
+def fetch(images: torch.Tensor):
+    """Queue uint8 device images' copy to pinned host memory right behind
+    the call's work -> (host tensor, event that marks the copy done)."""
+    if images.device.type != "cuda":
+        return images, None
+    host = torch.empty(images.shape, dtype=images.dtype, pin_memory=True)
+    host.copy_(images, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def fetched_images(image_processor, handles):
+    """`fetch` handles -> PIL images; waits for the copies only, so the
+    next row's work, already queued, keeps the card busy."""
+    images = []
+    for host, done in handles:
+        if done is not None:
+            done.synchronize()
+        images += image_processor.postprocess(host.numpy(), output_type="pil")
+    return images
 
 
 def drive_rows(args, test_df, output_dir, generate, finalize=None) -> None:
@@ -388,9 +396,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_parallel", action="store_true",
                    help="not ported: raises (ROADMAP.md queue A, item 16)")
     p.add_argument("--int8", action="store_true",
-                   help="not ported: raises (ROADMAP.md queue A, item 15)")
+                   help="W8A8 int8 mode (ops/quant.py): the UNet's and BrushNet's large convs "
+                        "and projections in int8 with int32 accumulation; approximate, not "
+                        "for parity evals")
     p.add_argument("--int8_all", action="store_true",
-                   help="not ported: raises (ROADMAP.md queue A, item 15)")
+                   help="with --int8: quantize every conv and linear (ops.quant.select_all) "
+                        "instead of the default policy's sizes; for tiny configs, where the "
+                        "default selects nothing")
     p.add_argument("--deep_cache", type=int, default=None,
                    help="DeepCache interval: full dual branch every N steps, the shallow "
                         "UNet between (approximate)")

@@ -19,7 +19,11 @@ routes by the tensors' device and shape, never by a process global:
 
 `Attention` keeps separate to_q/to_k/to_v parameters (diffusers names) and
 concatenates them for one fused qkv (self) or kv (cross) product (:196-214);
-the kernel reads the q/k/v column slices of that product in place.  With
+the kernel reads the q/k/v column slices of that product in place.  In the
+int8 mode (`ops/quant.py`) a group whose projections are all `Int8Linear`
+fuses too: the codes and the per-channel scales are concatenated and run as
+one int8 product with one activation scale (JAX `fuse`, :185-194); a group
+that mixes float and int8 projections runs them one by one.  With
 `ip_num_tokens` (IP-Adapter, JAX :124-131, :223-230) the last
 `ip_num_tokens` context tokens attend through bias-free `to_k_ip` /
 `to_v_ip` and are added with `ip_scale`; that attention has Tq != Tk, so it
@@ -40,6 +44,7 @@ from reflecting_reality_tpu_torch.ops.kernels.flash_attention import (
     flash_attention,
 )
 from reflecting_reality_tpu_torch.ops.norms import GroupNorm
+from reflecting_reality_tpu_torch.ops.quant import Int8Linear, dense_int8
 
 
 def routes_to_flash(q: torch.Tensor, k: torch.Tensor) -> bool:
@@ -81,9 +86,16 @@ class Attention(nn.Module):
             self.to_v_ip = nn.Linear(ctx_dim, inner, bias=False)
 
     def _fused(self, x: torch.Tensor, projs) -> torch.Tensor:
-        w = torch.cat([p.weight for p in projs], dim=0)
+        """One product for projections that share an input, their outputs
+        side by side; projections that mix float and int8 run unfused."""
+        int8 = [isinstance(p, Int8Linear) for p in projs]
+        if any(int8) and not all(int8):
+            return torch.cat([p(x) for p in projs], dim=-1)
         b = torch.cat([p.bias for p in projs]) if projs[0].bias is not None else None
-        return F.linear(x, w, b)
+        if all(int8):
+            return dense_int8(x, torch.cat([p.weight_q for p in projs]),
+                              torch.cat([p.weight_scale for p in projs]), b, projs[0].dtype)
+        return F.linear(x, torch.cat([p.weight for p in projs], dim=0), b)
 
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -41,8 +41,10 @@ output and skip stack) and the BrushNet residuals, and on the other steps
 only the shallow (or decoder-only) UNet forward (JAX :598-703); VAE tiling
 (`enable_vae_tiling`, `parallel.sharded_vae.tiled_decode`).  The call's
 `dispatch` ("scan" | "per_step") is accepted for JAX's callers: the loop
-here is already one step at a time, so both give the same images.  int8,
-the sharded VAE, data parallelism and SDXL are not ported yet.
+here is already one step at a time, so both give the same images.  W8A8
+int8 (`enable_int8`, `ops/quant.py`) quantizes the UNet's and BrushNet's
+convs and projections once, in place; it composes with the modes above.
+The sharded VAE, data parallelism and SDXL are not ported yet.
 """
 
 from __future__ import annotations
@@ -234,6 +236,27 @@ class StableDiffusionBrushNetPipeline:
 
     def disable_encoder_reuse(self) -> None:
         self._encoder_reuse = None
+
+    def enable_int8(self, select=None) -> int:
+        """W8A8 int8 (`ops/quant.py`, JAX :253-275): the UNet's and
+        BrushNet's selected convs and linears become per-output-channel int8
+        layers (weights quantized once, here), activations are quantized
+        per tensor on the fly, and the products accumulate in int32 on the
+        card's int8 tensor cores.  Timestep MLPs, the VAE, the text encoder
+        and `normal_proj` stay exact.  An approximation mode; it composes
+        with DeepCache, encoder reuse, `dispatch`, ip_adapter and batches.
+
+        One-way: the float weights are dropped (build a new pipeline to go
+        back to exact).  `select` overrides the selection policy
+        (`ops.quant.default_select`), mainly for tiny test configs.  Raises
+        ValueError when it selects nothing.  -> the number quantized."""
+        from reflecting_reality_tpu_torch.ops.quant import default_select, quantize_modules
+
+        sel = select or default_select
+        n = quantize_modules(self.unet, sel) + quantize_modules(self.brushnet, sel)
+        if n == 0:
+            raise ValueError("no kernels selected for int8 quantization")
+        return n
 
     # ------------------------------------------------------------------ text
 

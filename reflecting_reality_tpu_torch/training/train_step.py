@@ -296,6 +296,44 @@ def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
+@torch.no_grad()
+def apply_update(state: TrainState, grads: List[torch.Tensor], config: TrainConfig,
+                 schedule_fn: Callable[[int], float]) -> None:
+    """Accumulate, clip, AdamW, EMA: the finite branch of the JAX step, on
+    `state.params`' gradients `grads`."""
+    k = config.gradient_accumulation_steps
+    update = True
+    if k > 1:
+        if state.grad_acc is None:
+            state.grad_acc = [torch.zeros_like(g) for g in grads]
+        m = state.micro_step
+        # running mean, as optax.MultiSteps: acc += (g - acc) / (m + 1)
+        delta = torch._foreach_sub(grads, state.grad_acc)
+        torch._foreach_div_(delta, float(m + 1))
+        torch._foreach_add_(state.grad_acc, delta)
+        state.micro_step = m + 1
+        update = state.micro_step == k
+        grads = state.grad_acc
+    if update:
+        norm = _global_norm(grads).item()
+        if norm >= config.max_grad_norm:   # optax: g / ‖g‖ · max_norm
+            torch._foreach_div_(grads, norm)
+            torch._foreach_mul_(grads, config.max_grad_norm)
+        for group in state.optimizer.param_groups:
+            group["lr"] = schedule_fn(state.updates)
+        for p, g in zip(state.params, grads):
+            p.grad = g
+        state.optimizer.step()
+        state.updates += 1
+        if k > 1:
+            state.micro_step = 0
+            state.grad_acc = None
+    if state.ema is not None:
+        for name, module in state.trainable.items():
+            ema_update(state.ema[name], dict(module.named_parameters()), state.step,
+                       config.ema_decay)
+
+
 def make_train_step(unet: nn.Module, brushnet: nn.Module, vae: nn.Module,
                     text_encoder: nn.Module, config: TrainConfig,
                     dtype: torch.dtype = torch.float32,
@@ -396,41 +434,6 @@ def make_train_step(unet: nn.Module, brushnet: nn.Module, vae: nn.Module,
             target = get_velocity(noise_schedule, latents, noise, timesteps)
         return diffusion_loss(pred, target, timesteps, noise_schedule, config)
 
-    @torch.no_grad()
-    def apply(state: TrainState, grads: List[torch.Tensor]) -> None:
-        """Accumulate, clip, AdamW, EMA: the finite branch of the JAX step."""
-        k = config.gradient_accumulation_steps
-        update = True
-        if k > 1:
-            if state.grad_acc is None:
-                state.grad_acc = [torch.zeros_like(g) for g in grads]
-            m = state.micro_step
-            # running mean, as optax.MultiSteps: acc += (g - acc) / (m + 1)
-            delta = torch._foreach_sub(grads, state.grad_acc)
-            torch._foreach_div_(delta, float(m + 1))
-            torch._foreach_add_(state.grad_acc, delta)
-            state.micro_step = m + 1
-            update = state.micro_step == k
-            grads = state.grad_acc
-        if update:
-            norm = _global_norm(grads).item()
-            if norm >= config.max_grad_norm:   # optax: g / ‖g‖ · max_norm
-                torch._foreach_div_(grads, norm)
-                torch._foreach_mul_(grads, config.max_grad_norm)
-            for group in state.optimizer.param_groups:
-                group["lr"] = schedule_fn(state.updates)
-            for p, g in zip(state.params, grads):
-                p.grad = g
-            state.optimizer.step()
-            state.updates += 1
-            if k > 1:
-                state.micro_step = 0
-                state.grad_acc = None
-        if state.ema is not None:
-            for name, module in state.trainable.items():
-                ema_update(state.ema[name], dict(module.named_parameters()), state.step,
-                           config.ema_decay)
-
     def train_step(state: TrainState, batch: Mapping[str, Any],
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Mapping[str, Any]] = None):
@@ -440,7 +443,7 @@ def make_train_step(unet: nn.Module, brushnet: nn.Module, vae: nn.Module,
         grad_norm = _global_norm(grads)
         finite = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
         if finite:
-            apply(state, grads)
+            apply_update(state, grads, config, schedule_fn)
         for p in state.params:
             p.grad = None
         state.step += 1

@@ -245,3 +245,54 @@ def test_serving_path_runs_with_jax_blocked():
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().splitlines()[-1] == "200 1", res.stdout
+
+
+INT8_BASELINE_RUN = r'''
+import sys
+for m in ("jax", "flax", "reflecting_reality_tpu", "safetensors"):
+    sys.modules[m] = None
+import numpy as np
+import torch
+from reflecting_reality_tpu_torch.baseline.sd_inpainting import SDInpaintingPipeline
+from reflecting_reality_tpu_torch.data.tokenizer import HashTokenizer
+from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
+from reflecting_reality_tpu_torch.models.clip_text import CLIPTextModel
+from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
+from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+from reflecting_reality_tpu_torch.ops import quant
+from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
+    StableDiffusionBrushNetPipeline,
+)
+
+cfg = dict(block_out_channels=(8, 16, 16, 16), attention_head_dim=2, cross_attention_dim=32,
+           norm_num_groups=4, layers_per_block=2)
+parts = lambda: dict(vae=AutoencoderKL(block_out_channels=(8, 8, 8, 8), norm_num_groups=4),
+                     text_encoder=CLIPTextModel(vocab_size=1000, hidden_size=32,
+                                                num_hidden_layers=1, num_attention_heads=2,
+                                                intermediate_size=64),
+                     tokenizer=HashTokenizer(vocab_size=1000))
+kw = dict(prompt="a mirror", image=np.zeros((32, 32, 3)), mask=np.ones((32, 32, 3)),
+          depth=np.zeros((32, 32, 1)), num_inference_steps=2)
+pipe = StableDiffusionBrushNetPipeline(
+    **parts(), unet=UNet2DConditionModel(**cfg),
+    brushnet=BrushNetModel(conditioning_channels=6, **cfg), depth_conditioning_mode="concat",
+    device="cpu")
+n = pipe.enable_int8(select=quant.select_all)
+a = pipe(**kw)
+base = SDInpaintingPipeline(**parts(), unet=UNet2DConditionModel(in_channels=10, **cfg),
+                            depth_conditioning_mode="concat", device="cpu")
+b = base(**kw)
+print(n > 0, a.shape, b.shape, quant.int8_mm.launches, dict(quant.int8_mm.launches_by_shape))
+'''
+
+
+def test_int8_and_baseline_paths_run_with_jax_blocked():
+    """The int8 pipeline and the SD-inpainting baseline pipeline run in a
+    process where jax, flax, the JAX package and safetensors cannot be
+    imported; on CPU tensors `int8_mm` takes its plain version (no launch
+    counted)."""
+    res = subprocess.run([sys.executable, "-c", INT8_BASELINE_RUN], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().splitlines()[-1] == \
+        "True (1, 32, 32, 3) (1, 32, 32, 3) 0 {}", res.stdout

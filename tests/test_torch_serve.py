@@ -433,12 +433,47 @@ def _argv(*extra):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (("--int8",), "item 15"), (("--data_parallel",), "item 16"),
-    (("--attention_backend", "xla"), "follow-up 5"),
+    (("--data_parallel",), "item 16"), (("--attention_backend", "xla"), "follow-up 5"),
 ])
 def test_unported_options_raise(extra, item):
     with pytest.raises(NotImplementedError, match=item):
         serve.main(_argv(*extra))
+
+
+@pytest.mark.parametrize("policy", ["default", "select_all"])
+def test_int8_flag_quantizes_the_served_pipeline(tmp_path, monkeypatch, policy):
+    """`--int8` (which raised before the int8 mode was ported) builds the
+    server's pipeline with `enable_int8()`, as JAX's build_pipeline does: on
+    the tiny checkpoint the default policy selects nothing and it raises
+    JAX's ValueError; with every layer selected the UNet and BrushNet run
+    in int8 and serve a batch of two requests.  A batch shares one
+    activation scale a layer (JAX's per-tensor absmax over the batch), so
+    its images need not equal the solo calls'; both come out whole."""
+    from reflecting_reality_tpu_torch.core.io import load_pretrained, save_pretrained
+    from reflecting_reality_tpu_torch.ops import quant
+    from tests.test_torch_cli import write_tiny_base
+
+    base = write_tiny_base(str(tmp_path / "base"))
+    unet = load_pretrained(UNet2DConditionModel, base, subfolder="unet")
+    save_pretrained(BrushNetModel.from_unet(unet, conditioning_channels=6), str(tmp_path / "bn"))
+    args = serve.build_parser().parse_args([
+        "--base_model_path", base, "--brushnet_path", str(tmp_path / "bn"),
+        "--depth_conditioning_mode", "concat", "--weight_dtype", "fp32", "--int8",
+        "--device", "cpu"])
+    if policy == "default":
+        with pytest.raises(ValueError, match="no kernels selected"):
+            serve.build_pipeline(args)
+        return
+    monkeypatch.setattr(quant, "default_select", quant.select_all)
+    pipe = serve.build_pipeline(args)
+    assert len(quant.int8_modules(pipe.unet)) > 50 and quant.int8_modules(pipe.brushnet)
+    srv = _batched_server(pipe, max_batch=2)
+    payloads = [_distinct_payload(k) for k in (0, 1)]
+    reqs = [_Pending(_parse_payload(p, pipe, 2)) for p in payloads]
+    srv._execute(reqs)
+    for p, r in zip(payloads, reqs):
+        solo = pipe(**_parse_payload(p, pipe, 2))
+        assert solo.shape == r.images.shape and np.isfinite(r.images).all()
 
 
 def test_parser_keeps_the_jax_flags():

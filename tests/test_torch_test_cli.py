@@ -296,13 +296,50 @@ def test_ip_adapter_mode_runs(trained, tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (("--int8",), "item 15"), (("--int8_all",), "item 15"), (("--data_parallel",), "item 16"),
-    (("--attention_backend", "xla"), "follow-up 5"),
+    (("--data_parallel",), "item 16"), (("--attention_backend", "xla"), "follow-up 5"),
 ])
 def test_unported_options_raise(trained, extra, item):
     _, _, out = trained
     with pytest.raises(NotImplementedError, match=item):
         t_test.main(_infer_argv(trained, "--brushnet_path", out, *extra))
+
+
+def _sheets(trained, tmp_path, name, *extra):
+    _, _, out = trained
+    sheets = str(tmp_path / name)
+    t_test.main(_infer_argv(trained, "--brushnet_path", os.path.join(out, "checkpoint-2"),
+                            "--output_dir", sheets, *extra))
+    return {f: open(os.path.join(sheets, f), "rb").read() for f in sorted(os.listdir(sheets))}
+
+
+@pytest.mark.parametrize("extra", [("--int8",), ("--int8_all",), ("--int8", "--int8_all")])
+def test_int8_options_do_what_jax_does(trained, tmp_path, monkeypatch, extra):
+    """`--int8` (which raised before the int8 mode was ported) quantizes the
+    pipeline the CLI builds: on the tiny checkpoint JAX's default policy
+    selects nothing, so it raises JAX's ValueError; with `--int8_all` every
+    conv and linear of the UNet and BrushNet is quantized and the sheets
+    change.  `--int8_all` alone leaves the run exact, as in JAX (its
+    cli/test.py:138 reads it only under `--int8`)."""
+    quantized = []
+    real = StableDiffusionBrushNetPipeline.enable_int8
+
+    def spy(self, select=None):
+        quantized.append(real(self, select))
+        return quantized[-1]
+
+    monkeypatch.setattr(StableDiffusionBrushNetPipeline, "enable_int8", spy)
+    if extra == ("--int8",):
+        with pytest.raises(ValueError, match="no kernels selected"):
+            _sheets(trained, tmp_path, "int8", *extra)
+        return
+    exact = _sheets(trained, tmp_path, "exact")
+    got = _sheets(trained, tmp_path, "run", *extra)
+    assert sorted(got) == sorted(exact) == ["uid0_0.png", "uid1_1.png"]
+    if "--int8" in extra:
+        assert len(quantized) == 1 and quantized[0] > 100
+        assert got != exact
+    else:
+        assert quantized == [] and got == exact
 
 
 def test_entry_point_defaults_to_the_card(trained):
