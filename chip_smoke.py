@@ -5,6 +5,7 @@
     python3 chip_smoke.py --ab-main-path OTHER_CHECKOUT [BLOCKS]
     python3 chip_smoke.py --ab-train-cli-fp32 OTHER_CHECKOUT [BLOCKS]
     python3 chip_smoke.py --train-cli-fp32 [CHECKOUT]
+    python3 chip_smoke.py --ddp-step RANK WORLD PORT OUT [BACKEND]   (a rank of phase 19)
 
 The second form times the main path (phases 2 and 5 below) of another
 checkout (e.g. the parent commit unpacked with `git archive`) and of this
@@ -124,6 +125,10 @@ Phases, each printing one JSON line:
              Checks: finite losses, BrushNet moved, B1/B3/B4 each launched 5
              times a step at (4, 4096, 8, 40) fp32.  Prints s/step (median of
              steps 2-6), samples/s, peak memory and the launches.
+     fp32_conv_cost  C4's cost, TF32 at its default, in turns in one
+             process: the fp32 pipeline step (512², one image) and the fp32
+             training step (full width, batch 4) with full-fp32 cuDNN
+             convolutions, as the port runs them, against one TF32 pass.
  13. ip_adapter  the normals ip_adapter mode at full width, 512²: the
              pipeline (depth concat + the mean normal's token; IP UNet and
              NormalProjModel from a seed) in bf16, CFG 7.5, UniPC, 4- and
@@ -186,7 +191,46 @@ Phases, each printing one JSON line:
              one fp32 int8 denoise step card vs CPU, held to the int8
              mode's own error (within twice the CPU's int8-vs-exact
              difference, max and mean: a code flip on one side cascades),
-             and the exact fp32 step beside it at 1e-3.
+             and the exact fp32 step beside it at 1e-3; then (C5) one
+             `Int8Conv2d` (3x3, input (2, 640, 64, 64)) and one fused-qkv
+             `Int8Linear` group (input (2, 4096, 320)) card vs CPU on the
+             same fp32 input, TF32 off: equal activation scales, codes
+             equal except at rounding ties (counted and printed), outputs
+             within two fp32 ulps of the CPU's (|d| <= 2^-22 |cpu|).
+ 19. ddp     data-parallel training on the one card: DDP_WORLD processes
+             (`--ddp-step`, this script) in a gloo group, each at full width,
+             fp32, TF32 off, its DDP_RANK_BATCH rows of a global batch in
+             the latent cache's form, one step, against one process on the
+             whole batch with the same seed: loss and gradient norm at
+             1e-4 relative, every DDP_SAMPLE_STRIDE-th element of the
+             averaged gradient (recovered from AdamW's first moment) at
+             1e-3 of its largest, the ranks identical, B1/B3/B4 5/5/5 a
+             rank step at (2, 4096, 8, 40) fp32; a second, timed step (its
+             seconds include gloo staging through the host: not a scaling
+             figure).  The children load the libraries phase 2 built.  Then
+             the training CLI as torchrun starts one process (NCCL,
+             WORLD_SIZE=1) at fp32, batch 4: DDP_CLI_STEPS steps with a
+             checkpoint from rank 0, a resume to DDP_CLI_RESUME_TO; its
+             s/step beside train_cli_fp32's.
+ 20. data_parallel  `enable_data_parallel` over a mesh of two `cuda:0`
+             entries, full width, bf16, DP_SEEDS seeds, 4 and 8 steps in
+             turns, beside the same calls without it (s/step of both; B1 80
+             launches in 8 steps); the 8-step images against each
+             replica's rows called alone (uint8 within 1; a bf16 batch of 4
+             takes other kernels than two of 2, so its difference from the
+             undivided call is printed, not held); fp32 one step TF32 off
+             against the undivided call at 1e-5 of max; `cli/test.py --data_parallel
+             --batch_seeds` (one replica) on checkpoint-8 and `cli/serve.py
+             --data_parallel` with a burst of three requests.
+ 21. sharded_vae  the sharded decodes of a 128x128 latent (1024²) over a
+             mesh of SHARDS `cuda:0` entries, fp32, TF32 off: the exact one
+             against the plain decode (rtol 1e-4, atol 2e-5), the blended one
+             against `tiled_decode` (rtol 1e-4, atol 1e-5); seconds and peaks.
+C4: train_parity and every `card_vs_cpu_one_step` run the card again with
+TF32 at PyTorch's default, bare (`tf32_default`: cuDNN convolutions in one
+TF32 pass, what the fp32 paths ran before C4's repair) and as the port runs
+its fp32 paths (`tf32_default_fp32_convolutions`), each error beside the
+TF32-off check's tolerance; the second must meet it (int8: printed only).
 Then `kernels_late` (any kernel shape a path launched that phase 3 did not
 list, measured and checked against its plain version now), `kernels_detail`
 (every measured kernel and shape with the launches each path gave that
@@ -195,8 +239,10 @@ first 8 steps, the test CLI's bf16 8-step and fp32 4-step runs,
 train_parity's fp32 step, the fp32 CLI's 6 steps, the ip pipeline's 8-step
 call, the ip training CLI's first run, the served requests (exact and
 int8), the baseline's timed training steps and its test CLI run, the modes
-phase's bf16 call, the cached modes' 8-step calls, the tiled decode and the
-int8 pipeline's 8-step call, 0 where none; the run fails if a path launched a shape with no entry), the
+phase's bf16 call, the cached modes' 8-step calls, the tiled decode, the
+int8 pipeline's 8-step call, rank 0's ddp step, the one-rank NCCL CLI run,
+the data-parallel 8-step call, test CLI run and served requests and the
+sharded decodes, 0 where none; the run fails if a path launched a shape with no entry), the
 `{"kernels": [...]}` summary line (the kernels and shapes the paths
 launched), the run's seconds, the nvidia-smi name/power-limit line, and
 last `{"ok": true, "device": {...}}`.  Any failed check raises and
@@ -206,6 +252,7 @@ Weights are random, made from a seed.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -222,6 +269,7 @@ import tempfile
 import time
 
 T_START = time.perf_counter()
+TF32_DEFAULT = (False, True)        # (matmul, cuDNN) as PyTorch starts; read again in main
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 MAIN_REPEATS = 5                    # timed 4- and 8-step calls of each count
@@ -985,9 +1033,20 @@ def phase_profile(torch, pipe, kw, steps: int = 4) -> None:
 
 # ---------------------------------------------------------------- phase 7/8
 
+def tf32_default_report(loss_rel_err: float, loss_rel_tol: float, errs: dict) -> dict:
+    """C4's record of a card run with TF32 at PyTorch's default: each error
+    beside the TF32-off check's tolerance."""
+    return {"settings": {"matmul": TF32_DEFAULT[0], "cudnn": TF32_DEFAULT[1]},
+            "loss_rel_err": loss_rel_err, "loss_rel_tol": loss_rel_tol,
+            "grads": {n: {"max_abs_err": e, "max_abs_tol": t} for n, (e, t) in errs.items()},
+            "meets_tolerance": loss_rel_err <= loss_rel_tol
+            and all(e <= t for e, t in errs.values())}
+
+
 def phase_train_parity(torch):
     """One fp32 loss + backward of full-width UNet + BrushNet on the card
     (kernels through their autograd Functions) against the CPU."""
+    from reflecting_reality_tpu_torch.core.device import fp32_convolutions
     from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
     from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
     from reflecting_reality_tpu_torch.schedulers.common import NoiseSchedule, add_noise
@@ -1046,7 +1105,24 @@ def phase_train_parity(torch):
         res["grads"][n] = {"max_abs_err": (card[n] - cpu[n]).abs().max().item(),
                            "max_abs_tol": 1e-3 * scale, "max_abs": scale,
                            "finite": bool(torch.isfinite(card[n]).all())}
+    # C4: the same card step with TF32 at PyTorch's default, against the
+    # same CPU result and tolerances: bare (cuDNN convolutions in one TF32
+    # pass, what an fp32 step ran before C4's repair) and under the scope
+    # the training step runs its fp32 forward and backward in
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = TF32_DEFAULT
+    for key, scope in (("tf32_default", contextlib.nullcontext),
+                       ("tf32_default_fp32_convolutions", fp32_convolutions)):
+        brushnet.zero_grad(set_to_none=True)
+        with scope():
+            d_loss, d_grads = loss_and_grads(unet, brushnet, "cuda")
+        res[key] = tf32_default_report(
+            abs(d_loss - cpu_loss) / abs(cpu_loss), res["loss_rel_tol"],
+            {n: ((d_grads[n] - cpu[n]).abs().max().item(), res["grads"][n]["max_abs_tol"])
+             for n in names})
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     emit(res)
+    if not res["tf32_default_fp32_convolutions"]["meets_tolerance"]:
+        raise AssertionError(f"train parity with TF32 at its default failed: {res}")
     bad = [n for n, r in res["grads"].items()
            if not (r["finite"] and r["max_abs"] > 0 and r["max_abs_err"] <= r["max_abs_tol"])]
     if bad or not res["loss_rel_err"] <= res["loss_rel_tol"]:
@@ -1606,7 +1682,7 @@ def phase_train_cli_fp32(torch, gpu_line: str, tmp: str) -> dict:
         bad.append(f"launches per step at {FP32_TRAIN_KEY}: {per_step} (want 5 each)")
     if bad:
         raise AssertionError(f"train_cli_fp32 failed: {bad}")
-    return by_shape
+    return by_shape, res["cli_s_per_step_median_steps_2_on"]
 
 
 # ---------------------------------------------------------------- phase 10
@@ -1802,9 +1878,10 @@ def phase_evaluate(torch, gpu_line: str, tmp: str, sheets_dir: str, data: str) -
     import pandas as pd
     from PIL import Image
 
+    from reflecting_reality_tpu_torch.core.device import fp32_convolutions
     from reflecting_reality_tpu_torch.data.synmirror import get_masked_image
     from reflecting_reality_tpu_torch.metrics import evaluate
-    from reflecting_reality_tpu_torch.metrics.calculator import MetricsCalculator, _no_tf32
+    from reflecting_reality_tpu_torch.metrics.calculator import MetricsCalculator
     from reflecting_reality_tpu_torch.metrics.lpips import LPIPS, save_lpips_npz
 
     t_phase = time.perf_counter()
@@ -1857,7 +1934,7 @@ def phase_evaluate(torch, gpu_line: str, tmp: str, sheets_dir: str, data: str) -
     g = torch.Generator("cuda").manual_seed(SEED)
     x, y = (torch.rand(1, 3, CLI_PX, CLI_PX, generator=g, device="cuda") * 2 - 1
             for _ in range(2))
-    with torch.inference_mode(), _no_tf32():
+    with torch.inference_mode(), fp32_convolutions():
         lpips_ms = cuda_ms(torch, lambda: module(x, y))
     a, b = (np.random.RandomState(SEED + s).rand(CLI_PX, CLI_PX, 3).astype(np.float32) * 2 - 1
             for s in (0, 1))
@@ -2030,6 +2107,7 @@ def card_vs_cpu_one_step(torch, mods, kw, pipeline_cls=None, keep: bool = False)
         StableDiffusionBrushNetPipeline,
     )
 
+    exact = pipeline_cls is None         # int8 is held to its own error by its phase
     pipeline_cls = pipeline_cls or StableDiffusionBrushNetPipeline
 
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -2043,19 +2121,33 @@ def card_vs_cpu_one_step(torch, mods, kw, pipeline_cls=None, keep: bool = False)
     try:
         reset_counters()
         t0 = time.perf_counter()
-        card = pipeline_cls(**mods, device="cuda")(**fp32)
+        card_pipe = pipeline_cls(**mods, device="cuda")
+        card = card_pipe(**fp32)
         t_card = time.perf_counter() - t0
         launched = read_counters()
         t0 = time.perf_counter()
         cpu = pipeline_cls(**cpu_mods, device="cpu")(**fp32)
         t_cpu = time.perf_counter() - t0
+        # C4: the card step again with TF32 at PyTorch's default, bare
+        # (`generate`: cuDNN convolutions in one TF32 pass, what an fp32
+        # call ran before C4's repair) and as a call runs it (full-fp32
+        # convolutions at fp32)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = TF32_DEFAULT
+        card_bare = card_pipe.generate(**fp32)
+        card_default = card_pipe(**fp32)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     scale = float(np.abs(cpu).max())
     err = float(np.abs(card - cpu).max())
     res = {"steps": 1, "max_abs_err": err, "max_abs_tol": 1e-3 * scale, "output_max_abs": scale,
            "finite": bool(np.isfinite(card).all()), "launches": launched, "card_s": t_card,
-           "cpu_s": t_cpu}
+           "cpu_s": t_cpu,
+           "tf32_default": tf32_default_report(
+               0.0, 0.0, {"output": (float(np.abs(card_bare - cpu).max()), 1e-3 * scale)}),
+           "tf32_default_fp32_convolutions": tf32_default_report(
+               0.0, 0.0, {"output": (float(np.abs(card_default - cpu).max()), 1e-3 * scale)})}
+    if exact and not res["tf32_default_fp32_convolutions"]["meets_tolerance"]:
+        raise AssertionError(f"a card call with TF32 at its default misses the CPU: {res}")
     return (res, card, cpu) if keep else res
 
 
@@ -2627,9 +2719,14 @@ def phase_int8(torch, gpu_line: str) -> dict:
     res["fp32_step_card_vs_cpu"] = parity
     del mods, card_e, cpu_e, card_q, cpu_q, moved
     torch.cuda.empty_cache()
+    # C5: whole int8 layers card vs CPU on the same input
+    res["layers_card_vs_cpu"] = int8_layers_card_vs_cpu(torch)
     res["phase_wall_s"] = time.perf_counter() - t_phase
     emit(res)
     bad = []
+    for name, r in res["layers_card_vs_cpu"].items():
+        if not (r["scale_equal"] and r["codes_differing_off_ties"] == 0 and r["output_within"]):
+            bad.append(f"int8 layer {name} card vs CPU {r}")
     if res["quantized"] != INT8_WANT:
         bad.append(f"quantized {res['quantized']} (want {INT8_WANT})")
     if not all(r["exact"] for r in res["gemms"]) or not res["gemms"]:
@@ -2824,6 +2921,615 @@ def phase_baseline(torch, gpu_line: str, tmp: str, data: str) -> dict:
             "baseline_test_cli_fp32_4_steps": test_by_shape}
 
 
+def phase_fp32_conv_cost(torch, gpu_line: str) -> dict:
+    """C4's cost: the fp32 paths with cuDNN convolutions in full fp32 (as
+    the port runs them) against one TF32 pass (PyTorch's default), in turns
+    in one process, TF32 at its default: the fp32 pipeline step (512², one
+    image, s/step from 2- and 4-step calls: `pipe(...)` against the bare
+    `pipe.generate(...)`) and the fp32 training step (full width, batch 4
+    from the latent cache's form: the step against the same step with its
+    scope replaced by a no-op) -> {}."""
+    from unittest import mock
+
+    from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
+    from reflecting_reality_tpu_torch.models.clip_text import CLIPTextModel
+    from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
+    from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+    from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
+        StableDiffusionBrushNetPipeline,
+    )
+    from reflecting_reality_tpu_torch.training import train_step as ts
+
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = TF32_DEFAULT
+    res = {"phase": "fp32_conv_cost", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}",
+           "tf32_default": {"matmul": TF32_DEFAULT[0], "cudnn": TF32_DEFAULT[1]}}
+    try:
+        pipe = StableDiffusionBrushNetPipeline(**full_width_modules(torch), device="cuda")
+        kw = pipeline_inputs(SEED)
+        calls = {"fp32_convolutions": pipe, "one_tf32_pass": pipe.generate}
+        each = {(name, n): [] for name in calls for n in (2, 4)}
+        for fn in calls.values():
+            fn(**kw, num_inference_steps=2)               # warm
+        for _ in range(FP32_COST_REPEATS):
+            for name, fn in calls.items():
+                for n in (2, 4):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn(**kw, num_inference_steps=n)
+                    torch.cuda.synchronize()
+                    each[(name, n)].append(time.perf_counter() - t0)
+        med = {k: statistics.median(v) for k, v in each.items()}
+        res["pipeline_s_per_step"] = {name: (med[(name, 4)] - med[(name, 2)]) / 2
+                                      for name in calls}
+        del pipe, calls
+        torch.cuda.empty_cache()
+
+        torch.manual_seed(SEED)
+        with torch.device("cuda"):
+            unet, vae, text = UNet2DConditionModel(), AutoencoderKL(), CLIPTextModel()
+        brushnet = BrushNetModel.from_unet(unet, conditioning_channels=6)
+        config = ts.TrainConfig(learning_rate=5e-6, lr_warmup_steps=0,
+                                depth_conditioning_mode="concat")
+        step, init = ts.make_train_step(unet, brushnet, vae, text, config, device="cuda")
+        state = init()
+        batch = ddp_global_batch(TRAIN_BATCH)
+        gen = torch.Generator("cuda").manual_seed(SEED)
+        bare = mock.patch.object(ts, "fp32_convolutions", lambda dtype: contextlib.nullcontext())
+        modes = {"fp32_convolutions": contextlib.nullcontext, "one_tf32_pass": lambda: bare}
+        times = {name: [] for name in modes}
+        for i in range(1 + FP32_COST_REPEATS):
+            for name, ctx in modes.items():
+                with ctx():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, _ = step(state, batch, gen)
+                    torch.cuda.synchronize()
+                if i:                                     # the first round warms
+                    times[name].append(time.perf_counter() - t0)
+        res["train_step_s"] = {name: statistics.median(v) for name, v in times.items()}
+        del state, step, init, unet, vae, text, brushnet
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    for key in ("pipeline_s_per_step", "train_step_s"):
+        r = res[key]
+        r["ratio"] = r["fp32_convolutions"] / r["one_tf32_pass"]
+    res["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return {}
+
+
+# ---------------------------------------------------------- multi-device
+
+DDP_WORLD = 2                       # ranks of the ddp phase, sharing the one card
+DDP_RANK_BATCH = 2                  # --train_batch_size of each rank
+DDP_KEY = ((DDP_RANK_BATCH, 4096, 8, 40), "float32")   # each rank's level-0 self-attentions
+DDP_SAMPLE_STRIDE = 97              # every 97th gradient element is compared
+DDP_CLI_STEPS = 3                   # the 1-rank NCCL CLI run (checkpoint at its end) ...
+DDP_CLI_RESUME_TO = 4               # ... and its resume
+DP_SEEDS = 4                        # images of a data-parallel call
+DP_REPEATS = 2                      # timed 4- and 8-step calls of each
+SHARDS = 4                          # entries of the sharded decodes' mesh
+FP32_COST_REPEATS = 3               # turns of each mode in the fp32_conv_cost phase
+
+
+def ddp_global_batch(n: int) -> dict:
+    """A global batch of `n` samples in the latent cache's form (the moments
+    of a 512² image, the mask and depth at latent resolution), numpy."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 30)
+    hl = CLI_PX // 8
+
+    def moments():
+        return np.concatenate([rng.standard_normal((n, hl, hl, 4)),
+                               rng.uniform(-6.0, -2.0, (n, hl, hl, 4))], axis=-1
+                              ).astype(np.float32)
+
+    mask = np.zeros((n, hl, hl, 1), np.float32)
+    mask[:, hl // 4: 3 * hl // 4, hl // 3: 2 * hl // 3] = 1.0
+    return {"latent_moments": moments(), "cond_latent_moments": moments(), "masks": mask,
+            "depths": rng.uniform(-1.0, 1.0, (n, hl, hl, 1)).astype(np.float32),
+            "input_ids": rng.randint(0, 49408, (n, 77)).astype(np.int64)}
+
+
+def ddp_step(rank: int, world: int, port: int, out: str, backend: str = "gloo") -> None:
+    """One process of the ddp phase (`--ddp-step RANK WORLD PORT OUT
+    [BACKEND]`): with world > 1 rank `rank` of a `backend` group on
+    127.0.0.1:`port`, its rows of the global batch (gloo: every rank on the
+    first card; nccl: rank r on card r, `chip_multicard.py`); with world 1
+    the whole batch and no group.  Full width, fp32, TF32 off: one step (the parity step), then one
+    timed step -> `out/ddp_<world>p_<rank>.pt`: loss, gradient norm, every
+    DDP_SAMPLE_STRIDE-th element of the gradient recovered from AdamW's
+    first moment and its largest |g|, seconds, launches by shape."""
+    import datetime
+
+    import torch
+
+    from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
+    from reflecting_reality_tpu_torch.models.clip_text import CLIPTextModel
+    from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
+    from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+    from reflecting_reality_tpu_torch.parallel import multihost
+    from reflecting_reality_tpu_torch.training.train_step import TrainConfig, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    if world > 1:
+        os.environ["LOCAL_RANK"] = str(rank if backend == "nccl" else 0)
+        multihost.initialize(backend=backend, device="cuda",
+                             init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                             world_size=world, timeout=datetime.timedelta(seconds=300))
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        unet, vae, text = UNet2DConditionModel(), AutoencoderKL(), CLIPTextModel()
+    brushnet = BrushNetModel.from_unet(unet, conditioning_channels=6)
+    fill_zero_convs(torch, brushnet, SEED, 0.02)
+    config = TrainConfig(learning_rate=5e-6, lr_warmup_steps=0,
+                         depth_conditioning_mode="concat")
+    step, init = make_train_step(unet, brushnet, vae, text, config, device="cuda")
+    state = init()
+    full = ddp_global_batch(DDP_WORLD * DDP_RANK_BATCH)
+    b = len(full["input_ids"]) // world
+    local = {k: v[rank * b:(rank + 1) * b] for k, v in full.items()}
+    generator = torch.Generator("cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    state, m = step(state, local, generator)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    by_shape = read_counters_by_shape()
+    gn = float(m["grad_norm"])
+    unclip = gn / config.max_grad_norm if gn >= config.max_grad_norm else 1.0
+    with torch.no_grad():
+        g = torch.cat([state.optimizer.state[p]["exp_avg"].reshape(-1) for p in state.params])
+        g *= unclip / (1.0 - config.adam_beta1)
+        sample, g_max, numel = g[::DDP_SAMPLE_STRIDE].cpu(), g.abs().max().item(), g.numel()
+    del g
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m2 = step(state, local, generator)
+    torch.cuda.synchronize()
+    torch.save({"rank": rank, "world": world, "loss": float(m["loss"]), "grad_norm": gn,
+                "loss_step2": float(m2["loss"]), "sample": sample, "g_max": g_max,
+                "numel": numel, "first_step_s": first_s,
+                "timed_step_s": time.perf_counter() - t0, "by_shape": by_shape,
+                "peak_bytes": torch.cuda.max_memory_allocated()},
+               os.path.join(out, f"ddp_{world}p_{rank}.pt"))
+
+
+def phase_ddp(torch, gpu_line: str, tmp: str, cli_fp32_s_step: float) -> dict:
+    """Data-parallel training on the one card: DDP_WORLD gloo processes
+    against one process on the same global batch and draws, then the
+    training CLI as one NCCL rank under torchrun's environment, with a
+    checkpoint and a resume -> {path: {(kernel, key): launches}}."""
+    import torch.distributed as dist
+
+    from reflecting_reality_tpu_torch.cli import train as cli
+    from reflecting_reality_tpu_torch.tools.multiprocess_dryrun import free_port, spawn
+
+    t_phase = time.perf_counter()
+    out = os.path.join(tmp, "ddp")
+    os.makedirs(out)
+    # the ranks and the reference are processes of their own: free this
+    # one's cached blocks first.  The kernel libraries exist (phase build),
+    # so the children load them and build nothing.
+    torch.cuda.empty_cache()
+    script = os.path.join(ROOT, "chip_smoke.py")
+    t0 = time.perf_counter()
+    port = str(free_port())
+    spawn([[sys.executable, script, "--ddp-step", str(r), str(DDP_WORLD), port, out]
+           for r in range(DDP_WORLD)],
+          [os.path.join(out, f"rank{r}.log") for r in range(DDP_WORLD)], timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spawn([[sys.executable, script, "--ddp-step", "0", "1", "0", out]],
+          [os.path.join(out, "one.log")], timeout_s=600)
+    one_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"ddp_{DDP_WORLD}p_{r}.pt"), weights_only=False)
+             for r in range(DDP_WORLD)]
+    one = torch.load(os.path.join(out, "ddp_1p_0.pt"), weights_only=False)
+    r0 = ranks[0]
+    g_err = (r0["sample"] - one["sample"]).abs().max().item()
+    res = {"phase": "ddp", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}", "dtype": "float32",
+           "tf32": False, "world": DDP_WORLD, "backend": "gloo (two ranks on one card)",
+           "batch_per_rank": DDP_RANK_BATCH, "global_batch": DDP_WORLD * DDP_RANK_BATCH,
+           "loss": r0["loss"], "one_process_loss": one["loss"],
+           "loss_rel_err": abs(r0["loss"] - one["loss"]) / abs(one["loss"]),
+           "grad_norm": r0["grad_norm"], "one_process_grad_norm": one["grad_norm"],
+           "grad_norm_rel_err": abs(r0["grad_norm"] - one["grad_norm"]) / one["grad_norm"],
+           "rel_tol": 1e-4, "grad_elements": one["numel"],
+           "grad_elements_compared": len(one["sample"]), "grad_max_abs_err": g_err,
+           "grad_max_abs_tol": 1e-3 * one["g_max"], "grad_max_abs": one["g_max"],
+           "ranks_identical": all(r["loss"] == r0["loss"] and r["loss_step2"] ==
+                                  r0["loss_step2"] and torch.equal(r["sample"], r0["sample"])
+                                  for r in ranks),
+           "rank_step_s_with_gloo_staging": [r["timed_step_s"] for r in ranks],
+           "rank_first_step_s": [r["first_step_s"] for r in ranks],
+           "one_process_step_s": one["timed_step_s"],
+           "note": "the ranks' step seconds include gloo staging the gradients through the "
+                   "host and two processes sharing one card: not a scaling figure",
+           "rank_peak_bytes": [r["peak_bytes"] for r in ranks],
+           "one_process_peak_bytes": one["peak_bytes"],
+           "launches_per_rank_step_at_2x4096x8x40_fp32": {
+               k: r0["by_shape"].get((k, DDP_KEY), 0)
+               for k in ("flash", "flash_bwd_dq", "flash_bwd_dkv")},
+           "ranks_wall_s": ranks_s, "one_process_wall_s": one_s}
+
+    # the training CLI as torchrun starts one process: NCCL, WORLD_SIZE=1
+    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    run = os.path.join(tmp, "ddp_cli")
+
+    def argv(steps: int, *extra):
+        return ["--pretrained_model_name_or_path", os.path.join(tmp, "base"),
+                "--train_data_dir", os.path.join(tmp, "data"), "--output_dir", run,
+                "--logging_dir", os.path.join(run, "logs"), "--train_batch_size",
+                str(TRAIN_BATCH), "--depth_conditioning_mode", "concat", "--learning_rate",
+                "5e-6", "--lr_warmup_steps", "0", "--precomputed_latents_dir",
+                os.path.join(tmp, "cache"), "--dataloader_num_workers", "4", "--log_every", "1",
+                "--validation_steps", "0", "--report_to", "none", "--seed", "0",
+                "--max_train_steps", str(steps), "--checkpointing_steps", str(DDP_CLI_STEPS),
+                "--checkpoints_total_limit", "1", *extra]
+
+    os.environ.update(env)
+    try:
+        reset_counters()
+        t0 = time.perf_counter()
+        state = cli.main(argv(DDP_CLI_STEPS))
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_by_shape = read_counters_by_shape()
+        backend, world = dist.get_backend(), dist.get_world_size()
+        del state
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        state = cli.main(argv(DDP_CLI_RESUME_TO, "--resume_from_checkpoint", "latest"))
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        resumed_step = state.step
+        del state
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    torch.cuda.empty_cache()
+    rows = [r for r in read_metrics(run) if "loss" in r]
+    ckpts = sorted(d for d in os.listdir(run) if d.startswith("checkpoint-"))
+    shutil.rmtree(run)
+    shutil.rmtree(out)
+    timed = [r["s_per_step"] for r in rows if r["step"] >= 2]
+    res["cli_one_rank_nccl"] = {
+        "backend": backend, "world": world, "steps": DDP_CLI_STEPS,
+        "resumed_to": resumed_step, "losses": [r["loss"] for r in rows],
+        "checkpoints_left": ckpts, "run_wall_s": cli_s, "resume_run_wall_s": resume_s,
+        "cli_s_per_step_median_steps_2_on": statistics.median(timed),
+        "train_cli_fp32_s_per_step_same_run": cli_fp32_s_step,
+        "note": "the difference from train_cli_fp32 is the all-reduce path at world size 1 "
+                "(and host noise between the two runs)"}
+    res["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(res)
+    bad = []
+    if not (res["loss_rel_err"] <= 1e-4 and res["grad_norm_rel_err"] <= 1e-4
+            and g_err <= res["grad_max_abs_tol"] and math.isfinite(r0["loss"])):
+        bad.append("two ranks against one process")
+    if not res["ranks_identical"]:
+        bad.append("the ranks differ")
+    if any(n != 5 for n in res["launches_per_rank_step_at_2x4096x8x40_fp32"].values()):
+        bad.append(f"B1/B3/B4 launches a rank step: "
+                   f"{res['launches_per_rank_step_at_2x4096x8x40_fp32']} (want 5 each)")
+    c = res["cli_one_rank_nccl"]
+    # the periodic checkpoint at DDP_CLI_STEPS and the resumed run's final one
+    if (c["backend"], c["world"], c["resumed_to"]) != ("nccl", 1, DDP_CLI_RESUME_TO) \
+            or len(c["losses"]) != DDP_CLI_RESUME_TO \
+            or not all(math.isfinite(x) for x in c["losses"]) \
+            or c["checkpoints_left"] != [f"checkpoint-{DDP_CLI_STEPS}",
+                                         f"checkpoint-{DDP_CLI_RESUME_TO}"]:
+        bad.append(f"the one-rank NCCL CLI run: {c}")
+    if bad:
+        raise AssertionError(f"ddp failed: {bad}: {res}")
+    return {f"ddp_rank0_step_batch_{DDP_RANK_BATCH}": r0["by_shape"],
+            f"ddp_cli_nccl_{DDP_CLI_STEPS}_steps": cli_by_shape}
+
+
+def phase_data_parallel(torch, gpu_line: str, tmp: str, data: str) -> dict:
+    """`enable_data_parallel` over a mesh of two `cuda:0` entries at full
+    width (bf16, DP_SEEDS seeds, 4 and 8 steps in turns, beside the same
+    call without it and against each replica's rows called alone; fp32 with
+    TF32 off, one step, against the undivided call), then `cli/test.py
+    --data_parallel --batch_seeds` and `cli/serve.py --data_parallel` on the
+    base folder and checkpoint-8 -> {path: {(kernel, key): launches}}."""
+    import threading
+
+    import numpy as np
+    from PIL import Image
+
+    from reflecting_reality_tpu_torch.cli import serve
+    from reflecting_reality_tpu_torch.cli import test as cli_test
+    from reflecting_reality_tpu_torch.parallel.mesh import make_mesh
+    from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
+        StableDiffusionBrushNetPipeline,
+    )
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    lat = np.random.RandomState(SEED + 31).standard_normal(
+        (DP_SEEDS, CLI_PX // 8, CLI_PX // 8, 4)).astype(np.float32)
+    kw = dict(pipeline_inputs(SEED), num_images_per_prompt=DP_SEEDS, latents=lat,
+              deterministic_vae_encode=True)
+    pipe = StableDiffusionBrushNetPipeline(**full_width_modules(torch), dtype=torch.bfloat16,
+                                           device="cuda")
+    res = {"phase": "data_parallel", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}",
+           "mesh": [str(d) for d in mesh], "seeds": DP_SEEDS,
+           "note": "two replicas on one card run in turn on its one stream: a cost, not a "
+                   "scaling figure"}
+    # each replica's rows called alone (its batch, so the same kernels)
+    half = DP_SEEDS // len(mesh)
+    parts = np.concatenate([pipe(**dict(kw, num_images_per_prompt=half,
+                                        latents=lat[i * half:(i + 1) * half]),
+                                 num_inference_steps=8) for i in range(len(mesh))])
+    runs = {}
+    for name in ("single", "data_parallel"):
+        if name == "data_parallel":
+            pipe.enable_data_parallel(mesh)
+        pipe(**kw, num_inference_steps=2)                 # warm
+        each = {4: [], 8: []}
+        for _ in range(DP_REPEATS):
+            for steps in (4, 8):
+                torch.cuda.synchronize()
+                reset_counters()
+                t0 = time.perf_counter()
+                img = pipe(**kw, num_inference_steps=steps)
+                torch.cuda.synchronize()
+                each[steps].append(time.perf_counter() - t0)
+                if steps == 8:
+                    runs[name] = {"image": img, "by_shape": read_counters_by_shape(),
+                                  "launches": read_counters()}
+        med = {k: statistics.median(v) for k, v in each.items()}
+        runs[name].update(s_per_step=(med[8] - med[4]) / 4, s_8_steps=med[8])
+    pipe.disable_data_parallel()
+    dp = runs["data_parallel"]["image"].astype(np.int16)
+    res["bf16"] = {name: {k: r[k] for k in ("s_per_step", "s_8_steps", "launches")}
+                   for name, r in runs.items()}
+    # in bf16 a batch of 4 and two of 2 take different kernels, which round
+    # differently; the fp32 step below holds the arithmetic itself
+    res["bf16"]["uint8_max_diff_from_the_replicas_rows_alone"] = int(
+        np.abs(dp - parts.astype(np.int16)).max())
+    res["bf16"]["uint8_max_diff_from_one_call_of_4"] = int(
+        np.abs(dp - runs["single"]["image"].astype(np.int16)).max())
+    res["bf16"]["shape"] = list(runs["data_parallel"]["image"].shape)
+    del pipe
+    torch.cuda.empty_cache()
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        pipe = StableDiffusionBrushNetPipeline(**full_width_modules(torch), device="cuda")
+        kw32 = dict(kw, num_inference_steps=1, output_type="latent",
+                    deterministic_vae_encode=True)
+        ref = pipe(**kw32)
+        pipe.enable_data_parallel(mesh)
+        got = pipe(**kw32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    scale = float(np.abs(ref).max())
+    res["fp32_one_step"] = {"max_abs_err": float(np.abs(got - ref).max()),
+                            "max_abs_tol": 1e-5 * scale, "output_max_abs": scale}
+    del pipe
+    torch.cuda.empty_cache()
+
+    # cli/test.py --data_parallel on the one card: a mesh of one replica
+    out = os.path.join(tmp, "infer", "data_parallel")
+    reset_counters()
+    t0 = time.perf_counter()
+    cli_test.main(["--brushnet_path", os.path.join(tmp, "run", "checkpoint-8"),
+                   "--base_model_path", os.path.join(tmp, "base"), "--train_data_dir", data,
+                   "--output_dir", out, "--image_mode", "--depth_conditioning_mode", "concat",
+                   "--resolution", str(CLI_PX), "--seed", str(SEED), "--weight_dtype", "bf16",
+                   "--batch_seeds", "--data_parallel", "--num_inference_steps", "4"])
+    torch.cuda.synchronize()
+    test_by_shape = read_counters_by_shape()
+    sheets = sorted(os.listdir(out))
+    shapes = {np.asarray(Image.open(os.path.join(out, f))).shape for f in sheets}
+    res["test_cli"] = {"wall_s": time.perf_counter() - t0, "sheets": sheets,
+                       "sheet_shapes": [list(s) for s in shapes], "launches": read_counters()}
+    shutil.rmtree(out)
+    torch.cuda.empty_cache()
+
+    # cli/serve.py --data_parallel: a burst of three requests at 4 steps
+    args = serve.build_parser().parse_args([
+        "--base_model_path", os.path.join(tmp, "base"),
+        "--brushnet_path", os.path.join(tmp, "run", "checkpoint-8", "brushnet"),
+        "--depth_conditioning_mode", "concat", "--max_batch", str(SERVE_MAX_BATCH),
+        "--num_inference_steps", "4", "--data_parallel"])
+    spipe = serve.build_pipeline(args)
+    server = serve.make_server(args, spipe)
+    rng = np.random.RandomState(SEED + 32)
+    mask = np.zeros((CLI_PX, CLI_PX, 3), np.float32)
+    mask[128:384, 160:352] = 1.0
+    payloads = [{"prompt": f"a mirror, request {k}", "mask": mask, "seed": k,
+                 "image": rng.rand(CLI_PX, CLI_PX, 3).astype(np.float32),
+                 "depth": rng.rand(CLI_PX, CLI_PX, 1).astype(np.float32)} for k in range(3)]
+    replies = [None] * 3
+
+    def go(k):
+        replies[k] = server.generate(payloads[k])
+
+    try:
+        go(0)                                             # warm
+        threads = [threading.Thread(target=go, args=(k,)) for k in range(3)]
+        reset_counters()
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        burst_s = time.perf_counter() - t0
+        serve_by_shape = read_counters_by_shape()
+        stats = server.stats()
+    finally:
+        server.close()
+    res["serve"] = {"mesh": [str(d) for d in spipe._dp_mesh], "burst_wall_s": burst_s,
+                    "images_per_s": 3 / burst_s, "stats": stats,
+                    "images": [len(r["images"]) if r else None for r in replies],
+                    "launches": {k: sum(n for (kern, _), n in serve_by_shape.items()
+                                        if kern == k) for k in counters()}}
+    del spipe, server
+    torch.cuda.empty_cache()
+    res["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(res)
+    bad = []
+    b = res["bf16"]
+    if b["uint8_max_diff_from_the_replicas_rows_alone"] > 1 \
+            or b["shape"] != [DP_SEEDS, CLI_PX, CLI_PX, 3] \
+            or b["data_parallel"]["launches"]["flash"] != 40 * 2:
+        bad.append(f"bf16 {b}")
+    f = res["fp32_one_step"]
+    if not f["max_abs_err"] <= f["max_abs_tol"]:
+        bad.append(f"fp32 {f}")
+    if len(sheets) != CLI_ROWS or shapes != {(2 * CLI_PX, 2 * CLI_PX, 3)} \
+            or res["test_cli"]["launches"]["flash"] == 0:
+        bad.append(f"test_cli {res['test_cli']}")
+    if res["serve"]["images"] != [1, 1, 1] or res["serve"]["mesh"] != ["cuda:0"] \
+            or res["serve"]["launches"]["flash"] == 0:
+        bad.append(f"serve {res['serve']}")
+    if bad:
+        raise AssertionError(f"data_parallel failed: {bad}")
+    return {"data_parallel_8_steps": runs["data_parallel"]["by_shape"],
+            "test_cli_data_parallel_4_steps": test_by_shape,
+            "serve_data_parallel_requests": serve_by_shape}
+
+
+def phase_sharded_vae(torch, gpu_line: str) -> dict:
+    """The sharded decodes of a 128x128 latent (a 1024² image) over a mesh
+    of SHARDS `cuda:0` entries, fp32, TF32 off: the exact one against the
+    plain decode, the blended one against `tiled_decode` with as many
+    tiles, JAX's tolerances -> {path: {(kernel, key): launches}}."""
+    from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+    from reflecting_reality_tpu_torch.parallel.mesh import make_mesh
+    from reflecting_reality_tpu_torch.parallel.sharded_vae import (
+        sharded_decode, sharded_decode_exact, tiled_decode,
+    )
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=["cuda:0"] * SHARDS)
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        vae = AutoencoderKL().eval()
+    z = 0.5 * torch.randn(1, 4, 128, 128, generator=torch.Generator("cuda").manual_seed(SEED),
+                          device="cuda")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    decodes = {}
+    try:
+        with torch.inference_mode():
+            for name, fn in (("plain", lambda: vae.decode(z)),
+                             ("exact", lambda: sharded_decode_exact(vae, z, mesh)),
+                             ("tiled", lambda: tiled_decode(vae, z, num_tiles=SHARDS, overlap=8)),
+                             ("blended", lambda: sharded_decode(vae, z, mesh, overlap=8))):
+                fn()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                reset_counters()
+                t0 = time.perf_counter()
+                img = fn()
+                torch.cuda.synchronize()
+                decodes[name] = {"s": time.perf_counter() - t0,
+                                 "peak_bytes_above_inputs":
+                                     torch.cuda.max_memory_allocated() - before,
+                                 "by_shape": read_counters_by_shape(), "image": img}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    def close(a, b, rtol, atol):
+        excess = ((a - b).abs() - (atol + rtol * b.abs())).max().item()
+        return {"max_abs_diff": (a - b).abs().max().item(), "rtol": rtol, "atol": atol,
+                "within": excess <= 0}
+
+    res = {"phase": "sharded_vae", "gpu": gpu_line, "latent": [1, 4, 128, 128],
+           "image": list(decodes["plain"]["image"].shape), "dtype": "float32", "tf32": False,
+           "mesh": [str(d) for d in mesh],
+           "exact_vs_plain": close(decodes["exact"]["image"], decodes["plain"]["image"],
+                                   1e-4, 2e-5),
+           "blended_vs_tiled": close(decodes["blended"]["image"], decodes["tiled"]["image"],
+                                     1e-4, 1e-5),
+           "note": "the shards run in turn on one card: a cost, not a scaling figure"}
+    for name, d in decodes.items():
+        res[name] = {"s": d["s"], "peak_bytes_above_inputs": d["peak_bytes_above_inputs"],
+                     "launches": {k: sum(n for (kern, _), n in d["by_shape"].items()
+                                         if kern == k) for k in counters()}}
+    paths = {f"sharded_vae_{name}_128x128": decodes[name]["by_shape"]
+             for name in ("exact", "blended")}
+    del vae, decodes
+    torch.cuda.empty_cache()
+    res["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(res)
+    if not (res["exact_vs_plain"]["within"] and res["blended_vs_tiled"]["within"]) \
+            or res["image"] != [1, 3, 1024, 1024] or res["exact"]["launches"]["groupnorm"] == 0:
+        raise AssertionError(f"sharded_vae failed: {res}")
+    return paths
+
+
+def int8_layers_card_vs_cpu(torch) -> dict:
+    """One `Int8Conv2d` (3x3, 640 -> 640, input (2, 640, 64, 64)) and one
+    fused-qkv `Int8Linear` group (320 -> 3 x 320, input (2, 4096, 320)),
+    full width, the same fp32 input on the card and the CPU, TF32 off.  The
+    activation codes must be equal except at rounding ties (an x/s within
+    two ulps of a half-integer; counted).  The outputs are held elementwise
+    within two fp32 ulps of the CPU's (|d| <= 2^-22 |cpu|), the CPU's
+    computed from the card's codes where a tie flipped one."""
+    from unittest import mock
+
+    from reflecting_reality_tpu_torch.ops import quant
+    from reflecting_reality_tpu_torch.ops.attention import Attention
+
+    g = torch.Generator().manual_seed(SEED + 40)
+    conv = torch.nn.Conv2d(640, 640, 3, padding=1)
+    attn = Attention(320, heads=8, dim_head=40)
+    with torch.no_grad():
+        for p in list(conv.parameters()) + list(attn.parameters()):
+            p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    quant.quantize_modules(attn, quant.select_all)
+    cases = {"conv3x3_2x640x64x64": (quant.Int8Conv2d(conv), torch.randn(2, 640, 64, 64,
+                                                                         generator=g),
+                                     lambda m, x: m(x)),
+             "fused_qkv_2x4096x320": (attn, torch.randn(2, 4096, 320, generator=g),
+                                      lambda m, x: m._fused(x, (m.to_q, m.to_k, m.to_v)))}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for name, (layer, x, fn) in cases.items():
+            card_layer = copy.deepcopy(layer).cuda()
+            with torch.no_grad():
+                card = fn(card_layer, x.cuda()).cpu()
+                q_card, s_card = (t.cpu() for t in quant.quantize_activation(x.cuda()))
+                q_cpu, s_cpu = quant.quantize_activation(x)
+                t = (x / s_cpu).abs()
+                ties = (t - t.floor() - 0.5).abs() <= 2.0 ** -22 * t
+                flipped = q_card != q_cpu
+                with mock.patch.object(quant, "quantize_activation",
+                                       lambda _x: (q_card, s_card)):
+                    cpu = fn(layer, x)
+            err = (card - cpu).abs()
+            out[name] = {"scale_equal": bool(torch.equal(s_card, s_cpu)),
+                         "codes": q_cpu.numel(), "ties": int(ties.sum()),
+                         "codes_differing": int(flipped.sum()),
+                         "codes_differing_off_ties": int((flipped & ~ties).sum()),
+                         "output_max_abs_err": err.max().item(),
+                         "output_bound": "|card - cpu| <= 2^-22 |cpu| elementwise",
+                         "output_within": bool((err <= 2.0 ** -22 * cpu.abs()).all()),
+                         "output_max_abs": cpu.abs().max().item()}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 AB_RUN = ("import sys, torch; sys.path.insert(0, '.'); import chip_smoke as cs; "
@@ -2902,6 +3608,9 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(sys.argv[2]) if alone and len(sys.argv) > 2 else ROOT)
     import reflecting_reality_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    if sys.argv[1:2] == ["--ddp-step"]:
+        ddp_step(*map(int, sys.argv[2:5]), *sys.argv[5:7])
+        return 0
     if sys.argv[1:2] == ["--ab-main-path"]:
         ab_main_path(os.path.abspath(sys.argv[2]), int(sys.argv[3]) if len(sys.argv) > 3 else 1)
         return 0
@@ -2912,13 +3621,16 @@ def main() -> int:
         ab_train_cli_fp32(os.path.abspath(sys.argv[2]),
                           int(sys.argv[3]) if len(sys.argv) > 3 else 1)
         return 0
+    global TF32_DEFAULT
+    TF32_DEFAULT = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     gpu_line = nvidia_smi()
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability(0)),
           "device_count": torch.cuda.device_count(), "nvidia_smi": gpu_line,
           "importable": {m: importlib.util.find_spec(m) is not None for m in ABSENT_MODULES},
-          "clocks_max_sm_mhz": max_sm_clock_hz() / 1e6})
+          "clocks_max_sm_mhz": max_sm_clock_hz() / 1e6,
+          "tf32_default": {"matmul": TF32_DEFAULT[0], "cudnn": TF32_DEFAULT[1]}})
     phase_build(torch)
     entries = phase_kernels(torch)
     phase_slice(torch)
@@ -2931,17 +3643,21 @@ def main() -> int:
         test_by_shape, sheets, data = phase_test_cli(torch, gpu_line, tmp, main_per_step,
                                                      entries)
         phase_evaluate(torch, gpu_line, tmp, sheets, data)
-        cli32_by_shape = phase_train_cli_fp32(torch, gpu_line, tmp)
+        cli32_by_shape, cli32_s_step = phase_train_cli_fp32(torch, gpu_line, tmp)
+        phase_fp32_conv_cost(torch, gpu_line)
         new_paths = phase_ip_adapter(torch, gpu_line, tmp)
         serve_paths, serve_rate = phase_serve(torch, gpu_line, tmp)
         new_paths.update(serve_paths)
         new_paths.update(phase_serve(torch, gpu_line, tmp, int8=True, exact=serve_rate)[0])
         new_paths.update(phase_baseline(torch, gpu_line, tmp, data))
+        new_paths.update(phase_ddp(torch, gpu_line, tmp, cli32_s_step))
+        new_paths.update(phase_data_parallel(torch, gpu_line, tmp, data))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     new_paths.update(phase_modes(torch, gpu_line))
     new_paths.update(phase_approx(torch, gpu_line))
     new_paths.update(phase_int8(torch, gpu_line))
+    new_paths.update(phase_sharded_vae(torch, gpu_line))
 
     # each entry carries the launches of its own kernel, shape and dtype on
     # each path: the main path's 8-step call (and per denoise step), the

@@ -16,7 +16,11 @@ trainable module, and applies updates with `training.train_step.apply_update`
 (global-norm clipping, AdamW and its schedule from `make_optimizer`).
 `draws=` passes the step's random numbers in, as `make_train_step`'s does:
 `vae_noise` ("latents", "cond", "depth", "normals": NCHW posterior noise),
-`noise` and `timesteps`.
+`noise` and `timesteps`.  Inside a `torch.distributed` group the step is
+data-parallel as `make_train_step`'s is: global-batch draws of which each
+rank keeps its rows (`BatchShard`), gradients and loss averaged across the
+ranks before the global norm, rank 0's UNet broadcast at `init_state`, and
+the LR scaled by the world size under `scale_lr`.
 
 `SDInpaintingPipeline` reuses the BrushNet pipeline's host machinery
 (prompt encoding, image processor, VAE) and keeps the dataset's mask
@@ -35,8 +39,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from reflecting_reality_tpu_torch.core.device import resolve_device
+from reflecting_reality_tpu_torch.core.device import fp32_convolutions, resolve_device
 from reflecting_reality_tpu_torch.ops.embeddings import precompute_time_embeddings
+from reflecting_reality_tpu_torch.parallel import multihost
 from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
     StableDiffusionBrushNetPipeline,
     _nhwc,
@@ -52,6 +57,7 @@ from reflecting_reality_tpu_torch.schedulers.common import (
 from reflecting_reality_tpu_torch.schedulers.ddim import ddim_step
 from reflecting_reality_tpu_torch.schedulers.unipc import UniPCSampler
 from reflecting_reality_tpu_torch.training.train_step import (
+    BatchShard,
     TrainConfig,
     TrainState,
     _global_norm,
@@ -59,6 +65,7 @@ from reflecting_reality_tpu_torch.training.train_step import (
     _sample,
     apply_update,
     diffusion_loss,
+    gradients_and_loss,
     lr_schedule,
     make_optimizer,
     nearest_resize,
@@ -81,16 +88,18 @@ def inflate_conv_in(weight: torch.Tensor, in_channels: int, preserve: int = 4) -
 
 def assemble_baseline_input(vae: nn.Module, batch: Mapping[str, Any], noisy_latents: torch.Tensor,
                             config: TrainConfig, generator: Optional[torch.Generator] = None,
-                            vae_noise: Optional[Mapping[str, torch.Tensor]] = None
-                            ) -> torch.Tensor:
+                            vae_noise: Optional[Mapping[str, torch.Tensor]] = None,
+                            shard: BatchShard = BatchShard()) -> torch.Tensor:
     """concat(noisy, mask, masked latents, depth?, normals?) at latent
     resolution, NCHW, from an NHWC batch.  Posterior draws from `vae_noise`
-    where given, else from `generator`.  Call it under `no_grad`."""
+    where given, else from `generator` (the global batch's, `shard`'s rows
+    kept).  Call it under `no_grad`."""
     device = next(vae.parameters()).device
     vae_noise = vae_noise or {}
 
     def enc(key: str, img: torch.Tensor) -> torch.Tensor:
-        return _sample(vae.encode(img), vae_noise.get(key), generator) * config.scaling_factor
+        return (_sample(vae.encode(img), vae_noise.get(key), generator, shard)
+                * config.scaling_factor)
 
     def resized(key: str) -> torch.Tensor:
         return nearest_resize(_nchw(batch[key], device), hl, wl).to(cond.dtype)
@@ -129,7 +138,8 @@ def make_baseline_train_step(unet: nn.Module, vae: nn.Module, text_encoder: nn.M
         beta_start=0.00085, beta_end=0.012, beta_schedule="scaled_linear",
         prediction_type=config.prediction_type,
     )
-    schedule_fn = lr_schedule(config)
+    shard = BatchShard(*multihost.rank_and_world())
+    schedule_fn = lr_schedule(config, shard.world)
     device = resolve_device(device)
 
     def init_state() -> TrainState:
@@ -139,7 +149,8 @@ def make_baseline_train_step(unet: nn.Module, vae: nn.Module, text_encoder: nn.M
         text_encoder.requires_grad_(False)
         unet.requires_grad_(True)
         params = list(unet.parameters())
-        optimizer, _ = make_optimizer(config, params)
+        multihost.broadcast_from_main(params)
+        optimizer, _ = make_optimizer(config, params, shard.world)
         return TrainState(step=0, trainable={"unet": unet},
                           frozen={"vae": vae, "text": text_encoder},
                           optimizer=optimizer, params=params)
@@ -149,25 +160,21 @@ def make_baseline_train_step(unet: nn.Module, vae: nn.Module, text_encoder: nn.M
             return contextlib.nullcontext()
         return torch.autocast(device.type, dtype=dtype)
 
-    def train_step(state: TrainState, batch: Mapping[str, Any],
-                   generator: Optional[torch.Generator] = None,
-                   draws: Optional[Mapping[str, Any]] = None):
-        draws = draws or {}
+    def compute_loss(batch: Mapping[str, Any], generator, draws) -> torch.Tensor:
         vae_noise = draws.get("vae_noise") or {}
         with torch.no_grad(), autocast():
             latents = _sample(vae.encode(_nchw(batch["pixel_values"], device)),
-                              vae_noise.get("latents"), generator) * config.scaling_factor
+                              vae_noise.get("latents"), generator, shard) * config.scaling_factor
             latents = latents.float()
-            noise = draws.get("noise")
-            if noise is None:
-                noise = torch.randn(latents.shape, generator=generator, device=device)
-            timesteps = draws.get("timesteps")
-            if timesteps is None:
-                timesteps = torch.randint(0, config.num_train_timesteps, (latents.shape[0],),
-                                          generator=generator, device=device)
+            noise, timesteps = draws.get("noise"), draws.get("timesteps")
+            noise = (shard.randn(latents.shape, generator, device) if noise is None
+                     else shard.local(noise))
+            timesteps = (shard.randint(config.num_train_timesteps, latents.shape[0], generator,
+                                       device) if timesteps is None else shard.local(timesteps))
             noise, timesteps = noise.to(device).float(), timesteps.to(device).long()
             noisy = add_noise(schedule, latents, noise, timesteps)
-            combined = assemble_baseline_input(vae, batch, noisy, config, generator, vae_noise)
+            combined = assemble_baseline_input(vae, batch, noisy, config, generator, vae_noise,
+                                               shard)
             ehs = text_encoder(torch.as_tensor(batch["input_ids"], device=device).long())
         with autocast():
             pred = unet(combined.to(dtype), timesteps, ehs.to(dtype))
@@ -175,15 +182,21 @@ def make_baseline_train_step(unet: nn.Module, vae: nn.Module, text_encoder: nn.M
             target = noise
         else:
             target = get_velocity(schedule, latents, noise, timesteps)
-        loss = diffusion_loss(pred, target, timesteps, schedule, config)
-        loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in state.params]
+        return diffusion_loss(pred, target, timesteps, schedule, config)
+
+    def train_step(state: TrainState, batch: Mapping[str, Any],
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[Mapping[str, Any]] = None):
+        with fp32_convolutions(dtype):
+            loss = compute_loss(batch, generator, draws or {})
+            loss.backward()
+        grads, loss = gradients_and_loss(state.params, loss)
         grad_norm = _global_norm(grads)
         apply_update(state, grads, config, schedule_fn)
         for p in state.params:
             p.grad = None
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, {"loss": loss, "grad_norm": grad_norm}
 
     return train_step, init_state
 
@@ -223,8 +236,14 @@ class SDInpaintingPipeline:
     def image_processor(self):
         return self._base.image_processor
 
+    def __call__(self, *args, **kwargs):
+        """Generate (see `generate`), with full-fp32 convolutions at fp32
+        (`core.device.fp32_convolutions`)."""
+        with fp32_convolutions(self.dtype):
+            return self.generate(*args, **kwargs)
+
     @torch.inference_mode()
-    def __call__(self, prompt, image, mask, depth=None, normals=None, height=None, width=None,
+    def generate(self, prompt, image, mask, depth=None, normals=None, height=None, width=None,
                  num_inference_steps: int = 50, guidance_scale: float = 7.5, seed: int = 0,
                  scheduler: str = "unipc", output_type: str = "np", latents=None,
                  vae_noise=None):

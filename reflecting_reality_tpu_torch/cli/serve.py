@@ -37,8 +37,11 @@ Every flag of the JAX parser is kept.  `--device` is added (default
 `cuda`, raising without a card; `cpu` runs the plain PyTorch paths).
 `--int8` serves the W8A8 int8 mode (`ops/quant.py`, the default selection
 policy; approximate); every request of a batch shares one activation scale
-per layer, as in JAX.  `--data_parallel` raises (ROADMAP.md queue A item
-16), and so does `--attention_backend xla` (performance follow-up 5: the
+per layer, as in JAX.  `--data_parallel` (JAX :453-458) splits each
+batched call over the visible cards (`enable_data_parallel(make_mesh())`;
+the CPU is one device), the batch padded with copies of its last request
+until it divides by the card count and the padded images dropped (JAX
+:318-331).  `--attention_backend xla` raises (performance follow-up 5: the
 port routes attention by device and shape); `--compilation_cache_dir` is
 accepted and ignored (no XLA cache).
 """
@@ -303,9 +306,17 @@ class BatchingPipelineServer:
 
     def _execute(self, batch: list) -> None:
         pipe = self.pipe
-        parsed = [r.parsed for r in batch]
-        p0 = parsed[0]
+        p0 = batch[0].parsed
         nip = p0["num_images_per_prompt"]
+        n = len(batch)
+        mesh = getattr(pipe, "_dp_mesh", None)
+        if mesh is not None:
+            # data-parallel generation splits batch_size = n * nip over the
+            # mesh: pad with copies of the last request until it divides;
+            # the padded outputs are dropped
+            while (n * nip) % len(mesh):
+                n += 1
+        parsed = [r.parsed for r in batch] + [batch[-1].parsed] * (n - len(batch))
 
         def stack(name):
             vals = [q[name] for q in parsed]
@@ -393,7 +404,6 @@ def refuse_unported(args) -> None:
     """Options whose feature the port does not have yet raise, naming the
     ROADMAP item that ports it."""
     unported = [
-        (args.data_parallel, "--data_parallel", "queue A, item 16"),
         (args.attention_backend == "xla",
          "--attention_backend xla (the port routes attention by device and shape)",
          "performance follow-up 5"),
@@ -426,6 +436,10 @@ def build_pipeline(args):
         pipe.enable_encoder_reuse(args.encoder_reuse)
     if args.int8:
         pipe.enable_int8()
+    if args.data_parallel:
+        from reflecting_reality_tpu_torch.parallel.mesh import make_mesh
+
+        pipe.enable_data_parallel(make_mesh(device_type=pipe.device.type))
     return pipe
 
 
@@ -474,7 +488,8 @@ def build_parser():
                    help="W8A8 int8 serving (ops/quant.py): the UNet's and BrushNet's large "
                         "convs and projections in int8 with int32 accumulation; approximate")
     p.add_argument("--data_parallel", action="store_true",
-                   help="not ported: raises (ROADMAP.md queue A, item 16)")
+                   help="split each batched call over the visible cards, the batch padded to "
+                        "a multiple of the card count")
     p.add_argument("--max_batch", type=int, default=1,
                    help="micro-batching: drain up to N queued compatible requests into one "
                         "batched pipeline call. 1 = one request at a time")

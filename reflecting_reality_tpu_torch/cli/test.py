@@ -23,10 +23,16 @@ Normals `ip_adapter` mode reads the checkpoint's `ip_adapter/` beside its
 `brushnet/` and takes `--ip_adapter_scale`; `--deep_cache N` and
 `--encoder_reuse N` switch the pipeline's approximate modes on, `--int8`
 the W8A8 int8 mode (`--int8_all` with it: every conv and linear, JAX's
-`select_all`; without `--int8` it does nothing, as in JAX).  Options whose
-feature the port does not have raise NotImplementedError naming their
-ROADMAP item: `--data_parallel` (item 16) and `--attention_backend xla`
-(performance follow-up 5: the port routes attention by device and shape).
+`select_all`; without `--int8` it does nothing, as in JAX).
+`--data_parallel` (JAX :117-146) splits each batched-seeds call over the
+visible cards (`enable_data_parallel(make_mesh())`, one replica a card; the
+CPU is one device): it needs `--batch_seeds` and a seed count divisible by
+the card count.  Under torchrun (`torchrun --nproc_per_node N -m
+reflecting_reality_tpu_torch.cli.test ...`) each process joins the group,
+takes `cuda:LOCAL_RANK` and its contiguous share of the rows
+(`split_between_processes`), and `--data_parallel` then splits over that
+one card.  `--attention_backend xla` raises NotImplementedError naming
+performance follow-up 5 (the port routes attention by device and shape).
 """
 
 from __future__ import annotations
@@ -46,7 +52,8 @@ from reflecting_reality_tpu_torch.data.synmirror import (
     extract_data_from_hdf5,
     normals_to_uint8,
 )
-from reflecting_reality_tpu_torch.parallel.mesh import split_between_processes
+from reflecting_reality_tpu_torch.parallel import multihost
+from reflecting_reality_tpu_torch.parallel.mesh import make_mesh, split_between_processes
 
 logger = logging.getLogger(__name__)
 
@@ -107,7 +114,6 @@ def refuse_unported(args) -> None:
     """Options whose feature the port does not have yet raise, naming the
     ROADMAP item that ports it."""
     unported = [
-        (args.data_parallel, "--data_parallel", "queue A, item 16"),
         (args.attention_backend == "xla",
          "--attention_backend xla (the port routes attention by device and shape)",
          "performance follow-up 5"),
@@ -118,12 +124,28 @@ def refuse_unported(args) -> None:
                                       f"({ROADMAP} {item})")
 
 
+def data_parallel_mesh(args, device: torch.device):
+    """`--data_parallel`'s mesh, the visible cards (this process's one card
+    under torchrun; the CPU is one device), with JAX's checks."""
+    mesh = (make_mesh(device_type=device.type) if multihost.rank_and_world()[1] == 1
+            else make_mesh(devices=[device]))
+    n = len(mesh)
+    if not args.batch_seeds:
+        raise SystemExit("--data_parallel requires --batch_seeds")
+    if args.num_images_per_validation % n:
+        raise SystemExit(
+            f"--data_parallel: num_images_per_validation "
+            f"({args.num_images_per_validation}) must be divisible by "
+            f"the local device count ({n})")
+    return mesh
+
+
 def run_inference(args, brushnet_path: str, output_dir: str, test_df) -> None:
     from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
         StableDiffusionBrushNetPipeline,
     )
 
-    device = resolve_device(args.device)
+    device = resolve_device(multihost.local_device(args.device))
     dtype = {"fp32": torch.float32, "fp16": torch.float32, "bf16": torch.bfloat16}[
         args.weight_dtype]
     if args.use_ema:
@@ -162,6 +184,8 @@ def run_inference(args, brushnet_path: str, output_dir: str, test_df) -> None:
         from reflecting_reality_tpu_torch.ops.quant import select_all
 
         pipe.enable_int8(select=select_all if args.int8_all else None)
+    if args.data_parallel:
+        pipe.enable_data_parallel(data_parallel_mesh(args, device))
     os.makedirs(output_dir, exist_ok=True)
 
     common = dict(
@@ -341,7 +365,10 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     refuse_unported(args)
-    resolve_device(args.device)     # fail before reading anything
+    multihost.initialize(device=args.device)
+    device = resolve_device(multihost.local_device(args.device))  # fail before reading
+    if args.data_parallel:
+        data_parallel_mesh(args, device)
 
     test_df = pd.read_csv(os.path.join(args.train_data_dir, args.csv))
     if args.infer_list:
@@ -394,7 +421,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "truncation where transformers cannot build it")
     p.add_argument("--num_images_per_validation", type=int, default=4)
     p.add_argument("--data_parallel", action="store_true",
-                   help="not ported: raises (ROADMAP.md queue A, item 16)")
+                   help="split each batched-seeds call over the visible cards (needs "
+                        "--batch_seeds and a seed count divisible by the card count)")
     p.add_argument("--int8", action="store_true",
                    help="W8A8 int8 mode (ops/quant.py): the UNet's and BrushNet's large convs "
                         "and projections in int8 with int32 accumulation; approximate, not "

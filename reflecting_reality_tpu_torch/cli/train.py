@@ -48,6 +48,7 @@ import torch
 from reflecting_reality_tpu_torch.core.device import resolve_device
 from reflecting_reality_tpu_torch.data.loader import DataLoader, prefetch_to_device
 from reflecting_reality_tpu_torch.data.synmirror import read_rows
+from reflecting_reality_tpu_torch.parallel import multihost
 from reflecting_reality_tpu_torch.training import checkpoint as ckpt
 from reflecting_reality_tpu_torch.training.profiling import device_memory_stats
 from reflecting_reality_tpu_torch.training.train_step import (
@@ -57,8 +58,6 @@ from reflecting_reality_tpu_torch.training.train_step import (
 )
 
 logger = logging.getLogger(__name__)
-
-ROADMAP = "ROADMAP.md queue A"
 
 
 def conditioning_channels_for(depth_mode: Optional[str], normals_mode: Optional[str]) -> int:
@@ -85,6 +84,9 @@ class JsonlTracker:
 
 
 def make_trackers(args):
+    """The run's trackers; none on a rank other than 0."""
+    if not multihost.is_main_process():
+        return []
     trackers = [JsonlTracker(args.logging_dir)]
     if args.report_to in ("wandb", "all"):
         try:
@@ -100,19 +102,6 @@ def make_trackers(args):
 def log_to_trackers(trackers, values: dict, step: int):
     for t in trackers:
         t.log(values, step=step)
-
-
-def refuse_unported(args) -> None:
-    """Options whose feature the port does not have yet raise, naming the
-    queue item that ports it."""
-    unported = [
-        (int(os.environ.get("WORLD_SIZE", "1")) > 1, "multi-process runs (WORLD_SIZE > 1)",
-         "item 16"),
-    ]
-    for is_set, what, item in unported:
-        if is_set:
-            raise NotImplementedError(f"{what} is not ported to the PyTorch package yet "
-                                      f"({ROADMAP}, {item})")
 
 
 def load_models(args):
@@ -162,8 +151,9 @@ def _dir_gb(path: str) -> float:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    refuse_unported(args)
-    device = resolve_device(args.device)
+    multihost.initialize(device=args.device)
+    rank, world = multihost.rank_and_world()
+    device = resolve_device(multihost.local_device(args.device))
     if args.attention_backend == "xla" and device.type == "cuda":
         raise ValueError("--attention_backend xla: the port routes attention by device and "
                          "shape (kernel B1 on the card) and has no user-selectable plain path")
@@ -219,11 +209,13 @@ def main(argv=None):
             depth=args.depth_conditioning_mode is not None,
             normals_conditioning_mode=args.normals_conditioning_mode or False,
             hint_map_dir=args.hint_map_dir, cam_states=args.cam_states)
-    loader = DataLoader(dataset, args.train_batch_size, shuffle=True,
-                        num_workers=args.dataloader_num_workers or 8, seed=args.seed or 0)
+    # each rank reads its rows of every global batch (JAX :273-282)
+    loader = DataLoader(dataset, args.train_batch_size * world, shuffle=True,
+                        num_workers=args.dataloader_num_workers or 8, seed=args.seed or 0,
+                        process_index=rank, process_count=world)
     if len(loader) == 0:
-        raise ValueError(f"dataset ({len(dataset)} samples) smaller than the batch "
-                         f"({args.train_batch_size})")
+        raise ValueError(f"dataset ({len(dataset)} samples) smaller than the global batch "
+                         f"({args.train_batch_size} x {world})")
 
     config = TrainConfig(
         learning_rate=args.learning_rate, scale_lr=args.scale_lr,
@@ -284,8 +276,9 @@ def main(argv=None):
             del host_cache
 
         os.makedirs(args.output_dir, exist_ok=True)
-        with open(os.path.join(args.output_dir, "args.json"), "w") as f:
-            json.dump(vars(args), f, indent=2, default=str)
+        if rank == 0:
+            with open(os.path.join(args.output_dir, "args.json"), "w") as f:
+                json.dump(vars(args), f, indent=2, default=str)
         _train_loop(args, state, step_fn, loader, trackers, device, dtype, tokenizer,
                     transport_dtype, device_cache, transport_exempt)
         log_to_trackers(trackers, {"device_memory": device_memory_stats()}, state.step)
@@ -313,7 +306,10 @@ def _train_loop(args, state, step_fn, loader, trackers, device, dtype, tokenizer
         if cadence and K > cadence:
             logger.warning("steps_per_dispatch=%d exceeds %s=%d: the events of one dispatch "
                            "collapse into one, once per %d-step dispatch", K, name, cadence, K)
-    logger.info("Training on %s, batch %d, start step %d", device, args.train_batch_size, step)
+    world = multihost.rank_and_world()[1]
+    global_batch = args.train_batch_size * world
+    logger.info("Training on %s, batch %d (%d x %d processes), start step %d", device,
+                global_batch, args.train_batch_size, world, step)
 
     def epochs():
         # one batch stream across epochs (shuffle and item-RNG epoch advance
@@ -373,7 +369,7 @@ def _train_loop(args, state, step_fn, loader, trackers, device, dtype, tokenizer
             wait_s, dispatch_s = t_batch - t_ready, t_done - t_batch
             timing = {"data_wait_s": wait_s, "dispatch_s": dispatch_s,
                       "s_per_step": (wait_s + dispatch_s) / k,
-                      "samples_per_s": args.train_batch_size * k / (wait_s + dispatch_s),
+                      "samples_per_s": global_batch * k / (wait_s + dispatch_s),
                       "steps_in_dispatch": k}
             if h2d_ms is not None:
                 timing["h2d_ms"] = h2d_ms
@@ -416,7 +412,8 @@ def _train_loop(args, state, step_fn, loader, trackers, device, dtype, tokenizer
                                    "their place", sorted(rounded_custom), step, K, step)
                 save(False, custom_steps | ({step} if rounded_custom else set()))
 
-            if args.validation_steps and any(s % args.validation_steps == 0 for s in window):
+            if args.validation_steps and any(s % args.validation_steps == 0 for s in window) \
+                    and multihost.is_main_process():
                 run_validation(args, state, tokenizer, trackers, step, dtype, device)
             if step >= args.max_train_steps:
                 break

@@ -15,8 +15,11 @@ safetensors) every `--checkpointing_steps` and at the end.
 kept as stored, fp32 from the base folder: the JAX CLI's `dtype=` sets its
 modules' compute dtype and leaves the parameters as loaded.  `--device`
 (default `cuda`, raising without a card; `cpu` runs the plain PyTorch
-paths).  The JAX CLI replicates over a device mesh; this one runs on one
-device and raises for WORLD_SIZE > 1 (ROADMAP.md queue A, item 16).
+paths).  The JAX CLI replicates over a device mesh; this one is
+data-parallel under torchrun as `cli.train` is (`torchrun --nproc_per_node N
+-m reflecting_reality_tpu_torch.cli.train_baseline ...`): a global batch of
+`--train_batch_size` x N, the loader striding by rank, gradients averaged
+across the ranks, `--scale_lr` by N, and logs and checkpoints from rank 0.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ def main(argv=None):
         baseline_in_channels, make_baseline_train_step,
     )
     from reflecting_reality_tpu_torch.cli.train import (
-        JsonlTracker, build_parser, log_to_trackers, make_trackers, refuse_unported,
+        JsonlTracker, build_parser, log_to_trackers, make_trackers,
     )
     from reflecting_reality_tpu_torch.core.device import resolve_device
     from reflecting_reality_tpu_torch.core.io import load_pretrained, save_pretrained
@@ -62,14 +65,16 @@ def main(argv=None):
     from reflecting_reality_tpu_torch.data.tokenizer import CLIPTokenizer
     from reflecting_reality_tpu_torch.models.clip_text import load_text_encoder
     from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+    from reflecting_reality_tpu_torch.parallel import multihost
     from reflecting_reality_tpu_torch.training.train_step import TrainConfig
 
     parser = build_parser()
     parser.description = "SD-inpainting baseline training (PyTorch port)"
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    refuse_unported(args)
-    device = resolve_device(args.device)
+    multihost.initialize(device=args.device)
+    rank, world = multihost.rank_and_world()
+    device = resolve_device(multihost.local_device(args.device))
     dtype = {"no": torch.float32, "fp16": torch.float32, "bf16": torch.bfloat16}[
         args.mixed_precision]
     base = args.pretrained_model_name_or_path
@@ -90,8 +95,9 @@ def main(argv=None):
         depth=args.depth_conditioning_mode is not None,
         normals_conditioning_mode=args.normals_conditioning_mode or False,
     )
-    loader = DataLoader(dataset, args.train_batch_size, shuffle=True,
-                        num_workers=args.dataloader_num_workers or 8, seed=args.seed or 0)
+    loader = DataLoader(dataset, args.train_batch_size * world, shuffle=True,
+                        num_workers=args.dataloader_num_workers or 8, seed=args.seed or 0,
+                        process_index=rank, process_count=world)
     if len(loader) == 0:
         raise ValueError("dataset smaller than the batch")
 
@@ -110,8 +116,9 @@ def main(argv=None):
 
     trackers = make_trackers(args)
     os.makedirs(args.output_dir, exist_ok=True)
-    with open(os.path.join(args.output_dir, "args.json"), "w") as f:
-        json.dump(vars(args), f, indent=2, default=str)
+    if rank == 0:
+        with open(os.path.join(args.output_dir, "args.json"), "w") as f:
+            json.dump(vars(args), f, indent=2, default=str)
 
     generator = torch.Generator(device).manual_seed(args.seed or 0)
     step = 0
@@ -131,8 +138,10 @@ def main(argv=None):
                         t0 = time.time()
                     if step % args.checkpointing_steps == 0 or step >= args.max_train_steps:
                         path = os.path.join(args.output_dir, f"checkpoint-{step}", "unet")
-                        save_pretrained(unet, path)
-                        logger.info("Saved %s", path)
+                        if rank == 0:
+                            save_pretrained(unet, path)
+                            logger.info("Saved %s", path)
+                        multihost.barrier(f"checkpoint-{step}")
                     if step >= args.max_train_steps:
                         break
             finally:

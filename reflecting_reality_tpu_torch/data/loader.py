@@ -46,7 +46,8 @@ class DataLoader:
     `RandomState(seed + epoch)` and sets the dataset's item-RNG epoch, so
     every draw depends on (seed, epoch, index) only.  With process_count > 1
     every process draws the same order and reads its contiguous slice of each
-    global batch (kept for multi-process runs, which are not ported yet)."""
+    global batch (the training CLIs' data-parallel runs, JAX
+    `cli/train.py:273-282`)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 8, seed: int = 0, drop_last: bool = True,

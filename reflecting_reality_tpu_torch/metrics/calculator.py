@@ -24,14 +24,13 @@ beyond summation order.
 
 from __future__ import annotations
 
-import contextlib
 import os
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
 
-from reflecting_reality_tpu_torch.core.device import resolve_device
+from reflecting_reality_tpu_torch.core.device import fp32_convolutions, resolve_device
 from reflecting_reality_tpu_torch.data.synmirror import get_masked_image
 from reflecting_reality_tpu_torch.metrics.functional import iou as iou_fn
 from reflecting_reality_tpu_torch.metrics.functional import psnr as psnr_fn
@@ -49,17 +48,6 @@ def normalize_pair(image: np.ndarray, norm_range=(-1, 1)):
     else:
         raise ValueError(norm_range)
     return normalized, original
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    """cuDNN convolutions in full fp32 for the duration (restored after)."""
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved
 
 
 class MetricsCalculator:
@@ -102,7 +90,7 @@ class MetricsCalculator:
         return float(psnr_fn(pred, gt, device=self.device))
 
     def calculate_ssim(self, pred, gt) -> float:
-        with _no_tf32():
+        with fp32_convolutions():
             return float(ssim_fn(pred, gt, device=self.device))
 
     def lpips_module(self):
@@ -139,7 +127,7 @@ class MetricsCalculator:
             x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
             return (x[None] if x.dim() == 3 else x).permute(0, 3, 1, 2)
 
-        with torch.inference_mode(), _no_tf32():
+        with torch.inference_mode(), fp32_convolutions():
             return float(module(nchw(pred), nchw(gt)))
 
     calculate_iou = staticmethod(iou_fn)

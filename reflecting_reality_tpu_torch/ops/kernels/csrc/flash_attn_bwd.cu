@@ -113,6 +113,7 @@
 //    exactly nothing.
 
 #include "flash_common.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -479,11 +480,6 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_const
   }
 }
 
-template <typename K>
-cudaError_t set_smem(K kernel, int smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
 template <int DP>
 cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
                            const float* lse, const float* delta, void* dq, int B, int H,
@@ -496,11 +492,9 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const vo
   if ((e = operand_map(&mk, k, B, Tk, H, D, st[2], st[3], C::BN)) != cudaSuccess) return e;
   if ((e = operand_map(&mv, v, B, Tk, H, D, st[4], st[5], C::BN)) != cudaSuccess) return e;
   if ((e = operand_map(&mdo, dout, B, Tq, H, D, st[6], st[7], CTA_BM)) != cudaSuccess) return e;
-  static bool attr_set = false;
-  if (!attr_set) {
-    if ((e = set_smem(flash_bwd_dq_wgmma<DP>, C::SMEM)) != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static unsigned long long attr_set = 0;
+  if ((e = set_max_dynamic_smem(flash_bwd_dq_wgmma<DP>, C::SMEM, &attr_set)) != cudaSuccess)
+    return e;
   dim3 grid((Tq + CTA_BM - 1) / CTA_BM, B * H);
   flash_bwd_dq_wgmma<DP><<<grid, CTA_THREADS, C::SMEM, stream>>>(
       mq, mk, mv, mdo, lse, delta, (bf16*)dq, H, Tq, Tk, D, st[8], st[9], scale, scale * LOG2E);
@@ -526,11 +520,9 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const v
   if ((e = hopper_host::encode_f32_2d(&md, delta, Tq, (uint64_t)B * H, row_bytes, C::BQ)) !=
       cudaSuccess)
     return e;
-  static bool attr_set = false;
-  if (!attr_set) {
-    if ((e = set_smem(flash_bwd_dkv_wgmma<DP>, C::SMEM)) != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static unsigned long long attr_set = 0;
+  if ((e = set_max_dynamic_smem(flash_bwd_dkv_wgmma<DP>, C::SMEM, &attr_set)) != cudaSuccess)
+    return e;
   dim3 grid((Tk + CTA_BM - 1) / CTA_BM, B * H);
   flash_bwd_dkv_wgmma<DP><<<grid, CTA_THREADS, C::SMEM, stream>>>(
       mq, mk, mv, mdo, ml, md, (bf16*)dk, (bf16*)dv, H, Tq, Tk, D, st[8], st[9], st[10], st[11],
@@ -994,11 +986,9 @@ cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const voi
   if ((e = operand_map(&mv, v, B, Tk, H, D, st[4], st[5], C::BN, true)) != cudaSuccess) return e;
   if ((e = operand_map(&mdo, dout, B, Tq, H, D, st[6], st[7], C::BM, true)) != cudaSuccess)
     return e;
-  static bool attr_set = false;
-  if (!attr_set) {
-    if ((e = set_smem(flash_bwd_dq_tf32<DP>, C::SMEM)) != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static unsigned long long attr_set = 0;
+  if ((e = set_max_dynamic_smem(flash_bwd_dq_tf32<DP>, C::SMEM, &attr_set)) != cudaSuccess)
+    return e;
   dim3 grid((Tq + C::BM - 1) / C::BM, B * H);
   flash_bwd_dq_tf32<DP><<<grid, C::THREADS, C::SMEM, stream>>>(
       mq, mk, mv, mdo, lse, delta, (float*)dq, H, Tq, Tk, D, st[8], st[9], scale, scale * LOG2E);
@@ -1025,11 +1015,9 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const vo
   if ((e = hopper_host::encode_f32_2d(&md, delta, Tq, (uint64_t)B * H, row_bytes, C::BQ)) !=
       cudaSuccess)
     return e;
-  static bool attr_set = false;
-  if (!attr_set) {
-    if ((e = set_smem(flash_bwd_dkv_tf32<DP>, C::SMEM)) != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static unsigned long long attr_set = 0;
+  if ((e = set_max_dynamic_smem(flash_bwd_dkv_tf32<DP>, C::SMEM, &attr_set)) != cudaSuccess)
+    return e;
   dim3 grid((Tk + C::BM - 1) / C::BM, B * H);
   flash_bwd_dkv_tf32<DP><<<grid, C::THREADS, C::SMEM, stream>>>(
       mq, mk, mv, mdo, ml, md, (float*)dk, (float*)dv, H, Tq, Tk, D, st[8], st[9], st[10],

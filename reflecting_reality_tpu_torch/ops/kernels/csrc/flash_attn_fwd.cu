@@ -106,6 +106,7 @@
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -379,13 +380,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
   if ((e = operand_map(&mq, q, B, Tq, H, D, st[0], st[1], CTA_BM)) != cudaSuccess) return e;
   if ((e = operand_map(&mk, k, B, Tk, H, D, st[2], st[3], C::BN)) != cudaSuccess) return e;
   if ((e = operand_map(&mv, v, B, Tk, H, D, st[4], st[5], C::BN)) != cudaSuccess) return e;
-  static bool attr_set = false;
-  if (!attr_set) {
-    e = cudaFuncSetAttribute(flash_fwd_wgmma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             C::SMEM);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static unsigned long long attr_set = 0;
+  if ((e = set_max_dynamic_smem(flash_fwd_wgmma<DP>, C::SMEM, &attr_set)) != cudaSuccess)
+    return e;
   dim3 grid((Tq + CTA_BM - 1) / CTA_BM, B * H);
   flash_fwd_wgmma<DP><<<grid, CTA_THREADS, C::SMEM, stream>>>(
       mq, mk, mv, (__nv_bfloat16*)o, lse, H, Tq, Tk, D, st[6], st[7], scale * LOG2E);
@@ -661,13 +658,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
   if ((e = operand_map(&mq, q, B, Tq, H, D, st[0], st[1], C::BM, true)) != cudaSuccess) return e;
   if ((e = operand_map(&mk, k, B, Tk, H, D, st[2], st[3], C::BN, true)) != cudaSuccess) return e;
   if ((e = operand_map(&mv, v, B, Tk, H, D, st[4], st[5], C::BN, true)) != cudaSuccess) return e;
-  static bool attr_set = false;
-  if (!attr_set) {
-    e = cudaFuncSetAttribute(flash_fwd_tf32<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             C::SMEM);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static unsigned long long attr_set = 0;
+  if ((e = set_max_dynamic_smem(flash_fwd_tf32<DP>, C::SMEM, &attr_set)) != cudaSuccess)
+    return e;
   dim3 grid((Tq + C::BM - 1) / C::BM, B * H);
   flash_fwd_tf32<DP><<<grid, C::THREADS, C::SMEM, stream>>>(
       mq, mk, mv, (float*)o, lse, H, Tq, Tk, D, st[6], st[7], scale * LOG2E);

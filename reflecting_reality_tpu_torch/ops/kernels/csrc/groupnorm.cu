@@ -56,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -258,13 +260,9 @@ cudaError_t launch(const void* x, void* y, const void* w, const void* b, void* p
                    int w_f32, int b_f32, int BG, int G, int N, int HW, int L, int nslices,
                    float eps, cudaStream_t stream) {
   auto kernel = gn_kernel<T, VEC, SILU, MODE>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_ATTR);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static unsigned long long attr_set = 0;
+  if (cudaError_t e = set_max_dynamic_smem(kernel, SMEM_ATTR, &attr_set); e != cudaSuccess)
+    return e;
   // the slice (but for APPLY, which streams x), then the table (at most a
   // group's channels; but for STATS)
   const size_t smem = (MODE == APPLY ? 0 : stage_bytes<T>(L)) +

@@ -44,18 +44,37 @@ only the shallow (or decoder-only) UNet forward (JAX :598-703); VAE tiling
 here is already one step at a time, so both give the same images.  W8A8
 int8 (`enable_int8`, `ops/quant.py`) quantizes the UNet's and BrushNet's
 convs and projections once, in place; it composes with the modes above.
-The sharded VAE, data parallelism and SDXL are not ported yet.
+
+Multi-device (JAX :295-343, :480-511, :1170-1180), over a mesh of
+`parallel.mesh.make_mesh` (an ordered tuple of devices, repeats allowed):
+- `enable_data_parallel(mesh)`: the text encode, the conditioning latents
+  and the initial noise are computed on the pipeline's device for the whole
+  batch, as without it; then the batch is split into the mesh's equal parts
+  (the CFG halves of the prompt embeds split alike) and each part runs its
+  own denoise loop (its own sampler state) and decode on its entry's
+  replica of the UNet, BrushNet and VAE (the pipeline's own modules on
+  entries of its device, one copy per other device), each part from a host
+  thread of its own, as `torch.nn.parallel.parallel_apply` runs replicas;
+  the decoded images are gathered in order on the pipeline's device and
+  converted there.  The batch must divide by the mesh size.
+- `enable_sharded_vae(mesh, exact=True)`: the decode runs
+  `parallel.sharded_vae.sharded_decode_exact` (or the blended
+  `sharded_decode`) over the mesh.  The decode takes sharded > tiled >
+  plain.  The two are mutually exclusive, with JAX's errors.
+SDXL is not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Optional, Sequence, Union
+import threading
+from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from reflecting_reality_tpu_torch.core.device import resolve_device
+from reflecting_reality_tpu_torch.core.device import fp32_convolutions, resolve_device
 from reflecting_reality_tpu_torch.ops.embeddings import precompute_time_embeddings
 from reflecting_reality_tpu_torch.pipelines.image_processor import ImageProcessor
 from reflecting_reality_tpu_torch.schedulers.common import NoiseSchedule, ddim_timesteps
@@ -77,6 +96,15 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 def _nchw(x) -> torch.Tensor:
     x = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
     return x.permute(0, 3, 1, 2).contiguous()
+
+
+class _Replica(NamedTuple):
+    """The modules one part of a data-parallel batch runs on."""
+
+    unet: torch.nn.Module
+    brushnet: torch.nn.Module
+    vae: torch.nn.Module
+    device: torch.device
 
 
 def to_uint8(image: torch.Tensor) -> torch.Tensor:
@@ -142,6 +170,9 @@ class StableDiffusionBrushNetPipeline:
         self._vae_tiling = None     # (num_tiles, overlap) when enabled
         self._deep_cache = None     # interval when enabled (DeepCache)
         self._encoder_reuse = None  # interval when enabled (encoder reuse)
+        self._sharded_vae = None    # (mesh, exact, VAE replicas) when enabled
+        self._dp_mesh = None        # the data-parallel mesh when enabled
+        self._dp_replicas = None    # its replicas, built at the first call
 
     @classmethod
     def from_pretrained(
@@ -237,6 +268,46 @@ class StableDiffusionBrushNetPipeline:
     def disable_encoder_reuse(self) -> None:
         self._encoder_reuse = None
 
+    def enable_sharded_vae(self, mesh, exact: bool = True) -> None:
+        """Decode the final latents across `mesh` (W-sharded decoder tail):
+        exact=True takes the psum-GroupNorm + halo-exchange decode (the
+        unsharded decode up to fp32 reassociation), exact=False the
+        overlapping-strip blend.  See `parallel.sharded_vae`."""
+        from reflecting_reality_tpu_torch.parallel.mesh import replicated
+
+        if self._dp_mesh is not None:
+            raise ValueError(
+                "enable_sharded_vae and enable_data_parallel are mutually exclusive")
+        self._sharded_vae = (tuple(mesh), exact, replicated(self.vae, mesh))
+
+    def disable_sharded_vae(self) -> None:
+        self._sharded_vae = None
+
+    def enable_data_parallel(self, mesh) -> None:
+        """Split each call's batch over `mesh`, one replica of the UNet,
+        BrushNet and VAE per entry (see the module docstring).  Mutually
+        exclusive with `enable_sharded_vae` (the decode is batch-split
+        here; the W-sharded decoder is for one high-resolution image)."""
+        if self._sharded_vae is not None:
+            raise ValueError(
+                "enable_data_parallel and enable_sharded_vae are mutually exclusive")
+        self._dp_mesh = tuple(mesh)
+        self._dp_replicas = None
+
+    def disable_data_parallel(self) -> None:
+        self._dp_mesh = None
+        self._dp_replicas = None
+
+    def _replicas(self):
+        """One `_Replica` per data-parallel mesh entry (built once; again
+        after `enable_int8`)."""
+        from reflecting_reality_tpu_torch.parallel.mesh import replicated
+
+        if self._dp_replicas is None:
+            mods = [replicated(m, self._dp_mesh) for m in (self.unet, self.brushnet, self.vae)]
+            self._dp_replicas = [_Replica(*r, d) for *r, d in zip(*mods, self._dp_mesh)]
+        return self._dp_replicas
+
     def enable_int8(self, select=None) -> int:
         """W8A8 int8 (`ops/quant.py`, JAX :253-275): the UNet's and
         BrushNet's selected convs and linears become per-output-channel int8
@@ -256,6 +327,7 @@ class StableDiffusionBrushNetPipeline:
         n = quantize_modules(self.unet, sel) + quantize_modules(self.brushnet, sel)
         if n == 0:
             raise ValueError("no kernels selected for int8 quantization")
+        self._dp_replicas = None    # data-parallel replicas copy the quantized modules
         return n
 
     # ------------------------------------------------------------------ text
@@ -303,34 +375,36 @@ class StableDiffusionBrushNetPipeline:
         28 residuals (exact)."""
         return do_cfg and not guess_mode and not self.brushnet.has_cross_attention
 
-    def _residuals(self, latents, latent_in, brushnet_embeds, cond_latents, cond_scale,
-                   temb, do_cfg, guess_mode):
+    def _residuals(self, brushnet, latents, latent_in, brushnet_embeds, cond_latents,
+                   cond_scale, temb, do_cfg, guess_mode):
         """One BrushNet evaluation -> (down, mid, up) at the model batch."""
         d = self.dtype
         if self._brushnet_cfg_dedup(do_cfg, guess_mode):
-            return _tile(self.brushnet(
+            return _tile(brushnet(
                 latents.to(d), None, brushnet_embeds[latents.shape[0]:], cond_latents,
                 conditioning_scale=cond_scale, temb=temb))
         if guess_mode and do_cfg:
-            down, mid, up = self.brushnet(
+            down, mid, up = brushnet(
                 latents.to(d), None, brushnet_embeds[brushnet_embeds.shape[0] // 2:],
                 cond_latents, conditioning_scale=cond_scale, guess_mode=True, temb=temb)
             return ([torch.cat([torch.zeros_like(x), x]) for x in down],
                     torch.cat([torch.zeros_like(mid), mid]),
                     [torch.cat([torch.zeros_like(x), x]) for x in up])
         cond_b = torch.cat([cond_latents, cond_latents]) if do_cfg else cond_latents
-        return self.brushnet(latent_in.to(d), None, brushnet_embeds, cond_b,
+        return brushnet(latent_in.to(d), None, brushnet_embeds, cond_b,
                              conditioning_scale=cond_scale, guess_mode=guess_mode, temb=temb)
 
     # ----------------------------------------------------------------- call
 
     def __call__(self, *args, **kwargs):
         """Generate (see `generate`), under autocast where the pipeline runs
-        modules it did not cast."""
-        if not self.autocast:
-            return self.generate(*args, **kwargs)
-        with torch.autocast(self.device.type, dtype=self.dtype):
-            return self.generate(*args, **kwargs)
+        modules it did not cast, with full-fp32 convolutions at fp32
+        (`core.device.fp32_convolutions`)."""
+        with fp32_convolutions(self.dtype):
+            if not self.autocast:
+                return self.generate(*args, **kwargs)
+            with torch.autocast(self.device.type, dtype=self.dtype):
+                return self.generate(*args, **kwargs)
 
     @torch.inference_mode()
     def generate(
@@ -473,7 +547,100 @@ class StableDiffusionBrushNetPipeline:
         ]
         cond_scales = [float(np.float32(k * brushnet_conditioning_scale)) for k in keeps]
 
-        # 5. denoise loop
+        # 5.-6. the denoise loop and the decode: one run, or one a
+        # data-parallel part
+        loop = dict(num_inference_steps=num_inference_steps, cond_scales=cond_scales,
+                    guidance_scale=guidance_scale, do_cfg=do_cfg, guess_mode=guess_mode,
+                    scheduler=scheduler, solver_order=solver_order)
+        if self._dp_mesh is None:
+            image_out = self._denoise_decode(_Replica(self.unet, self.brushnet, self.vae, dev),
+                                             latents0, cond, prompt_embeds, brushnet_embeds,
+                                             **loop)
+        else:
+            image_out = self._data_parallel(latents0, cond, prompt_embeds, brushnet_embeds,
+                                            batch_size, loop)
+        if output_type == "latent":
+            return _nhwc(image_out).cpu().numpy()
+        image_u8 = _nhwc(to_uint8(image_out))
+        if output_type == "device":
+            return image_u8
+        return self.image_processor.postprocess(image_u8.cpu().numpy(), output_type=output_type)
+
+    def _data_parallel(self, latents0, cond, prompt_embeds, brushnet_embeds, batch_size: int,
+                       loop: dict) -> torch.Tensor:
+        """The batch split over the data-parallel mesh, each part's loop and
+        decode on its replica in a host thread of its own -> the decoded
+        float images, in order, on the pipeline's device."""
+        from reflecting_reality_tpu_torch.parallel.mesh import shard_batch
+
+        mesh = self._dp_mesh
+        n = len(mesh)
+        if batch_size % n:
+            raise ValueError(
+                f"data-parallel generation needs batch_size ({batch_size}) divisible by the "
+                f"mesh size ({n}); use num_images_per_prompt or a prompt list to fill the mesh")
+
+        def embeds(e):    # CFG layout [uncond..., cond...]: both halves split alike
+            if not loop["do_cfg"]:
+                return shard_batch(e, mesh)
+            return [torch.cat(h) for h in zip(shard_batch(e[:batch_size], mesh),
+                                              shard_batch(e[batch_size:], mesh))]
+
+        parts = list(zip(self._replicas(), shard_batch(latents0, mesh), shard_batch(cond, mesh),
+                         embeds(prompt_embeds), embeds(brushnet_embeds)))
+        results, errors = [None] * n, [None] * n
+
+        def run(i):
+            rep = parts[i][0]
+            on_card = torch.cuda.device(rep.device) if rep.device.type == "cuda" \
+                else contextlib.nullcontext()
+            cast = torch.autocast(rep.device.type, dtype=self.dtype) if self.autocast \
+                else contextlib.nullcontext()
+            try:
+                # grad mode, the current device and autocast are per thread
+                with torch.inference_mode(), on_card, cast:
+                    results[i] = self._denoise_decode(*parts[i], **loop)
+            except BaseException as e:       # re-raised in the calling thread
+                errors[i] = e
+
+        if n == 1:
+            run(0)
+        else:
+            threads = [threading.Thread(target=run, args=(i,), name=f"replica-{i}")
+                       for i in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        for e in errors:
+            if e is not None:
+                raise e
+        return torch.cat([r.to(self.device) for r in results])
+
+    def _decode(self, vae, z: torch.Tensor) -> torch.Tensor:
+        """Scaled-back latents -> the float image: sharded > tiled > plain."""
+        from reflecting_reality_tpu_torch.parallel import sharded_vae
+
+        if self._sharded_vae is not None:
+            mesh, exact, replicas = self._sharded_vae
+            if exact:
+                return sharded_vae.sharded_decode_exact(vae, z, mesh, replicas=replicas).float()
+            return sharded_vae.sharded_decode(vae, z, mesh, scale=self.vae_scale_factor,
+                                              replicas=replicas).float()
+        if self._vae_tiling is not None:
+            return sharded_vae.tiled_decode(vae, z, num_tiles=self._vae_tiling[0],
+                                            overlap=self._vae_tiling[1],
+                                            scale=self.vae_scale_factor).float()
+        return vae.decode(z).float()
+
+    def _denoise_decode(self, rep: _Replica, latents0, cond, prompt_embeds, brushnet_embeds,
+                        num_inference_steps: int, cond_scales, guidance_scale: float,
+                        do_cfg: bool, guess_mode: bool, scheduler: str, solver_order: int
+                        ) -> torch.Tensor:
+        """The denoise loop (UniPC or DDIM, CFG, the cached modes) and the
+        decode on `rep`'s modules -> the decoded float image (B, C, H, W)."""
+        dtype, sf = self.dtype, self.scaling_factor
+        deep_cache, encoder_reuse = self._deep_cache, self._encoder_reuse
         if scheduler == "unipc":
             sampler = UniPCSampler(self.schedule, num_inference_steps, solver_order=solver_order)
             timesteps = sampler.timesteps
@@ -482,8 +649,8 @@ class StableDiffusionBrushNetPipeline:
             timesteps = ddim_timesteps(self.schedule.num_train_timesteps, num_inference_steps)
         else:
             raise ValueError(scheduler)
-        temb_u = precompute_time_embeddings(self.unet, timesteps)
-        temb_b = precompute_time_embeddings(self.brushnet, timesteps)
+        temb_u = precompute_time_embeddings(rep.unet, timesteps)
+        temb_b = precompute_time_embeddings(rep.brushnet, timesteps)
 
         lat = latents0
         interval = deep_cache or encoder_reuse
@@ -494,12 +661,12 @@ class StableDiffusionBrushNetPipeline:
             if interval is None or i % interval == 0:
                 # the full dual branch (refreshing the cache in a cached mode)
                 down_res, mid_res, up_res = self._residuals(
-                    lat, latent_in, brushnet_embeds, cond, cond_scales[i], temb_b[i:i + 1],
-                    do_cfg, guess_mode)
-                out = self.unet(latent_in.to(dtype), None, prompt_embeds,
-                                down_block_add_samples=down_res, mid_block_add_sample=mid_res,
-                                up_block_add_samples=up_res, return_deep=bool(deep_cache),
-                                return_encoder=bool(encoder_reuse), **unet_kw)
+                    rep.brushnet, lat, latent_in, brushnet_embeds, cond, cond_scales[i],
+                    temb_b[i:i + 1], do_cfg, guess_mode)
+                out = rep.unet(latent_in.to(dtype), None, prompt_embeds,
+                               down_block_add_samples=down_res, mid_block_add_sample=mid_res,
+                               up_block_add_samples=up_res, return_deep=bool(deep_cache),
+                               return_encoder=bool(encoder_reuse), **unet_kw)
                 if deep_cache:
                     pred, deep = out
                     cache = (deep, down_res, mid_res, up_res)
@@ -510,14 +677,14 @@ class StableDiffusionBrushNetPipeline:
                     pred = out
             elif deep_cache:
                 deep, down_res, mid_res, up_res = cache
-                pred, _ = self.unet(latent_in.to(dtype), None, prompt_embeds,
-                                    down_block_add_samples=down_res, mid_block_add_sample=mid_res,
-                                    up_block_add_samples=up_res, cached_deep=deep, **unet_kw)
+                pred, _ = rep.unet(latent_in.to(dtype), None, prompt_embeds,
+                                   down_block_add_samples=down_res, mid_block_add_sample=mid_res,
+                                   up_block_add_samples=up_res, cached_deep=deep, **unet_kw)
             else:
                 enc, mid_res, up_res = cache
-                pred, _ = self.unet(latent_in.to(dtype), None, prompt_embeds,
-                                    mid_block_add_sample=mid_res, up_block_add_samples=up_res,
-                                    cached_encoder=enc, return_encoder=True, **unet_kw)
+                pred, _ = rep.unet(latent_in.to(dtype), None, prompt_embeds,
+                                   mid_block_add_sample=mid_res, up_block_add_samples=up_res,
+                                   cached_encoder=enc, return_encoder=True, **unet_kw)
             if do_cfg:
                 uncond, text = pred.float().chunk(2)
                 pred = uncond + float(np.float32(guidance_scale)) * (text - uncond)
@@ -526,20 +693,4 @@ class StableDiffusionBrushNetPipeline:
             else:
                 t_prev = int(timesteps[i + 1]) if i + 1 < num_inference_steps else -1
                 lat = ddim_step(self.schedule, pred, int(timesteps[i]), t_prev, lat)
-
-        # 6. decode
-        z = (lat / sf).to(dtype)
-        if self._vae_tiling is not None:
-            from reflecting_reality_tpu_torch.parallel.sharded_vae import tiled_decode
-
-            image_out = tiled_decode(self.vae, z, num_tiles=self._vae_tiling[0],
-                                     overlap=self._vae_tiling[1],
-                                     scale=self.vae_scale_factor).float()
-        else:
-            image_out = self.vae.decode(z).float()
-        if output_type == "latent":
-            return _nhwc(image_out).cpu().numpy()
-        image_u8 = _nhwc(to_uint8(image_out))
-        if output_type == "device":
-            return image_u8
-        return self.image_processor.postprocess(image_u8.cpu().numpy(), output_type=output_type)
+        return self._decode(rep.vae, (lat / sf).to(dtype))

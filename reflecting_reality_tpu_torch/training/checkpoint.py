@@ -22,6 +22,12 @@ as the JAX one keys on its own file.
 
 A checkpoint is written into `checkpoint-N.tmp` and renamed when complete,
 so a crash leaves no directory that `latest_checkpoint` would pick.
+
+In a data-parallel run (`parallel/multihost.py`) every rank holds the same
+state; rank 0 alone writes and prunes, and every rank then waits at a
+barrier, so none reads or resumes a checkpoint that is still being written
+(the reference's `accelerator.is_main_process` save).  `load_state` runs on
+every rank.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from reflecting_reality_tpu_torch.models.ip_adapter import (
     load_normal_proj,
     save_normal_proj,
 )
+from reflecting_reality_tpu_torch.parallel import multihost
 
 TRAIN_STATE_NAME = "train_state.pt"
 _CKPT_RE = re.compile(r"^checkpoint-(\d+)$")
@@ -134,7 +141,18 @@ class Snapshot:
 def save_state(output_dir: str, step: int, state, total_limit: Optional[int] = None,
                keep: Iterable[int] = ()) -> str:
     """Write `state` (a TrainState or a Snapshot of one) as
-    `output_dir/checkpoint-<step>` and return its path."""
+    `output_dir/checkpoint-<step>` from rank 0, then wait for every rank;
+    -> its path."""
+    final = os.path.join(output_dir, f"checkpoint-{step}")
+    if multihost.is_main_process():
+        write_state(output_dir, step, state, total_limit, keep)
+    multihost.barrier(f"checkpoint-{step}")
+    return final
+
+
+def write_state(output_dir: str, step: int, state, total_limit: Optional[int] = None,
+                keep: Iterable[int] = ()) -> str:
+    """Prune, then write `checkpoint-<step>` (this process, no barrier)."""
     prune_checkpoints(output_dir, total_limit, keep)
     final = os.path.join(output_dir, f"checkpoint-{step}")
     path = final + ".tmp"
@@ -165,18 +183,25 @@ class AsyncCheckpointer:
     thread.  At most one save is in flight: the next `save` or `wait` joins
     it first, and an exception of the write re-raises there.  The pinned
     buffers are kept and reused by the next save.  `written` maps each
-    completed save's path to the seconds its write took."""
+    completed save's path to the seconds its write took.  In a
+    data-parallel run only rank 0 snapshots and writes; every rank calls
+    `save` and `wait` at the same points, and `wait` ends at a barrier
+    after a pending save."""
 
     def __init__(self):
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._pinned: Dict[Any, torch.Tensor] = {}
+        self._pending: Optional[int] = None
         self.written: Dict[str, float] = {}
 
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending is not None:
+            step, self._pending = self._pending, None
+            multihost.barrier(f"checkpoint-{step}")
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -184,13 +209,16 @@ class AsyncCheckpointer:
     def save(self, output_dir: str, step: int, state, total_limit: Optional[int] = None,
              keep: Iterable[int] = ()) -> None:
         self.wait()
+        self._pending = step
+        if not multihost.is_main_process():
+            return
         snap = Snapshot(state, pinned=self._pinned)
         keep = tuple(keep)
 
         def run():
             try:
                 t0 = time.perf_counter()
-                path = save_state(output_dir, step, snap, total_limit=total_limit, keep=keep)
+                path = write_state(output_dir, step, snap, total_limit=total_limit, keep=keep)
                 self.written[path] = time.perf_counter() - t0
             except BaseException as e:  # re-raised by the next wait() or save()
                 self._error = e

@@ -41,6 +41,9 @@ master weights, and the caller stores the frozen ones in bf16, as
 gradient runs kernels B1/B3/B4 and every GroupNorm kernel B2 (with its plain
 backward), through the autograd Functions of `ops/kernels/`.
 
+At fp32 the forward and backward run under `core.device.fp32_convolutions`
+(cuDNN convolutions without TF32; ROADMAP.md C4).
+
 The non-finite guard needs the host to see the loss and the gradient norm
 (one synchronisation a step): a NaN/Inf in either leaves the parameters, the
 AdamW moments, the accumulated gradients and the EMA untouched (:370-389).
@@ -49,6 +52,19 @@ K-th, like `optax.MultiSteps`; the LR schedule counts updates, not
 micro-steps.  `draws=` lets a caller pass the step's random numbers in (the
 VAE posterior noise, the diffusion noise and the timesteps), so a test can
 reproduce the JAX package's `jax.random` draws.
+
+Data parallel (JAX runs one program over a "data" mesh on a global batch):
+inside a `torch.distributed` group of N ranks (`parallel/multihost.py`),
+each rank takes `train_batch_size` rows of a global batch of N times that.
+Every rank draws the global batch's random numbers from the same generator
+and keeps its own rows (`BatchShard`), so N ranks compute what one process
+computes on the whole batch with the same seed; `draws=` are the global
+batch's too.  The gradients and the loss are averaged across the ranks
+after the backward pass (bucketed `all_reduce`), before the global norm,
+so clipping and the non-finite skip see the global gradient and every rank
+takes the same branch; `init_state` broadcasts rank 0's trainable
+parameters, so the parameters, AdamW's moments and the EMA stay identical
+on every rank.  `--scale_lr` scales by N.
 """
 
 from __future__ import annotations
@@ -61,8 +77,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from reflecting_reality_tpu_torch.core.device import resolve_device
+from reflecting_reality_tpu_torch.core.device import fp32_convolutions, resolve_device
 from reflecting_reality_tpu_torch.models.vae import DiagonalGaussian
+from reflecting_reality_tpu_torch.parallel import multihost
 from reflecting_reality_tpu_torch.schedulers.common import (
     NoiseSchedule,
     add_noise,
@@ -122,6 +139,33 @@ class TrainState:
     grad_acc: Optional[List[torch.Tensor]] = None  # running mean of their gradients
 
 
+@dataclasses.dataclass(frozen=True)
+class BatchShard:
+    """This rank's rows of a data-parallel step's global batch: rows
+    [rank·b, (rank+1)·b) of every global draw, b the local batch."""
+
+    rank: int = 0
+    world: int = 1
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """A tensor over the global batch -> this rank's rows."""
+        if self.world == 1:
+            return x
+        b = x.shape[0] // self.world
+        return x[self.rank * b:(self.rank + 1) * b]
+
+    def randn(self, shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+        """N(0, 1) noise for the global batch, this rank's rows of it."""
+        return self.local(torch.randn((shape[0] * self.world, *shape[1:]), generator=generator,
+                                      device=device))
+
+    def randint(self, high: int, n: int, generator: Optional[torch.Generator],
+                device) -> torch.Tensor:
+        """U[0, high) integers for the global batch, this rank's `n`."""
+        return self.local(torch.randint(0, high, (n * self.world,), generator=generator,
+                                        device=device))
+
+
 def nearest_resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """(B, C, H, W) -> (B, C, h, w) with torch F.interpolate(mode='nearest')
     indexing, src = floor(dst·in/out) (the JAX `nearest_resize_nhwc`)."""
@@ -149,9 +193,14 @@ def resolve_device_cache(batch: Mapping[str, Any], cache: Mapping[str, torch.Ten
 
 
 def _sample(dist: DiagonalGaussian, noise: Optional[torch.Tensor],
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator], shard: BatchShard = BatchShard()
+            ) -> torch.Tensor:
+    """A posterior draw; `noise` (or the generator's draw) is the global
+    batch's, of which `shard` keeps this rank's rows."""
     if noise is None:
-        noise = torch.randn(dist.mean.shape, generator=generator, device=dist.mean.device)
+        noise = shard.randn(dist.mean.shape, generator, dist.mean.device)
+    else:
+        noise = shard.local(noise)
     return dist.mean + dist.std * noise.to(dist.mean.device, dist.mean.dtype)
 
 
@@ -159,14 +208,15 @@ def assemble_conditioning_latents(
     vae: nn.Module, batch: Mapping[str, Any], config: TrainConfig,
     generator: Optional[torch.Generator] = None,
     vae_noise: Optional[Mapping[str, torch.Tensor]] = None,
-    dtype: Optional[torch.dtype] = None,
+    dtype: Optional[torch.dtype] = None, shard: BatchShard = BatchShard(),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (latents, conditioning latents), NCHW, from an NHWC batch (the JAX
     version's third output, the ip_adapter normal, is the batch's `normals`
     as it is: the step reads it there).
     The posterior draws are taken from `vae_noise` ("latents", "cond",
     "depth", "normals": NCHW noise shaped like each latent) where given, else
-    from `generator`.  Cached moments are cast to `dtype` first, as the JAX
+    from `generator`, the global batch's, of which `shard` keeps this
+    rank's rows.  Cached moments are cast to `dtype` first, as the JAX
     step casts every float input to its compute dtype, so a batch uploaded
     in that dtype gives the same bits.  Call it under `no_grad` (and
     autocast for bf16)."""
@@ -174,11 +224,12 @@ def assemble_conditioning_latents(
     vae_noise = vae_noise or {}
 
     def enc(key: str, img: torch.Tensor) -> torch.Tensor:
-        return _sample(vae.encode(img), vae_noise.get(key), generator) * config.scaling_factor
+        return (_sample(vae.encode(img), vae_noise.get(key), generator, shard)
+                * config.scaling_factor)
 
     def from_cache(key: str, moments_key: str) -> torch.Tensor:
         dist = DiagonalGaussian.from_moments(_nchw(batch[moments_key], device).to(dtype))
-        return _sample(dist, vae_noise.get(key), generator) * config.scaling_factor
+        return _sample(dist, vae_noise.get(key), generator, shard) * config.scaling_factor
 
     cached = "latent_moments" in batch
     if cached:
@@ -296,6 +347,17 @@ def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
+def gradients_and_loss(params: List[nn.Parameter], loss: torch.Tensor
+                       ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """After `loss.backward()`: the parameters' gradients (zeros where none
+    flowed) and the loss, both averaged across the data-parallel ranks (as
+    is, in one process)."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    loss = loss.detach().clone()
+    multihost.all_reduce_mean([*grads, loss])
+    return grads, loss
+
+
 @torch.no_grad()
 def apply_update(state: TrainState, grads: List[torch.Tensor], config: TrainConfig,
                  schedule_fn: Callable[[int], float]) -> None:
@@ -361,7 +423,8 @@ def make_train_step(unet: nn.Module, brushnet: nn.Module, vae: nn.Module,
         beta_start=0.00085, beta_end=0.012, beta_schedule="scaled_linear",
         prediction_type=config.prediction_type,
     )
-    schedule_fn = lr_schedule(config)
+    shard = BatchShard(*multihost.rank_and_world())
+    schedule_fn = lr_schedule(config, shard.world)
     ema_dtype = torch.bfloat16 if config.ema_dtype == "bf16" else None
     device = resolve_device(device)
 
@@ -385,7 +448,8 @@ def make_train_step(unet: nn.Module, brushnet: nn.Module, vae: nn.Module,
             for p in ip_parameters(unet):
                 p.requires_grad_(True)
         params = [p for m in trainable.values() for p in m.parameters() if p.requires_grad]
-        optimizer, _ = make_optimizer(config, params)
+        multihost.broadcast_from_main(params)
+        optimizer, _ = make_optimizer(config, params, shard.world)
         ema = None
         if config.use_ema:
             ema = {k: {n: p.detach().to(ema_dtype or p.dtype, copy=True)
@@ -402,17 +466,15 @@ def make_train_step(unet: nn.Module, brushnet: nn.Module, vae: nn.Module,
     def compute_loss(state: TrainState, batch, generator, draws) -> torch.Tensor:
         with torch.no_grad(), autocast():
             latents, cond = assemble_conditioning_latents(
-                vae, batch, config, generator, draws.get("vae_noise"), dtype)
+                vae, batch, config, generator, draws.get("vae_noise"), dtype, shard)
             ehs = text_encoder(torch.as_tensor(batch["input_ids"], device=device).long())
         latents = latents.float()
         bsz = latents.shape[0]
-        noise = draws.get("noise")
-        if noise is None:
-            noise = torch.randn(latents.shape, generator=generator, device=device)
-        timesteps = draws.get("timesteps")
-        if timesteps is None:
-            timesteps = torch.randint(0, config.num_train_timesteps, (bsz,),
-                                      generator=generator, device=device)
+        noise, timesteps = draws.get("noise"), draws.get("timesteps")
+        noise = (shard.randn(latents.shape, generator, device) if noise is None
+                 else shard.local(noise))
+        timesteps = (shard.randint(config.num_train_timesteps, bsz, generator, device)
+                     if timesteps is None else shard.local(timesteps))
         noise, timesteps = noise.to(device).float(), timesteps.to(device).long()
         noisy = add_noise(noise_schedule, latents, noise, timesteps)
         model = state.trainable.get("unet", state.frozen.get("unet"))
@@ -437,9 +499,10 @@ def make_train_step(unet: nn.Module, brushnet: nn.Module, vae: nn.Module,
     def train_step(state: TrainState, batch: Mapping[str, Any],
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Mapping[str, Any]] = None):
-        loss = compute_loss(state, batch, generator, draws or {})
-        loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in state.params]
+        with fp32_convolutions(dtype):
+            loss = compute_loss(state, batch, generator, draws or {})
+            loss.backward()
+        grads, loss = gradients_and_loss(state.params, loss)
         grad_norm = _global_norm(grads)
         finite = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
         if finite:
@@ -447,7 +510,7 @@ def make_train_step(unet: nn.Module, brushnet: nn.Module, vae: nn.Module,
         for p in state.params:
             p.grad = None
         state.step += 1
-        metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
+        metrics = {"loss": loss, "grad_norm": grad_norm,
                    "nonfinite_skipped": torch.tensor(0.0 if finite else 1.0)}
         return state, metrics
 

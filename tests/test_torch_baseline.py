@@ -275,3 +275,75 @@ def test_cli_journey(tmp_path):
 
     df = pd.read_csv(os.path.join(infer, "eval_0.csv"))
     assert len(df) == 4 and np.isfinite(df[["PSNR", "SSIM"]].to_numpy()).all()
+
+
+# one rank of a torchrun launch of the baseline CLI; each weight write is
+# recorded by the rank that made it
+BASELINE_RANK = """
+import json, os, sys, torch
+rank, port, out, argv = int(sys.argv[1]), sys.argv[2], sys.argv[3], json.loads(sys.argv[4])
+os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
+                  MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+torch.set_num_threads(1)
+from reflecting_reality_tpu_torch.cli import train_baseline
+from reflecting_reality_tpu_torch.core import io
+save = io.save_pretrained
+def recorded(module, path, *a, **k):
+    with open(os.path.join(out, f"wrote_{rank}.txt"), "a") as f:
+        f.write(os.path.relpath(path, out) + "\\n")
+    return save(module, path, *a, **k)
+io.save_pretrained = recorded
+state = train_baseline.main(argv)
+torch.save(state.trainable["unet"].state_dict(), os.path.join(out, f"unet_{rank}.pt"))
+"""
+
+
+def test_cli_two_processes_train_one_global_batch(tmp_path):
+    """WORLD_SIZE=2 (refused before multi-process runs were ported): two gloo
+    ranks of train_baseline under torchrun's environment, one sample each.
+    Rank 0 alone writes checkpoint-N/unet, both ranks end with equal
+    weights, and the losses are a one-process run's on the global batch of
+    2 (rtol 1e-5)."""
+    pytest.importorskip("h5py")
+    import json
+    import sys
+
+    from reflecting_reality_tpu_torch.cli import train_baseline
+    from reflecting_reality_tpu_torch.tools.multiprocess_dryrun import free_port, spawn
+    from tests.test_torch_cli import write_tiny_base
+    from tests.tiny_checkpoint import make_synmirror_data
+
+    base, data = str(tmp_path / "base"), str(tmp_path / "data")
+    write_tiny_base(base)
+    make_synmirror_data(data, n=4, size=64)
+
+    def argv(run, batch):
+        return ["--pretrained_model_name_or_path", base, "--train_data_dir", data,
+                "--output_dir", run, "--logging_dir", os.path.join(run, "logs"),
+                "--train_batch_size", str(batch), "--max_train_steps", "2",
+                "--checkpointing_steps", "2", "--learning_rate", "1e-4", "--lr_warmup_steps",
+                "0", "--report_to", "none", "--dataloader_num_workers", "1", "--log_every", "1",
+                "--depth_conditioning_mode", "concat", "--seed", "0", "--device", "cpu",
+                "--resolution", "64"]
+
+    def losses(run):
+        with open(os.path.join(run, "logs", "metrics.jsonl")) as f:
+            return {r["step"]: r["loss"] for r in map(json.loads, f) if "loss" in r}
+
+    run = str(tmp_path / "ddp")
+    os.makedirs(run)
+    port = str(free_port())
+    spawn([[sys.executable, "-c", BASELINE_RANK, str(r), port, run, json.dumps(argv(run, 1))]
+           for r in range(2)], [str(tmp_path / f"rank{r}.log") for r in range(2)],
+          timeout_s=120, cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert open(os.path.join(run, "wrote_0.txt")).read().split() == ["checkpoint-2/unet"]
+    assert not os.path.exists(os.path.join(run, "wrote_1.txt"))
+    w0, w1 = (torch.load(os.path.join(run, f"unet_{r}.pt"), weights_only=True) for r in (0, 1))
+    assert all(torch.equal(w0[k], w1[k]) for k in w0)
+
+    one = str(tmp_path / "one")
+    train_baseline.main(argv(one, 2))
+    ddp, ref = losses(run), losses(one)
+    assert sorted(ddp) == sorted(ref) == [1, 2]
+    for step in ref:
+        np.testing.assert_allclose(ddp[step], ref[step], rtol=1e-5)

@@ -2,13 +2,14 @@
 parser, the batches the step is given, the user journey (train, checkpoint,
 validate, resume, load the checkpoint into the pipeline), the modes that
 must not change the result (`--steps_per_dispatch`, `--device_cache`, the
-bf16 transport), the non-finite abort, the options still to port, and a
+bf16 transport), the non-finite abort, a two-process data-parallel run, and a
 JAX-written checkpoint loaded by the port.  Batches and weights move without
 arithmetic, and the modes repeat the same CPU arithmetic in the same order,
 so every comparison is exact."""
 
 import json
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +41,18 @@ from reflecting_reality_tpu_torch.tools import precompute_latents
 from tests.tiny_checkpoint import TINY_TEXT, TINY_UNET, make_synmirror_data
 
 pytestmark = pytest.mark.integration
+
+
+@pytest.fixture(scope="module", autouse=True)
+def restore_jax_attention_backend():
+    """The JAX CLI's `main` sets the JAX package's process-global attention
+    backend ("flash" by default); put it back for the test files that run
+    after this one in the same process."""
+    from reflecting_reality_tpu.ops.attention import get_attention_backend, set_attention_backend
+
+    before = get_attention_backend()
+    yield
+    set_attention_backend(before)
 
 N_SAMPLES = 8
 
@@ -368,14 +381,62 @@ def test_ip_adapter_mode_trains_validates_resumes_and_loads(env, tmp_path):
     assert img.shape == (1, 64, 64, 3) and img.dtype == np.uint8
 
 
-@pytest.mark.parametrize("extra,env_vars,match", [
-    ((), {"WORLD_SIZE": "2"}, "item 16"),
-])
-def test_unported_options_raise(env, tmp_path, monkeypatch, extra, env_vars, match):
-    for k, v in env_vars.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=match):
-        train.main(_argv(env, str(tmp_path), "--device", "cpu", *extra))
+# one rank of a torchrun launch: the launcher's environment, then the CLI;
+# each checkpoint write is recorded by the rank that made it
+TRAIN_RANK = """
+import json, os, sys, torch
+rank, port, out, argv = int(sys.argv[1]), sys.argv[2], sys.argv[3], json.loads(sys.argv[4])
+os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
+                  MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+torch.set_num_threads(1)
+from reflecting_reality_tpu_torch.cli import train
+from reflecting_reality_tpu_torch.training import checkpoint
+write = checkpoint.write_state
+def recorded(output_dir, step, *a, **k):
+    with open(os.path.join(out, f"wrote_{rank}.txt"), "a") as f:
+        f.write(f"{step}\\n")
+    return write(output_dir, step, *a, **k)
+checkpoint.write_state = recorded
+state = train.main(argv)
+torch.save(state.trainable["brushnet"].state_dict(), os.path.join(out, f"brushnet_{rank}.pt"))
+"""
+
+
+def test_two_processes_train_one_global_batch(env, tmp_path):
+    """WORLD_SIZE=2 (refused before multi-process runs were ported): two
+    gloo ranks of the CLI under torchrun's environment on the CPU, one
+    sample each, `--async_save` for the periodic checkpoint.  Rank 0 alone
+    writes the checkpoints and the metrics, both
+    ranks end with equal weights, and the losses are a one-process run's on
+    the global batch of 2 (the same rows and draws; rtol 1e-5)."""
+    from reflecting_reality_tpu_torch.tools.multiprocess_dryrun import free_port, spawn
+
+    out = str(tmp_path / "ddp")
+    os.makedirs(out)
+    argv = _argv(env, out, "--train_batch_size", "1", "--max_train_steps", "2",
+                 "--checkpointing_steps", "1", "--async_save", "--device", "cpu")
+    port = str(free_port())
+    spawn([[sys.executable, "-c", TRAIN_RANK, str(r), port, out, json.dumps(argv)]
+           for r in range(2)], [str(tmp_path / f"rank{r}.log") for r in range(2)],
+          timeout_s=120, cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert open(os.path.join(out, "wrote_0.txt")).read().split() == ["1", "2"]
+    assert not os.path.exists(os.path.join(out, "wrote_1.txt"))
+    assert sorted(d for d in os.listdir(out) if d.startswith("checkpoint")) == [
+        "checkpoint-1", "checkpoint-2"]
+    w0, w1 = (torch.load(os.path.join(out, f"brushnet_{r}.pt"), weights_only=True)
+              for r in range(2))
+    assert all(torch.equal(w0[k], w1[k]) for k in w0)
+    for k, v in _brushnet(out, 2).items():
+        assert torch.equal(v, w0[k]), k
+    ddp = _losses(out)
+
+    one = str(tmp_path / "one")
+    train.main(_argv(env, one, "--train_batch_size", "2", "--max_train_steps", "2",
+                     "--checkpointing_steps", "1", "--device", "cpu"))
+    ref = _losses(one)
+    assert sorted(ddp) == sorted(ref) == [1, 2]
+    for step in ref:
+        np.testing.assert_allclose(ddp[step], ref[step], rtol=1e-5)
 
 
 def test_entry_point_defaults_to_the_card(env, tmp_path):

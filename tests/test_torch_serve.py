@@ -432,12 +432,59 @@ def _argv(*extra):
             "--device", "cpu", *extra]
 
 
-@pytest.mark.parametrize("extra,item", [
-    (("--data_parallel",), "item 16"), (("--attention_backend", "xla"), "follow-up 5"),
-])
+@pytest.mark.parametrize("extra,item", [(("--attention_backend", "xla"), "follow-up 5")])
 def test_unported_options_raise(extra, item):
     with pytest.raises(NotImplementedError, match=item):
         serve.main(_argv(*extra))
+
+
+def test_data_parallel_pads_the_bucket(tmp_path, monkeypatch):
+    """`--data_parallel` (refused before item 16 was ported) builds the
+    pipeline with `enable_data_parallel(make_mesh())`, here two visible
+    devices (a mesh of two CPU entries).  A batch pads with copies of its
+    last request until it divides by the mesh (JAX tests/test_serve.py:
+    371-401): one request runs as 2, three as 4, two as 2; the padded
+    images are dropped and each request's image is its solo call's
+    without data parallelism, within one uint8 level."""
+    from reflecting_reality_tpu_torch.core.io import load_pretrained, save_pretrained
+    from reflecting_reality_tpu_torch.parallel import mesh
+    from tests.test_torch_cli import write_tiny_base
+
+    base = write_tiny_base(str(tmp_path / "base"))
+    unet = load_pretrained(UNet2DConditionModel, base, subfolder="unet")
+    brushnet = BrushNetModel.from_unet(unet, conditioning_channels=6)
+    with torch.no_grad():
+        for p in brushnet.parameters():
+            if not p.abs().max() > 0:
+                p.normal_(0.0, 0.05)
+    save_pretrained(brushnet, str(tmp_path / "bn"))
+    monkeypatch.setattr(mesh, "make_mesh", lambda **kw: (torch.device("cpu"),) * 2)
+    args = serve.build_parser().parse_args([
+        "--base_model_path", base, "--brushnet_path", str(tmp_path / "bn"),
+        "--depth_conditioning_mode", "concat", "--weight_dtype", "fp32", "--data_parallel",
+        "--device", "cpu"])
+    pipe = serve.build_pipeline(args)
+    assert pipe._dp_mesh == (torch.device("cpu"),) * 2
+    payloads = [_distinct_payload(k) for k in range(3)]
+    pipe.disable_data_parallel()
+    solo = [pipe(**_parse_payload(p, pipe, 2))[0] for p in payloads]
+    pipe.enable_data_parallel((torch.device("cpu"),) * 2)
+    sizes = []
+    real_call = type(pipe).__call__
+
+    def call(self, *a, **kw):
+        sizes.append(len(kw["prompt"]))
+        return real_call(self, *a, **kw)
+
+    monkeypatch.setattr(type(pipe), "__call__", call)
+    srv = _batched_server(pipe, max_batch=4)
+    for group in ([0], [0, 1, 2], [1, 2]):
+        reqs = [_Pending(_parse_payload(payloads[k], pipe, 2)) for k in group]
+        srv._execute(reqs)
+        for k, r in zip(group, reqs):
+            assert r.batch_size == len(group) and len(r.images) == 1
+            assert np.abs(r.images[0].astype(np.int16) - solo[k].astype(np.int16)).max() <= 1
+    assert sizes == [2, 4, 2]
 
 
 @pytest.mark.parametrize("policy", ["default", "select_all"])

@@ -13,6 +13,7 @@ steps, sweep the checkpoints, EMA weights, batched seeds, a restart that
 writes nothing, the approximate and ip_adapter modes, and the options still
 to port."""
 
+import io
 import os
 import sys
 import zlib
@@ -295,13 +296,33 @@ def test_ip_adapter_mode_runs(trained, tmp_path):
     assert pipe.unet.ip_scale == 0.5
 
 
-@pytest.mark.parametrize("extra,item", [
-    (("--data_parallel",), "item 16"), (("--attention_backend", "xla"), "follow-up 5"),
-])
+@pytest.mark.parametrize("extra,item", [(("--attention_backend", "xla"), "follow-up 5")])
 def test_unported_options_raise(trained, extra, item):
     _, _, out = trained
     with pytest.raises(NotImplementedError, match=item):
         t_test.main(_infer_argv(trained, "--brushnet_path", out, *extra))
+
+
+def test_data_parallel_writes_the_batched_seeds_sheets(trained, tmp_path, monkeypatch):
+    """`--data_parallel` (refused before item 16 was ported) with two
+    visible devices (the mesh of two CPU entries): the batched seeds split
+    over two replicas give the sheets of `--batch_seeds` alone, within one
+    uint8 level; JAX's SystemExit without `--batch_seeds` or when the seed
+    count does not divide."""
+    monkeypatch.setattr(t_test, "make_mesh",
+                        lambda **kw: (torch.device("cpu"), torch.device("cpu")))
+    plain = _sheets(trained, tmp_path, "plain", "--batch_seeds")
+    split = _sheets(trained, tmp_path, "split", "--batch_seeds", "--data_parallel")
+    assert sorted(split) == sorted(plain) == ["uid0_0.png", "uid1_1.png"]
+    for f in plain:
+        a, b = (np.asarray(Image.open(io.BytesIO(d[f]))).astype(int) for d in (plain, split))
+        assert a.shape == (2 * SIZE, SIZE, 3) and np.abs(a - b).max() <= 1
+    _, _, out = trained
+    with pytest.raises(SystemExit, match="requires --batch_seeds"):
+        t_test.main(_infer_argv(trained, "--brushnet_path", out, "--data_parallel"))
+    with pytest.raises(SystemExit, match=r"\(3\) must be divisible by the local device count"):
+        t_test.main(_infer_argv(trained, "--brushnet_path", out, "--data_parallel",
+                                "--batch_seeds", "--num_images_per_validation", "3"))
 
 
 def _sheets(trained, tmp_path, name, *extra):
