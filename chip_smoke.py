@@ -6,6 +6,7 @@
     python3 chip_smoke.py --ab-train-cli-fp32 OTHER_CHECKOUT [BLOCKS]
     python3 chip_smoke.py --train-cli-fp32 [CHECKOUT]
     python3 chip_smoke.py --ddp-step RANK WORLD PORT OUT [BACKEND]   (a rank of phase 19)
+    python3 chip_smoke.py --sdxl      (phases 2 and 22 alone, B1 at SDXL's shapes)
 
 The second form times the main path (phases 2 and 5 below) of another
 checkout (e.g. the parent commit unpacked with `git archive`) and of this
@@ -226,6 +227,25 @@ Phases, each printing one JSON line:
              mesh of SHARDS `cuda:0` entries, fp32, TF32 off: the exact one
              against the plain decode (rtol 1e-4, atol 2e-5), the blended one
              against `tiled_decode` (rtol 1e-4, atol 1e-5); seconds and peaks.
+ 22. sdxl    `StableDiffusionXLBrushNetPipeline` at the full published
+             SDXL-base width (stabilityai/stable-diffusion-xl-base-1.0:
+             UNet 320/640/1280, transformer depths 1/2/10, head dim 64,
+             cross dim 2048, text_time; BrushNet `config_from_unet` with 6
+             conditioning channels; CLIP-L and bigG; the SD VAE) from
+             seeded weights made on the card, bf16, 1024², CFG 7.5, UniPC,
+             depth concat: 4- and 8-step calls in turns (SDXL_REPEATS each;
+             s/step, s/image, peak memory, B1 and B2 launches by shape a
+             denoise step, B1 exactly 10 a step at (2, 4096, 10, 64)), a
+             traced 4-step call (idle share); one fp32 denoise step and
+             decode card vs CPU at 1e-3 of the output's max under C4's
+             rule (the transformer depth cut to 1/1/1 and 2-layer text
+             encoders, SDXL_PARITY_*, so the CPU's side stays near a
+             minute; B1 5 launches at (2, 4096, 10, 64) fp32); B1's
+             head-dim-64 instances without spills; and the 60
+             self-attentions a step at 1024 tokens, which JAX's T >= 2048
+             rule sends to the plain path, timed there against B1
+             (phase 3's (2, 1024, 20, 64) entry).  Its norms' shapes are
+             measured by `kernels_late`.
 C4: train_parity and every `card_vs_cpu_one_step` run the card again with
 TF32 at PyTorch's default, bare (`tf32_default`: cuDNN convolutions in one
 TF32 pass, what the fp32 paths ran before C4's repair) and as the port runs
@@ -241,8 +261,8 @@ call, the ip training CLI's first run, the served requests (exact and
 int8), the baseline's timed training steps and its test CLI run, the modes
 phase's bf16 call, the cached modes' 8-step calls, the tiled decode, the
 int8 pipeline's 8-step call, rank 0's ddp step, the one-rank NCCL CLI run,
-the data-parallel 8-step call, test CLI run and served requests and the
-sharded decodes, 0 where none; the run fails if a path launched a shape with no entry), the
+the data-parallel 8-step call, test CLI run and served requests, the
+sharded decodes and SDXL's bf16 8-step call and fp32 step, 0 where none; the run fails if a path launched a shape with no entry), the
 `{"kernels": [...]}` summary line (the kernels and shapes the paths
 launched), the run's seconds, the nvidia-smi name/power-limit line, and
 last `{"ok": true, "device": {...}}`.  Any failed check raises and
@@ -510,6 +530,7 @@ def phase_build(torch):
     if lib_bwd_f32_plans != bwd_f32_plans:
         raise AssertionError(f"the library's fp32 B3/B4 tiling {lib_bwd_f32_plans} is not "
                              f"bwd_f32_plan's {bwd_f32_plans}")
+    return ptxas
 
 
 # ---------------------------------------------------------------- phase 3
@@ -708,7 +729,11 @@ FLASH_SHAPES = [((2, 4096, 8, 40), "bfloat16"), ((4, 4096, 8, 40), "bfloat16"),
                 # to the plain path: B1 against it, for the crossover
                 ((2, 1024, 8, 80), "bfloat16"), ((2, 256, 8, 160), "bfloat16"),
                 ((2, 64, 8, 160), "bfloat16"), ((2, 1024, 8, 80), "float32"),
-                ((2, 256, 8, 160), "float32")]
+                ((2, 256, 8, 160), "float32"),
+                # SDXL at 1024²: the 4096-token self-attentions (head dim 64) in
+                # both dtypes, and the 1024-token ones the rule sends to the plain path
+                ((2, 4096, 10, 64), "bfloat16"), ((2, 4096, 10, 64), "float32"),
+                ((2, 1024, 20, 64), "bfloat16")]
 FLASH_BWD_SHAPES = [((4, 4096, 8, 40), "bfloat16"), ((2, 4096, 8, 40), "bfloat16"),
                     ((2, 4608, 8, 40), "bfloat16"), ((1, 2048, 8, 160), "bfloat16"),
                     ((4, 4096, 8, 40), "float32"), ((2, 4096, 8, 40), "float32"),
@@ -2065,11 +2090,14 @@ def pipeline_inputs(seed: int, normal=None) -> dict:
     return kw
 
 
+UNPRINTED = ("by_shape_8", "by_shape_4", "image_8")   # timed_calls' keys no JSON line holds
+
+
 def timed_calls(torch, pipe, kw, repeats: int) -> dict:
     """A 2-step warm call, then 4- and 8-step calls in turns, `repeats` of
     each -> s/step (two-point difference of the medians), s/image (the 8-step
-    median), peak memory, the 8-step call's launches (total and by shape)
-    and its uint8 image."""
+    median), peak memory, the 4- and 8-step calls' launches (total and by
+    shape) and the 8-step call's uint8 image."""
     import numpy as np
 
     pipe(**kw, num_inference_steps=2, output_type="latent")
@@ -2088,27 +2116,32 @@ def timed_calls(torch, pipe, kw, repeats: int) -> dict:
                               peak=torch.cuda.max_memory_allocated(), image=img)
     med = {k: statistics.median(v) for k, v in each.items()}
     img = out[8]["image"]
-    if img.shape != (1, CLI_PX, CLI_PX, 3) or img.dtype != np.uint8 or not img.std() > 0:
+    if img.shape != (1, *kw["image"].shape[:2], 3) or img.dtype != np.uint8 \
+            or not img.std() > 0:
         raise AssertionError(f"8-step image {img.shape} {img.dtype} std {img.std()}")
     return {"s_each": {str(k): v for k, v in each.items()}, "s_per_step": (med[8] - med[4]) / 4,
             "s_per_image_8_steps": med[8], "max_memory_allocated_bytes": out[8]["peak"],
             "launches_8_steps": out[8]["launches"], "launches_4_steps": out[4]["launches"],
-            "by_shape_8": out[8]["by_shape"], "image_8": img}
+            "by_shape_8": out[8]["by_shape"], "by_shape_4": out[4]["by_shape"], "image_8": img}
 
 
-def card_vs_cpu_one_step(torch, mods, kw, pipeline_cls=None, keep: bool = False):
+def card_vs_cpu_one_step(torch, mods, kw, pipeline_cls=None, keep: bool = False,
+                         exact: bool = True, by_shape: dict = None):
     """One fp32 denoise step (TF32 off, deterministic encode, given latents)
     of a pipeline on `mods` (`pipeline_cls`, by default the BrushNet
     pipeline), the card against the CPU's plain paths -> the comparison
-    (and, with `keep`, the card's and the CPU's images after it)."""
+    (and, with `keep`, the card's and the CPU's images after it).  `exact`
+    holds the C4 run to the tolerance (int8 is held to its own error by
+    its phase); `by_shape`, when given, receives the card call's launches
+    by shape."""
     import numpy as np
 
     from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
         StableDiffusionBrushNetPipeline,
     )
 
-    exact = pipeline_cls is None         # int8 is held to its own error by its phase
     pipeline_cls = pipeline_cls or StableDiffusionBrushNetPipeline
+    h, w = kw["image"].shape[:2]
 
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2117,7 +2150,7 @@ def card_vs_cpu_one_step(torch, mods, kw, pipeline_cls=None, keep: bool = False)
                 for k, v in mods.items()}
     fp32 = dict(kw, num_inference_steps=1, output_type="latent", deterministic_vae_encode=True,
                 latents=np.random.RandomState(SEED + 6).standard_normal(
-                    (1, CLI_PX // 8, CLI_PX // 8, 4)).astype(np.float32))
+                    (1, h // 8, w // 8, 4)).astype(np.float32))
     try:
         reset_counters()
         t0 = time.perf_counter()
@@ -2125,6 +2158,8 @@ def card_vs_cpu_one_step(torch, mods, kw, pipeline_cls=None, keep: bool = False)
         card = card_pipe(**fp32)
         t_card = time.perf_counter() - t0
         launched = read_counters()
+        if by_shape is not None:
+            by_shape.update(read_counters_by_shape())
         t0 = time.perf_counter()
         cpu = pipeline_cls(**cpu_mods, device="cpu")(**fp32)
         t_cpu = time.perf_counter() - t0
@@ -2236,7 +2271,7 @@ def phase_ip_adapter(torch, gpu_line: str, tmp: str) -> dict:
     per_step = {k: train_by_shape.get((k, FP32_TRAIN_KEY), 0) / IP_TRAIN_STEPS
                 for k in ("flash", "flash_bwd_dq", "flash_bwd_dkv")}
     res = {"phase": "ip_adapter", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}",
-           "pipeline_bf16": {k: v for k, v in bf16.items() if k not in ("by_shape_8", "image_8")},
+           "pipeline_bf16": {k: v for k, v in bf16.items() if k not in UNPRINTED},
            "pipeline_other_normal_max_uint8_diff": token_moves,
            "pipeline_fp32_parity": parity,
            "train_cli_fp32": {
@@ -2306,7 +2341,7 @@ def phase_approx(torch, gpu_line: str) -> dict:
            "dtype": "bfloat16", "interval": 3}
     for name, m in modes.items():
         diff = np.abs(m["image_8"].astype(np.int16) - exact)
-        res[name] = {k: v for k, v in m.items() if k not in ("by_shape_8", "image_8")}
+        res[name] = {k: v for k, v in m.items() if k not in UNPRINTED}
         res[name].update(uint8_diff_from_exact_mean=float(diff.mean()),
                          uint8_diff_from_exact_max=int(diff.max()),
                          s_per_step_vs_exact=m["s_per_step"] / modes["exact"]["s_per_step"],
@@ -2664,7 +2699,7 @@ def phase_int8(torch, gpu_line: str) -> dict:
     q["int8_mm_launches_8_steps"] = counter.launches
     diff = np.abs(q["image_8"].astype(np.int16) - exact["image_8"].astype(np.int16))
     for name, m in (("exact", exact), ("int8", q)):
-        res[name] = {k: v for k, v in m.items() if k not in ("by_shape_8", "image_8")}
+        res[name] = {k: v for k, v in m.items() if k not in UNPRINTED}
     res["int8"].update(uint8_diff_from_exact_mean=float(diff.mean()),
                        uint8_diff_from_exact_max=int(diff.max()),
                        deterministic=bool(np.array_equal(img, q["image_8"])),
@@ -2694,7 +2729,7 @@ def phase_int8(torch, gpu_line: str) -> dict:
     mods = full_width_modules(torch)
     exact1, card_e, cpu_e = card_vs_cpu_one_step(torch, mods, kw, keep=True)
     parity, card_q, cpu_q = card_vs_cpu_one_step(torch, mods, kw, pipeline_cls=Int8Pipeline,
-                                                 keep=True)
+                                                 keep=True, exact=False)
     # the card's own sensitivity: the same int8 step on latents moved by 1e-6
     # of themselves (TF32 off, as in the comparison)
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -3475,6 +3510,184 @@ def phase_sharded_vae(torch, gpu_line: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------- phase 22
+
+SDXL_PX = 1024
+SDXL_REPEATS = 3                    # timed 4- and 8-step calls of each count
+# stabilityai/stable-diffusion-xl-base-1.0, unet/config.json
+SDXL_UNET = dict(
+    sample_size=128, in_channels=4, out_channels=4,
+    down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+    up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+    block_out_channels=(320, 640, 1280), layers_per_block=2,
+    transformer_layers_per_block=(1, 2, 10), attention_head_dim=(5, 10, 20),
+    cross_attention_dim=2048, use_linear_projection=True, norm_num_groups=32, norm_eps=1e-5,
+    addition_embed_type="text_time", addition_time_embed_dim=256,
+    projection_class_embeddings_input_dim=2816)
+# text_encoder/ (CLIP ViT-L/14) and text_encoder_2/ (OpenCLIP ViT-bigG/14) config.json
+SDXL_TEXT = dict(hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                 intermediate_size=3072)
+SDXL_TEXT_2 = dict(hidden_size=1280, num_hidden_layers=32, num_attention_heads=20,
+                   intermediate_size=5120, projection_dim=1280)
+# the fp32 card-vs-CPU step: the published widths, the transformer depth cut
+# so that the CPU's side stays near a minute
+SDXL_PARITY_DEPTH = dict(transformer_layers_per_block=(1, 1, 1))
+SDXL_PARITY_TEXT_LAYERS = 2
+
+
+def sdxl_modules(torch, tok_dir: str, depth: dict = None, text_layers: int = None) -> dict:
+    """Seeded SDXL-base modules at the published widths, made on the card
+    (the UNet alone is 10.3 GB in fp32), BrushNet `config_from_unet` with 6
+    conditioning channels (depth concat, its zero convs given small values),
+    and the byte-level tokenizer of `tok_dir` for both encoders; `depth` and
+    `text_layers` cut the transformer depth."""
+    from reflecting_reality_tpu_torch.data.tokenizer import CLIPTokenizer
+    from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
+    from reflecting_reality_tpu_torch.models.clip_text import (
+        CLIPTextModel, CLIPTextModelWithProjection,
+    )
+    from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
+    from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+
+    tok = CLIPTokenizer.from_pretrained(tok_dir)
+    layers = {} if text_layers is None else {"num_hidden_layers": text_layers}
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        unet = UNet2DConditionModel(**dict(SDXL_UNET, **(depth or {})))
+        mods = dict(unet=unet, vae=AutoencoderKL(),
+                    brushnet=BrushNetModel(**BrushNetModel.config_from_unet(
+                        unet, conditioning_channels=6)),
+                    text_encoder=CLIPTextModel(**dict(SDXL_TEXT, **layers)),
+                    text_encoder_2=CLIPTextModelWithProjection(
+                        **dict(SDXL_TEXT_2, **layers), eos_token_id=tok.eos_token_id))
+    fill_zero_convs(torch, mods["brushnet"], SEED, 0.02)
+    return dict(mods, tokenizer=tok, tokenizer_2=tok, depth_conditioning_mode="concat")
+
+
+def sdxl_inputs(seed: int) -> dict:
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    mask = np.zeros((SDXL_PX, SDXL_PX, 3), np.float32)
+    mask[256:768, 320:704] = 1.0
+    return dict(prompt="a photo of a mirror on the wall",
+                image=rng.rand(SDXL_PX, SDXL_PX, 3).astype(np.float32), mask=mask,
+                depth=rng.rand(SDXL_PX, SDXL_PX, 1).astype(np.float32), guidance_scale=7.5,
+                scheduler="unipc", seed=SEED)
+
+
+def sdxl_attention_counts(cfg: dict) -> dict:
+    """Self-attentions a UNet forward runs at each token count (1024²: 4096
+    at down/up block 1, 1024 at block 2 and the mid block)."""
+    tl, lpb = cfg["transformer_layers_per_block"], cfg["layers_per_block"]
+    side = SDXL_PX // 8
+    counts = {}
+    for i, bt in enumerate(cfg["down_block_types"]):
+        if bt.startswith("CrossAttn"):
+            n = (side >> i) ** 2
+            counts[n] = counts.get(n, 0) + (2 * lpb + 1) * tl[i]   # down and up blocks
+    n = (side >> (len(tl) - 1)) ** 2
+    counts[n] = counts.get(n, 0) + tl[-1]                          # the mid block
+    return counts
+
+
+def phase_sdxl(torch, gpu_line: str, entries: list, ptxas: dict) -> dict:
+    """The SDXL BrushNet pipeline at the full published SDXL-base width from
+    seeded weights, 1024², CFG 7.5, UniPC, depth concat: bf16 4- and 8-step
+    calls in turns (s/step, s/image, peak memory, B1 and B2 launches by
+    shape a denoise step, a traced 4-step call's idle share), one fp32
+    denoise step and decode card vs CPU at 1e-3 of the output's largest
+    value (C4's rule), and B1 against the plain path at the 1024-token
+    self-attentions -> {path: {(kernel, key): launches}}."""
+    import numpy as np
+
+    from reflecting_reality_tpu_torch.ops.kernels import groupnorm as gn
+    from reflecting_reality_tpu_torch.pipelines import StableDiffusionXLBrushNetPipeline
+    from reflecting_reality_tpu_torch.tools.make_synthetic_fullscale import (
+        write_byte_tokenizer,
+    )
+
+    t_phase = time.perf_counter()
+    kw = sdxl_inputs(SEED)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sdxl_") as tok_dir:
+        write_byte_tokenizer(tok_dir)
+        t0 = time.perf_counter()
+        pipe = StableDiffusionXLBrushNetPipeline(**sdxl_modules(torch, tok_dir),
+                                                 dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        params = {n: sum(p.numel() for p in getattr(pipe, n).parameters())
+                  for n in ("unet", "brushnet", "vae", "text_encoder", "text_encoder_2")}
+        bf16 = timed_calls(torch, pipe, kw, SDXL_REPEATS)
+        profile = trace(torch, lambda: pipe(**kw, num_inference_steps=4, output_type="np"))
+        del pipe
+        torch.cuda.empty_cache()
+
+        parity_by_shape = {}
+        mods = sdxl_modules(torch, tok_dir, SDXL_PARITY_DEPTH, SDXL_PARITY_TEXT_LAYERS)
+        parity = card_vs_cpu_one_step(torch, mods, kw, StableDiffusionXLBrushNetPipeline,
+                                      by_shape=parity_by_shape)
+        del mods
+        torch.cuda.empty_cache()
+
+    per_step = []
+    for (kern, key), n in sorted(bf16["by_shape_8"].items(), key=str):
+        step = (n - bf16["by_shape_4"].get((kern, key), 0)) / 4
+        row = {"kernel": kern, "key": list(key), "launches_8_steps": n, "per_step": step}
+        if kern == "groupnorm":
+            row["regime"] = gn.launch_plan(key[0], 32).regime
+        per_step.append(row)
+    # the 1024-token self-attentions, on the plain path by JAX's T >= 2048
+    # rule: their time a step there against B1's at the same shape
+    attn = sdxl_attention_counts(SDXL_UNET)
+    heads, width = SDXL_UNET["attention_head_dim"][-1], SDXL_UNET["block_out_channels"][-1]
+    low = (SDXL_PX // 32) ** 2
+    e = {e["key"]: e for e in entries}[("flash", ((2, low, heads, width // heads), "bfloat16"))]
+    b1_plain = {"shape": e["shape"], "calls_per_step": attn[low],
+                **{f"{k}_per_step": attn[low] * e[k]
+                   for k in ("plain_ms", "ms", "device_ms", "library_ms")}}
+    d64 = {k: v for k, v in ptxas.get("flash_attn_fwd", {}).items() if k.endswith("<64>")}
+    res = {"phase": "sdxl", "gpu": gpu_line, "size": f"{SDXL_PX}x{SDXL_PX}",
+           "source": "stabilityai/stable-diffusion-xl-base-1.0 unet/config.json",
+           "dtype": "bfloat16", "cfg": 7.5, "scheduler": "unipc", "params": params,
+           "modules_on_card_s": build_s,
+           **{k: v for k, v in bf16.items() if k not in UNPRINTED},
+           "s_per_image_50_steps_two_point_estimate": (bf16["s_per_image_8_steps"]
+                                                       + 42 * bf16["s_per_step"]),
+           "launches_by_shape_per_step": per_step,
+           "self_attentions_per_unet_forward": {str(k): v for k, v in attn.items()},
+           "profile_4_steps": profile, "b1_vs_plain_1024_tokens": b1_plain,
+           "b1_d64_ptxas": d64,
+           "fp32_parity": dict(parity, depth=SDXL_PARITY_DEPTH,
+                               text_layers=SDXL_PARITY_TEXT_LAYERS),
+           "phase_wall_s": time.perf_counter() - t_phase}
+    emit(res)
+    bad = []
+    high = (SDXL_PX // 16) ** 2          # down and up block 1's tokens
+    heads = SDXL_UNET["attention_head_dim"][1]
+    b1 = (2, high, heads, SDXL_UNET["block_out_channels"][1] // heads)
+    flash_8 = {key: n for (kern, key), n in bf16["by_shape_8"].items() if kern == "flash"}
+    want = {(b1, "bfloat16"): 8 * attn[high]}
+    if flash_8 != want:
+        bad.append(f"bf16 B1 launches in 8 steps {flash_8} (want {want})")
+    # every norm of a step on B2, block 0's 163,840 elements a group in the
+    # split regime
+    gn_step = {tuple(row["key"][0]) for row in per_step
+               if row["kernel"] == "groupnorm" and row["per_step"] > 0}
+    if (2, 320, SDXL_PX // 8, SDXL_PX // 8) not in gn_step:
+        bad.append(f"bf16 B2 shapes a step {sorted(gn_step)}")
+    f32_flash = {key: n for (kern, key), n in parity_by_shape.items() if kern == "flash"}
+    want32 = {(b1, "float32"): sdxl_attention_counts(dict(SDXL_UNET, **SDXL_PARITY_DEPTH))[high]}
+    if not (parity["finite"] and parity["max_abs_err"] <= parity["max_abs_tol"]) \
+            or f32_flash != want32 or parity["launches"]["groupnorm"] == 0:
+        bad.append(f"fp32 parity {parity}, B1 {f32_flash} (want {want32})")
+    if not d64 or any(v.get("spill_stores") or v.get("spill_loads") for v in d64.values()):
+        bad.append(f"B1's head-dim-64 instances spill or are missing: {d64}")
+    if bad:
+        raise AssertionError(f"sdxl failed: {bad}")
+    return {"sdxl_bf16_8_steps": bf16["by_shape_8"], "sdxl_fp32_one_step": parity_by_shape}
+
+
 def int8_layers_card_vs_cpu(torch) -> dict:
     """One `Int8Conv2d` (3x3, 640 -> 640, input (2, 640, 64, 64)) and one
     fused-qkv `Int8Linear` group (320 -> 3 x 320, input (2, 4096, 320)),
@@ -3596,6 +3809,41 @@ def ab_train_cli_fp32(other: str, blocks: int) -> None:
                                 for n in ("other", "this")}})
 
 
+def measure_late(torch, entries: list, paths: dict) -> set:
+    """A shape a path launched that phase_kernels did not list (a server's
+    batch follows its traffic, SDXL's norms their widths) is measured and
+    checked now, after the paths, and added to `entries` -> every launched
+    (kernel, key)."""
+    measured = {e["key"] for e in entries}
+    launched = {k for counts in paths.values() for k, n in counts.items() if n > 0}
+    late = sorted(launched - measured, key=str)
+    for kern, key in late:
+        new = [e for e in kernel_entries(torch, kern, key) if e["key"] not in measured]
+        for e in new:
+            e["measured_after_paths"] = True
+            measured.add(e["key"])
+        entries += new
+    emit({"phase": "kernels_late", "measured": [[k, list(key)] for k, key in late]})
+    return launched
+
+
+def sdxl_alone(torch) -> None:
+    """`--sdxl`: the build, B1 at the SDXL shapes of phase 3, the sdxl phase
+    and the late measurement of the shapes it launched."""
+    gpu_line = nvidia_smi()
+    ptxas = phase_build(torch)
+    entries = [e for shape, dt in FLASH_SHAPES if shape[2:] in ((10, 64), (20, 64))
+               for e in kernel_entries(torch, "flash", (shape, dt))]
+    paths = phase_sdxl(torch, gpu_line, entries, ptxas)
+    measure_late(torch, entries, paths)
+    rows = [{k: e.get(k) for k in ("name", "ms", "device_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms", "max_abs_err")}
+            | {"launches_by_path": {p: c.get(e["key"], 0) for p, c in paths.items()}}
+            for e in entries]
+    emit({"phase": "kernels_detail", "kernels": rows})
+    print(gpu_line, flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3621,6 +3869,9 @@ def main() -> int:
         ab_train_cli_fp32(os.path.abspath(sys.argv[2]),
                           int(sys.argv[3]) if len(sys.argv) > 3 else 1)
         return 0
+    if sys.argv[1:2] == ["--sdxl"]:
+        sdxl_alone(torch)
+        return 0
     global TF32_DEFAULT
     TF32_DEFAULT = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     gpu_line = nvidia_smi()
@@ -3631,7 +3882,7 @@ def main() -> int:
           "importable": {m: importlib.util.find_spec(m) is not None for m in ABSENT_MODULES},
           "clocks_max_sm_mhz": max_sm_clock_hz() / 1e6,
           "tf32_default": {"matmul": TF32_DEFAULT[0], "cudnn": TF32_DEFAULT[1]}})
-    phase_build(torch)
+    ptxas = phase_build(torch)
     entries = phase_kernels(torch)
     phase_slice(torch)
     by_shape, main_per_step = phase_main(torch, gpu_line)
@@ -3658,6 +3909,7 @@ def main() -> int:
     new_paths.update(phase_approx(torch, gpu_line))
     new_paths.update(phase_int8(torch, gpu_line))
     new_paths.update(phase_sharded_vae(torch, gpu_line))
+    new_paths.update(phase_sdxl(torch, gpu_line, entries, ptxas))
 
     # each entry carries the launches of its own kernel, shape and dtype on
     # each path: the main path's 8-step call (and per denoise step), the
@@ -3665,7 +3917,7 @@ def main() -> int:
     # training CLI's first run (8 steps), the test CLI's bf16 8-step and
     # fp32 4-step runs (2 rows of 4 seeds each), train_parity's fp32 loss
     # and backward, the training CLI's default fp32 run, and the paths of
-    # the ip_adapter, serve, modes and approx phases
+    # the later phases (ip_adapter to sdxl)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     paths = {"main_path_8_steps": by_shape[8],
@@ -3675,18 +3927,7 @@ def main() -> int:
              "test_cli_fp32_4_steps": test_by_shape["b_fp32_4_steps"],
              "train_parity": parity_by_shape,
              f"train_cli_fp32_{CLI_FP32_STEPS}_steps": cli32_by_shape, **new_paths}
-    # a shape a path launched that phase_kernels did not list (a server's
-    # batch follows its traffic) is measured and checked now, after the paths
-    measured = {e["key"] for e in entries}
-    launched = {k for counts in paths.values() for k, n in counts.items() if n > 0}
-    late = sorted(launched - measured, key=str)
-    for kern, key in late:
-        new = [e for e in kernel_entries(torch, kern, key) if e["key"] not in measured]
-        for e in new:
-            e["measured_after_paths"] = True
-            measured.add(e["key"])
-        entries += new
-    emit({"phase": "kernels_late", "measured": [[k, list(key)] for k, key in late]})
+    launched = measure_late(torch, entries, paths)
     rows = []
     for e in entries:
         row = {k: e.get(k) for k in keys if k != "launches"}

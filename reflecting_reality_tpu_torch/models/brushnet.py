@@ -10,6 +10,10 @@ state), 1 "mid", 15 "up" (every up resnet/upsampler state, captured before
 injection).  `conditioning_scale` multiplies all residuals; `guess_mode`
 applies the logspace(-1, 0) ramp; `global_pool_conditions` mean-pools them.
 
+An SDXL branch (`addition_embed_type="text_time"`, JAX :64-66,
+:122-133) adds its own `add_embedding` term to the time embedding, as the
+UNet does.
+
 `config_from_unet` / `from_unet` build the branch from a UNet the way
 training does (`cli/train.py:125-142`), and `init_from_unet` is the weight
 surgery of `init_params_from_unet` (`reflecting_reality_tpu/models/
@@ -25,7 +29,9 @@ from torch import nn
 
 from reflecting_reality_tpu_torch.core.config import ConfigMixin
 from reflecting_reality_tpu_torch.models.unet_blocks import DOWN_BLOCKS, MID_BLOCKS, UP_BLOCKS
-from reflecting_reality_tpu_torch.ops.embeddings import TimestepEmbedding, time_embedding
+from reflecting_reality_tpu_torch.ops.embeddings import (
+    TimestepEmbedding, add_embedding_for, added_time_embedding, time_embedding,
+)
 
 
 def _zero_conv(channels: int) -> nn.Conv2d:
@@ -55,6 +61,9 @@ class BrushNetModel(nn.Module, ConfigMixin):
         flip_sin_to_cos: bool = True,
         freq_shift: int = 0,
         global_pool_conditions: bool = False,
+        addition_embed_type: Optional[str] = None,
+        addition_time_embed_dim: int = 256,
+        projection_class_embeddings_input_dim: Optional[int] = None,
     ):
         super().__init__()
         self.in_channels = in_channels
@@ -74,6 +83,9 @@ class BrushNetModel(nn.Module, ConfigMixin):
         self.flip_sin_to_cos = flip_sin_to_cos
         self.freq_shift = freq_shift
         self.global_pool_conditions = global_pool_conditions
+        self.addition_embed_type = addition_embed_type
+        self.addition_time_embed_dim = addition_time_embed_dim
+        self.projection_class_embeddings_input_dim = projection_class_embeddings_input_dim
 
         n = len(bocs)
         heads = (tuple(attention_head_dim) if isinstance(attention_head_dim, (tuple, list))
@@ -86,6 +98,7 @@ class BrushNetModel(nn.Module, ConfigMixin):
         self.conv_in_condition = nn.Conv2d(in_channels + conditioning_channels, bocs[0], 3,
                                            padding=1)
         self.time_embedding = TimestepEmbedding(bocs[0], temb_ch)
+        self.add_embedding = add_embedding_for(self, temb_ch)
 
         self.down_blocks = nn.ModuleList()
         down_channels = [bocs[0]]
@@ -148,6 +161,9 @@ class BrushNetModel(nn.Module, ConfigMixin):
             use_linear_projection=cfg.get("use_linear_projection", False),
             flip_sin_to_cos=cfg.get("flip_sin_to_cos", True),
             freq_shift=cfg.get("freq_shift", 0),
+            addition_embed_type=cfg.get("addition_embed_type"),
+            addition_time_embed_dim=cfg.get("addition_time_embed_dim", 256),
+            projection_class_embeddings_input_dim=cfg.get("projection_class_embeddings_input_dim"),
         )
 
     @classmethod
@@ -195,13 +211,17 @@ class BrushNetModel(nn.Module, ConfigMixin):
         conditioning_scale: float = 1.0,
         guess_mode: bool = False,
         temb: Optional[torch.Tensor] = None,  # precomputed time embedding
+        added_cond_kwargs: Optional[dict] = None,   # text_time: text_embeds, time_ids
     ) -> Tuple[List[torch.Tensor], torch.Tensor, List[torch.Tensor]]:
+        """A `text_time` branch takes `added_cond_kwargs` or a `temb` with
+        their term already added, as `UNet2DConditionModel.forward`."""
         b = sample.shape[0]
         if temb is not None:
             emb = temb.to(sample.dtype).expand(b, temb.shape[-1])
         else:
             t = torch.as_tensor(timesteps, device=sample.device).reshape(-1).expand(b)
             emb = time_embedding(self, t)
+        emb = added_time_embedding(self, emb, temb, added_cond_kwargs, sample.dtype)
 
         x = self.conv_in_condition(torch.cat([sample, brushnet_cond], dim=1))
         down_states = (x,)

@@ -1,7 +1,8 @@
 """Minimal CLIP text encoder (counterpart of
 `reflecting_reality_tpu/models/clip_text.py`): token + position embeddings,
 pre-LN transformer layers with causal masking and quick_gelu MLPs, final
-LayerNorm; SD-1.5 uses only `last_hidden_state`.  Parameter names follow
+LayerNorm; SD-1.5 uses only `last_hidden_state`, SDXL the penultimate of
+the per-layer states (`output_hidden_states`).  Parameter names follow
 the transformers checkpoint layout (`text_model.encoder.layers.N.self_attn.
 q_proj`).  `CLIPTextModelWithProjection` (JAX :105-137) adds the projected
 EOS-token state, the text half of CLIP_Similarity.  The T=77 attention stays
@@ -87,9 +88,12 @@ class _Encoder(nn.Module):
                                      for _ in range(num_layers)])
 
     def forward(self, x, causal_mask):
+        """-> (x, [the embeddings, then each layer's output])."""
+        hidden_states = [x]
         for layer in self.layers:
             x = layer(x, causal_mask)
-        return x
+            hidden_states.append(x)
+        return x, hidden_states
 
 
 class _TextModel(nn.Module):
@@ -102,10 +106,12 @@ class _TextModel(nn.Module):
         self.final_layer_norm = nn.LayerNorm(hidden_size, eps=1e-5)
 
     def forward(self, input_ids):
+        """-> (last hidden state, the encoder's per-layer states)."""
         t = input_ids.shape[1]
         x = self.embeddings(input_ids)
         mask = torch.full((t, t), float("-inf"), device=x.device).triu(1)[None, None]
-        return self.final_layer_norm(self.encoder(x, mask))
+        x, hidden_states = self.encoder(x, mask)
+        return self.final_layer_norm(x), hidden_states
 
 
 class CLIPTextModel(nn.Module, ConfigMixin):
@@ -123,9 +129,11 @@ class CLIPTextModel(nn.Module, ConfigMixin):
                                      num_attention_heads, intermediate_size,
                                      max_position_embeddings)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """(B, T) int token ids -> (B, T, hidden) last hidden state."""
-        return self.text_model(input_ids)
+    def forward(self, input_ids: torch.Tensor, output_hidden_states: bool = False):
+        """(B, T) int token ids -> (B, T, hidden) last hidden state; with
+        `output_hidden_states`, (last, [num_hidden_layers + 1 states])."""
+        last, hidden_states = self.text_model(input_ids)
+        return (last, hidden_states) if output_hidden_states else last
 
 
 class CLIPTextModelWithProjection(nn.Module, ConfigMixin):
@@ -150,13 +158,14 @@ class CLIPTextModelWithProjection(nn.Module, ConfigMixin):
                                      max_position_embeddings)
         self.text_projection = nn.Linear(hidden_size, projection_dim, bias=False)
 
-    def forward(self, input_ids: torch.Tensor):
+    def forward(self, input_ids: torch.Tensor, output_hidden_states: bool = False):
         """(B, T) int token ids -> (last hidden (B, T, hidden), text embeds
-        (B, projection_dim))."""
-        last = self.text_model(input_ids)
+        (B, projection_dim)), and the per-layer states third with
+        `output_hidden_states`."""
+        last, hidden_states = self.text_model(input_ids)
         eos = (input_ids == self.eos_token_id).int().argmax(dim=1)
-        pooled = last[torch.arange(last.shape[0], device=last.device), eos]
-        return last, self.text_projection(pooled)
+        pooled = self.text_projection(last[torch.arange(last.shape[0], device=last.device), eos])
+        return (last, pooled, hidden_states) if output_hidden_states else (last, pooled)
 
 
 def load_text_encoder(base_path: str, subfolder: str = "text_encoder",

@@ -13,8 +13,13 @@ resnet(+attn) and upsampler.  `temb` takes a precomputed time embedding
 `ip_num_tokens` / `ip_scale` (IP-Adapter, JAX :49-52) give every
 cross-attention its decoupled `to_k_ip` / `to_v_ip` over the last
 `ip_num_tokens` context tokens.  The forward's DeepCache and encoder-reuse
-arguments (JAX :100-117) are described in `forward`.  SDXL's text_time
-embedding is not ported yet.
+arguments (JAX :100-117) are described in `forward`.
+
+`addition_embed_type="text_time"` (SDXL micro-conditioning, JAX :53-58,
+:146-157) adds `add_embedding` (a `TimestepEmbedding` from
+`projection_class_embeddings_input_dim` = pooled width + 6 ·
+`addition_time_embed_dim`) of the pooled text embeds and the six size/crop
+`time_ids` (`added_cond_kwargs`) to the time embedding.
 """
 
 from __future__ import annotations
@@ -26,7 +31,9 @@ from torch import nn
 
 from reflecting_reality_tpu_torch.core.config import ConfigMixin
 from reflecting_reality_tpu_torch.models.unet_blocks import DOWN_BLOCKS, MID_BLOCKS, UP_BLOCKS
-from reflecting_reality_tpu_torch.ops.embeddings import TimestepEmbedding, time_embedding
+from reflecting_reality_tpu_torch.ops.embeddings import (
+    TimestepEmbedding, add_embedding_for, added_time_embedding, time_embedding,
+)
 from reflecting_reality_tpu_torch.ops.norms import GroupNorm
 
 
@@ -60,6 +67,9 @@ class UNet2DConditionModel(nn.Module, ConfigMixin):
         freq_shift: int = 0,
         ip_num_tokens: Optional[int] = None,
         ip_scale: float = 1.0,
+        addition_embed_type: Optional[str] = None,
+        addition_time_embed_dim: int = 256,
+        projection_class_embeddings_input_dim: Optional[int] = None,
     ):
         super().__init__()
         self.sample_size = sample_size
@@ -81,6 +91,9 @@ class UNet2DConditionModel(nn.Module, ConfigMixin):
         self.freq_shift = freq_shift
         self.ip_num_tokens = ip_num_tokens
         self.ip_scale = ip_scale
+        self.addition_embed_type = addition_embed_type
+        self.addition_time_embed_dim = addition_time_embed_dim
+        self.projection_class_embeddings_input_dim = projection_class_embeddings_input_dim
 
         n = len(bocs)
         heads = _per_block(attention_head_dim, n)
@@ -92,6 +105,7 @@ class UNet2DConditionModel(nn.Module, ConfigMixin):
 
         self.conv_in = nn.Conv2d(in_channels, bocs[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(bocs[0], temb_ch)
+        self.add_embedding = add_embedding_for(self, temb_ch)
 
         self.down_blocks = nn.ModuleList()
         for i, bt in enumerate(self.down_block_types):
@@ -143,6 +157,7 @@ class UNet2DConditionModel(nn.Module, ConfigMixin):
         return_deep: bool = False,
         cached_encoder: Optional[Tuple] = None,
         return_encoder: bool = False,
+        added_cond_kwargs: Optional[dict] = None,   # text_time: text_embeds, time_ids
     ):
         """DeepCache (arXiv:2312.03209): `return_deep=True` also returns the
         hidden state entering the LAST up block; passing it back as
@@ -156,7 +171,11 @@ class UNet2DConditionModel(nn.Module, ConfigMixin):
         passing it back as `cached_encoder` skips conv_in and every down
         block and recomputes the mid block and the decoder.
 
-        The same step's cache gives the full forward's output exactly."""
+        The same step's cache gives the full forward's output exactly.
+
+        A `text_time` UNet adds the term of `added_cond_kwargs` to the time
+        embedding, or takes a `temb` that already holds it (one row a
+        sample, as the pipeline precomputes it once a call)."""
         if cached_deep is not None and cached_encoder is not None:
             raise ValueError("cached_deep and cached_encoder are exclusive")
         b = sample.shape[0]
@@ -165,6 +184,7 @@ class UNet2DConditionModel(nn.Module, ConfigMixin):
         else:
             t = torch.as_tensor(timesteps, device=sample.device).reshape(-1).expand(b)
             emb = time_embedding(self, t)
+        emb = added_time_embedding(self, emb, temb, added_cond_kwargs, sample.dtype)
 
         up_adds = list(up_block_add_samples) if up_block_add_samples is not None else None
         kw = dict(encoder_hidden_states=encoder_hidden_states)

@@ -61,7 +61,7 @@ Multi-device (JAX :295-343, :480-511, :1170-1180), over a mesh of
   `parallel.sharded_vae.sharded_decode_exact` (or the blended
   `sharded_decode`) over the mesh.  The decode takes sharded > tiled >
   plain.  The two are mutually exclusive, with JAX's errors.
-SDXL is not ported yet.
+The SDXL pipeline (`brushnet_sdxl_pipeline.py`) subclasses this one.
 """
 
 from __future__ import annotations
@@ -75,7 +75,9 @@ import numpy as np
 import torch
 
 from reflecting_reality_tpu_torch.core.device import fp32_convolutions, resolve_device
-from reflecting_reality_tpu_torch.ops.embeddings import precompute_time_embeddings
+from reflecting_reality_tpu_torch.ops.embeddings import (
+    precompute_time_embeddings, text_time_embedding,
+)
 from reflecting_reality_tpu_torch.pipelines.image_processor import ImageProcessor
 from reflecting_reality_tpu_torch.schedulers.common import NoiseSchedule, ddim_timesteps
 from reflecting_reality_tpu_torch.schedulers.ddim import ddim_step
@@ -117,6 +119,9 @@ class StableDiffusionBrushNetPipeline:
     """Inference pipeline over torch modules (vae, text_encoder, unet,
     brushnet) plus a tokenizer, moved to `device` and cast to `dtype`.
     `device` defaults to the card; pass device="cpu" for the plain path."""
+
+    # the module attributes `to` moves (None where a mode has no module)
+    _MODULES = ("vae", "text_encoder", "unet", "brushnet", "normal_proj")
 
     def __init__(
         self,
@@ -231,6 +236,19 @@ class StableDiffusionBrushNetPipeline:
             dtype=dtype,
             device=device,
         )
+
+    def to(self, device) -> "StableDiffusionBrushNetPipeline":
+        """Move every module to `device` (JAX `place_params`) -> self.  The
+        prompt memo, which holds tensors, starts empty there, and
+        data-parallel replicas are built anew at the next call."""
+        self.device = resolve_device(device)
+        for name in self._MODULES:
+            module = getattr(self, name)
+            if module is not None:
+                setattr(self, name, module.to(self.device))
+        self._prompt_cache.clear()
+        self._dp_replicas = None
+        return self
 
     # ------------------------------------------------------ approximate modes
 
@@ -372,8 +390,11 @@ class StableDiffusionBrushNetPipeline:
     def _brushnet_cfg_dedup(self, do_cfg: bool, guess_mode: bool) -> bool:
         """MirrorFusion's BrushNet is conv-only, so under CFG its two batch
         halves see identical inputs: run it once at half batch and tile the
-        28 residuals (exact)."""
-        return do_cfg and not guess_mode and not self.brushnet.has_cross_attention
+        28 residuals (exact).  Not an SDXL branch: its `text_time` term takes
+        the pooled text embeds, which differ between the halves (JAX
+        `brushnet_sdxl_pipeline.py:151-154`)."""
+        return (do_cfg and not guess_mode and not self.brushnet.has_cross_attention
+                and self.brushnet.add_embedding is None)
 
     def _residuals(self, brushnet, latents, latent_in, brushnet_embeds, cond_latents,
                    cond_scale, temb, do_cfg, guess_mode):
@@ -437,26 +458,62 @@ class StableDiffusionBrushNetPipeline:
         "pil", "latent" (the decoded float image, NHWC numpy, before the
         uint8 conversion, as in JAX) or "device" (uint8 NHWC tensor left on
         the device)."""
-        if dispatch not in ("scan", "per_step"):
-            raise ValueError(dispatch)
-        deep_cache, encoder_reuse = self._deep_cache, self._encoder_reuse
-        if deep_cache and encoder_reuse:
-            raise ValueError("deep_cache and encoder_reuse are mutually exclusive")
-        if (deep_cache or encoder_reuse) and guess_mode:
-            raise ValueError("cached modes + guess_mode unsupported")
-        dev, dtype, sf = self.device, self.dtype, self.scaling_factor
+        self._check_modes(dispatch, guess_mode)
         do_cfg = guidance_scale > 1.0
-        if generator is None:
-            generator = torch.Generator(dev).manual_seed(0 if seed is None else seed)
-
         prompts = [prompt] if isinstance(prompt, str) else list(prompt)
         batch_size = len(prompts) * num_images_per_prompt
 
         # 1. text
         prompt_embeds = self.encode_prompt(prompt, negative_prompt, num_images_per_prompt,
-                                           do_cfg).to(dtype)
+                                           do_cfg).to(self.dtype)
+        # 2.-3. the initial noise and the conditioning latents
+        latents0, cond, _ = self._latents_and_conditioning(
+            image, mask, depth, normals, height, width, batch_size, seed, generator, latents,
+            deterministic_vae_encode)
 
-        # 2. host image prep (NHWC float32 [-1, 1]); mask -> 1 = keep, 0 = hole
+        brushnet_embeds = prompt_embeds
+        if self.normals_conditioning_mode == "ip_adapter":
+            # the (1, 3) mean mirror normal -> one token appended to both CFG
+            # halves of the UNet's embeds; BrushNet keeps the text tokens
+            from reflecting_reality_tpu_torch.models.ip_adapter import normal_tokens
+
+            normal = torch.as_tensor(np.asarray(normals, np.float32).reshape(-1, 1, 3),
+                                     device=self.device)
+            tok = normal_tokens(normal, self.normal_proj)
+            if tok.shape[0] == 1 and batch_size > 1:
+                tok = tok.repeat_interleave(batch_size, dim=0)
+            if do_cfg:
+                tok = torch.cat([tok, tok])
+            prompt_embeds = torch.cat([prompt_embeds, tok.to(prompt_embeds.dtype)], dim=1)
+
+        return self._sample(
+            latents0, cond, prompt_embeds, brushnet_embeds, None, batch_size, output_type,
+            num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+            brushnet_conditioning_scale=brushnet_conditioning_scale,
+            control_guidance_start=control_guidance_start,
+            control_guidance_end=control_guidance_end, guess_mode=guess_mode,
+            scheduler=scheduler, solver_order=solver_order)
+
+    def _check_modes(self, dispatch: str, guess_mode: bool) -> None:
+        if dispatch not in ("scan", "per_step"):
+            raise ValueError(dispatch)
+        if self._deep_cache and self._encoder_reuse:
+            raise ValueError("deep_cache and encoder_reuse are mutually exclusive")
+        if (self._deep_cache or self._encoder_reuse) and guess_mode:
+            raise ValueError("cached modes + guess_mode unsupported")
+
+    def _latents_and_conditioning(self, image, mask, depth, normals, height, width,
+                                  batch_size: int, seed, generator, latents,
+                                  deterministic_vae_encode: bool):
+        """The host image prep and the device work before the denoise loop
+        -> (initial noise, conditioning latents, (H, W)), NCHW on the device:
+        one packed upload (image | depth | normals | mask), the VAE encodes
+        and the latent-resolution planes."""
+        dev, dtype, sf = self.device, self.dtype, self.scaling_factor
+        if generator is None:
+            generator = torch.Generator(dev).manual_seed(0 if seed is None else seed)
+
+        # host image prep (NHWC float32 [-1, 1]); mask -> 1 = keep, 0 = hole
         image_np = self.image_processor.preprocess(image, height, width)
         mask_np = self.image_processor.preprocess(mask, height, width)
         h, w = image_np.shape[1:3]
@@ -480,8 +537,7 @@ class StableDiffusionBrushNetPipeline:
                 normals_np = np.repeat(normals_np, uniq, axis=0)
         parts = [p for p in (image_np, depth_np, normals_np, mask_np) if p is not None]
 
-        # 3. conditioning latents: one packed upload (image | depth | normals |
-        # mask), NCHW on the device
+        # one packed upload (image | depth | normals | mask), NCHW on the device
         packed = _nchw(np.concatenate(parts, axis=-1)).to(dev, dtype)
         image_dev, mask_dev = packed[:, :3], packed[:, -1:]
         depth_dev = packed[:, 3:4] if depth_np is not None else None
@@ -522,43 +578,34 @@ class StableDiffusionBrushNetPipeline:
             cond = torch.cat([cond, rep(down(normals_dev)).to(cond.dtype)], dim=1)
         elif self.normals_conditioning_mode == "latents":
             cond = torch.cat([cond, encode(normals_dev).to(cond.dtype)], dim=1)
-        cond = cond.to(dtype)
+        return latents0, cond.to(dtype), (h, w)
 
-        brushnet_embeds = prompt_embeds
-        if self.normals_conditioning_mode == "ip_adapter":
-            # the (1, 3) mean mirror normal -> one token appended to both CFG
-            # halves of the UNet's embeds; BrushNet keeps the text tokens
-            from reflecting_reality_tpu_torch.models.ip_adapter import normal_tokens
-
-            normal = torch.as_tensor(np.asarray(normals, np.float32).reshape(-1, 1, 3),
-                                     device=dev)
-            tok = normal_tokens(normal, self.normal_proj)
-            if tok.shape[0] == 1 and batch_size > 1:
-                tok = tok.repeat_interleave(batch_size, dim=0)
-            if do_cfg:
-                tok = torch.cat([tok, tok])
-            prompt_embeds = torch.cat([prompt_embeds, tok.to(prompt_embeds.dtype)], dim=1)
-
-        # 4. brushnet_keep windowing
+    def _sample(self, latents0, cond, prompt_embeds, brushnet_embeds, added, batch_size: int,
+                output_type: str, num_inference_steps: int, guidance_scale: float,
+                brushnet_conditioning_scale: float, control_guidance_start: float,
+                control_guidance_end: float, guess_mode: bool, scheduler: str,
+                solver_order: int):
+        """The brushnet_keep window, the denoise loop and the decode (one
+        run, or one a data-parallel part), then the output conversion.
+        `added` holds SDXL's `text_embeds` and `time_ids` (None for SD-1.5),
+        one row a model-batch row, as the prompt embeds."""
         keeps = [
             1.0 - float(i / num_inference_steps < control_guidance_start
                         or (i + 1) / num_inference_steps > control_guidance_end)
             for i in range(num_inference_steps)
         ]
         cond_scales = [float(np.float32(k * brushnet_conditioning_scale)) for k in keeps]
-
-        # 5.-6. the denoise loop and the decode: one run, or one a
-        # data-parallel part
         loop = dict(num_inference_steps=num_inference_steps, cond_scales=cond_scales,
-                    guidance_scale=guidance_scale, do_cfg=do_cfg, guess_mode=guess_mode,
-                    scheduler=scheduler, solver_order=solver_order)
+                    guidance_scale=guidance_scale, do_cfg=guidance_scale > 1.0,
+                    guess_mode=guess_mode, scheduler=scheduler, solver_order=solver_order)
         if self._dp_mesh is None:
-            image_out = self._denoise_decode(_Replica(self.unet, self.brushnet, self.vae, dev),
+            image_out = self._denoise_decode(_Replica(self.unet, self.brushnet, self.vae,
+                                                      self.device),
                                              latents0, cond, prompt_embeds, brushnet_embeds,
-                                             **loop)
+                                             added, **loop)
         else:
             image_out = self._data_parallel(latents0, cond, prompt_embeds, brushnet_embeds,
-                                            batch_size, loop)
+                                            added, batch_size, loop)
         if output_type == "latent":
             return _nhwc(image_out).cpu().numpy()
         image_u8 = _nhwc(to_uint8(image_out))
@@ -566,8 +613,8 @@ class StableDiffusionBrushNetPipeline:
             return image_u8
         return self.image_processor.postprocess(image_u8.cpu().numpy(), output_type=output_type)
 
-    def _data_parallel(self, latents0, cond, prompt_embeds, brushnet_embeds, batch_size: int,
-                       loop: dict) -> torch.Tensor:
+    def _data_parallel(self, latents0, cond, prompt_embeds, brushnet_embeds, added,
+                       batch_size: int, loop: dict) -> torch.Tensor:
         """The batch split over the data-parallel mesh, each part's loop and
         decode on its replica in a host thread of its own -> the decoded
         float images, in order, on the pipeline's device."""
@@ -586,8 +633,11 @@ class StableDiffusionBrushNetPipeline:
             return [torch.cat(h) for h in zip(shard_batch(e[:batch_size], mesh),
                                               shard_batch(e[batch_size:], mesh))]
 
+        # SDXL's text_embeds and time_ids have the prompt embeds' rows
+        added_parts = ([None] * n if added is None else
+                       [dict(zip(added, part)) for part in zip(*map(embeds, added.values()))])
         parts = list(zip(self._replicas(), shard_batch(latents0, mesh), shard_batch(cond, mesh),
-                         embeds(prompt_embeds), embeds(brushnet_embeds)))
+                         embeds(prompt_embeds), embeds(brushnet_embeds), added_parts))
         results, errors = [None] * n, [None] * n
 
         def run(i):
@@ -634,7 +684,7 @@ class StableDiffusionBrushNetPipeline:
         return vae.decode(z).float()
 
     def _denoise_decode(self, rep: _Replica, latents0, cond, prompt_embeds, brushnet_embeds,
-                        num_inference_steps: int, cond_scales, guidance_scale: float,
+                        added, num_inference_steps: int, cond_scales, guidance_scale: float,
                         do_cfg: bool, guess_mode: bool, scheduler: str, solver_order: int
                         ) -> torch.Tensor:
         """The denoise loop (UniPC or DDIM, CFG, the cached modes) and the
@@ -649,20 +699,26 @@ class StableDiffusionBrushNetPipeline:
             timesteps = ddim_timesteps(self.schedule.num_train_timesteps, num_inference_steps)
         else:
             raise ValueError(scheduler)
-        temb_u = precompute_time_embeddings(rep.unet, timesteps)
-        temb_b = precompute_time_embeddings(rep.brushnet, timesteps)
+        # (N, 1, C) time embeddings; SDXL's text_time term is one row a
+        # sample and the same at every step, so it is added here once a call
+        # -> (N, B, C)
+        temb_u = precompute_time_embeddings(rep.unet, timesteps)[:, None]
+        temb_b = precompute_time_embeddings(rep.brushnet, timesteps)[:, None]
+        if added is not None:
+            temb_u = temb_u + text_time_embedding(rep.unet, added, temb_u.dtype)
+            temb_b = temb_b + text_time_embedding(rep.brushnet, added, temb_b.dtype)
 
         lat = latents0
         interval = deep_cache or encoder_reuse
         cache = None
         for i in range(num_inference_steps):
             latent_in = torch.cat([lat, lat]) if do_cfg else lat
-            unet_kw = dict(temb=temb_u[i:i + 1])
+            unet_kw = dict(temb=temb_u[i])
             if interval is None or i % interval == 0:
                 # the full dual branch (refreshing the cache in a cached mode)
                 down_res, mid_res, up_res = self._residuals(
                     rep.brushnet, lat, latent_in, brushnet_embeds, cond, cond_scales[i],
-                    temb_b[i:i + 1], do_cfg, guess_mode)
+                    temb_b[i], do_cfg, guess_mode)
                 out = rep.unet(latent_in.to(dtype), None, prompt_embeds,
                                down_block_add_samples=down_res, mid_block_add_sample=mid_res,
                                up_block_add_samples=up_res, return_deep=bool(deep_cache),
