@@ -7,6 +7,8 @@
     python3 chip_smoke.py --train-cli-fp32 [CHECKOUT]
     python3 chip_smoke.py --ddp-step RANK WORLD PORT OUT [BACKEND]   (a rank of phase 19)
     python3 chip_smoke.py --sdxl      (phases 2 and 22 alone, B1 at SDXL's shapes)
+    python3 chip_smoke.py --backend-memory-cache   (phases 2 and 23-25 alone)
+    python3 chip_smoke.py --cache-child DIR [--no-nvcc]   (a process of phase 25)
 
 The second form times the main path (phases 2 and 5 below) of another
 checkout (e.g. the parent commit unpacked with `git archive`) and of this
@@ -246,6 +248,26 @@ Phases, each printing one JSON line:
              rule sends to the plain path, timed there against B1
              (phase 3's (2, 1024, 20, 64) entry).  Its norms' shapes are
              measured by `kernels_late`.
+ 23. attention_backend  `--attention_backend xla` against the default
+             `flash`: one fp32 pipeline step (TF32 off) at 1e-3 of the
+             output's max; the 512² bf16 pipeline (4- and 8-step calls,
+             BACKEND_REPEATS each) and the bf16 training step at batch 4
+             (BACKEND_TRAIN_STEPS timed), the backends in turns: s/step,
+             peak memory, a traced 4-step call each (device busy time, idle
+             share), launches (B1/B3/B4 none under xla), the 8-step images'
+             uint8 difference; `cli.test.main --attention_backend xla` on
+             checkpoint-8 (2 rows, 2 steps, no B1 launch).
+ 24. aot_memory  `tools/aot_memory.py` at full width, 512²: its CLI as a
+             user runs it (the reference recipe, planned and measured), the
+             plans and real runs (two steps, `max_memory_allocated`) of the
+             other AOT_RECIPES, in processes started together, then the
+             largest batch per card the plan fits for the AOT_SEARCH recipes
+             and its real run: every measured peak within 10% of its plan,
+             or 1 GiB.
+ 25. compilation_cache  a fresh process builds the libraries into a new
+             directory through the test CLI's `--compilation_cache_dir`; a
+             second loads them with nvcc forbidden (under 1 s); B1 and B2
+             from them against their plain versions.
 C4: train_parity and every `card_vs_cpu_one_step` run the card again with
 TF32 at PyTorch's default, bare (`tf32_default`: cuDNN convolutions in one
 TF32 pass, what the fp32 paths ran before C4's repair) and as the port runs
@@ -262,7 +284,9 @@ int8), the baseline's timed training steps and its test CLI run, the modes
 phase's bf16 call, the cached modes' 8-step calls, the tiled decode, the
 int8 pipeline's 8-step call, rank 0's ddp step, the one-rank NCCL CLI run,
 the data-parallel 8-step call, test CLI run and served requests, the
-sharded decodes and SDXL's bf16 8-step call and fp32 step, 0 where none; the run fails if a path launched a shape with no entry), the
+sharded decodes, SDXL's bf16 8-step call and fp32 step, and the attention
+backends' 8-step calls, training steps and xla test CLI run, 0 where none;
+the run fails if a path launched a shape with no entry), the
 `{"kernels": [...]}` summary line (the kernels and shapes the paths
 launched), the run's seconds, the nvidia-smi name/power-limit line, and
 last `{"ok": true, "device": {...}}`.  Any failed check raises and
@@ -1164,8 +1188,6 @@ def phase_train_parity(torch):
 def phase_train_main(torch, gpu_line: str) -> dict:
     """The training step at full width, bf16, 512² batch 4 -> {(kernel, key):
     launches} over the timed steps."""
-    import numpy as np
-
     from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
     from reflecting_reality_tpu_torch.models.clip_text import CLIPTextModel
     from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
@@ -1192,16 +1214,8 @@ def phase_train_main(torch, gpu_line: str) -> dict:
                                    dtype=torch.bfloat16)
     state = init_state()
 
-    rng = np.random.RandomState(SEED)
     n, px = TRAIN_BATCH, 512
-    masks = np.zeros((n, px, px, 1), np.float32)
-    masks[:, 128:384, 160:352] = 1.0
-    batch = {k: torch.from_numpy(v).cuda() for k, v in {
-        "pixel_values": rng.uniform(-1, 1, (n, px, px, 3)).astype(np.float32),
-        "conditioning_pixel_values": rng.uniform(-1, 1, (n, px, px, 3)).astype(np.float32),
-        "masks": masks,
-        "depths": rng.uniform(-1, 1, (n, px, px, 1)).astype(np.float32),
-        "input_ids": rng.randint(0, 49408, (n, 77)).astype(np.int64)}.items()}
+    batch = train_batch(torch, n, px)
     gen = torch.Generator("cuda").manual_seed(SEED)
     frozen0 = {k: [p.detach().cpu().clone() for p in m.parameters()]
                for k, m in (("unet", unet), ("vae", vae), ("text", text))}
@@ -2098,31 +2112,49 @@ def timed_calls(torch, pipe, kw, repeats: int) -> dict:
     each -> s/step (two-point difference of the medians), s/image (the 8-step
     median), peak memory, the 4- and 8-step calls' launches (total and by
     shape) and the 8-step call's uint8 image."""
+    return timed_variants(torch, pipe, kw, repeats, {"": lambda: None})[""]
+
+
+def timed_variants(torch, pipe, kw, repeats: int, variants: dict) -> dict:
+    """`timed_calls` for each of `variants` ({name: a function that switches
+    the pipeline to it}), the variants taking turns within each repeat, so
+    that the host's drift falls on all of them -> {name: timed_calls' dict}."""
     import numpy as np
 
-    pipe(**kw, num_inference_steps=2, output_type="latent")
-    each = {4: [], 8: []}
-    out = {}
+    for switch in variants.values():
+        switch()
+        pipe(**kw, num_inference_steps=2, output_type="latent")
+    each = {name: {4: [], 8: []} for name in variants}
+    out = {name: {} for name in variants}
     for _ in range(repeats):
-        for steps in (4, 8):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_counters()
-            t0 = time.perf_counter()
-            img = pipe(**kw, num_inference_steps=steps, output_type="np")
-            torch.cuda.synchronize()
-            each[steps].append(time.perf_counter() - t0)
-            out[steps] = dict(launches=read_counters(), by_shape=read_counters_by_shape(),
-                              peak=torch.cuda.max_memory_allocated(), image=img)
-    med = {k: statistics.median(v) for k, v in each.items()}
-    img = out[8]["image"]
-    if img.shape != (1, *kw["image"].shape[:2], 3) or img.dtype != np.uint8 \
-            or not img.std() > 0:
-        raise AssertionError(f"8-step image {img.shape} {img.dtype} std {img.std()}")
-    return {"s_each": {str(k): v for k, v in each.items()}, "s_per_step": (med[8] - med[4]) / 4,
-            "s_per_image_8_steps": med[8], "max_memory_allocated_bytes": out[8]["peak"],
-            "launches_8_steps": out[8]["launches"], "launches_4_steps": out[4]["launches"],
-            "by_shape_8": out[8]["by_shape"], "by_shape_4": out[4]["by_shape"], "image_8": img}
+        for name, switch in variants.items():
+            switch()
+            for steps in (4, 8):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counters()
+                t0 = time.perf_counter()
+                img = pipe(**kw, num_inference_steps=steps, output_type="np")
+                torch.cuda.synchronize()
+                each[name][steps].append(time.perf_counter() - t0)
+                out[name][steps] = dict(launches=read_counters(),
+                                        by_shape=read_counters_by_shape(),
+                                        peak=torch.cuda.max_memory_allocated(), image=img)
+    res = {}
+    for name in variants:
+        med = {k: statistics.median(v) for k, v in each[name].items()}
+        o = out[name]
+        img = o[8]["image"]
+        if img.shape != (1, *kw["image"].shape[:2], 3) or img.dtype != np.uint8 \
+                or not img.std() > 0:
+            raise AssertionError(f"{name} 8-step image {img.shape} {img.dtype} std {img.std()}")
+        res[name] = {"s_each": {str(k): v for k, v in each[name].items()},
+                     "s_per_step": (med[8] - med[4]) / 4, "s_per_image_8_steps": med[8],
+                     "max_memory_allocated_bytes": o[8]["peak"],
+                     "launches_8_steps": o[8]["launches"], "launches_4_steps": o[4]["launches"],
+                     "by_shape_8": o[8]["by_shape"], "by_shape_4": o[4]["by_shape"],
+                     "image_8": img}
+    return res
 
 
 def card_vs_cpu_one_step(torch, mods, kw, pipeline_cls=None, keep: bool = False,
@@ -3743,6 +3775,418 @@ def int8_layers_card_vs_cpu(torch) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 23-25
+
+BACKEND_REPEATS = 5                 # timed 4- and 8-step calls of each attention backend
+BACKEND_TRAIN_STEPS = 4             # timed training steps of each backend
+BACKENDS = ("flash", "xla")
+
+
+def set_backend(modules, name: str) -> None:
+    from reflecting_reality_tpu_torch.ops.attention import set_attention_backend
+
+    for m in modules:
+        set_attention_backend(m, name)
+
+
+def train_batch(torch, n: int, px: int = 512) -> dict:
+    """A seeded NHWC pixel batch on the card (the loader's form)."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    masks = np.zeros((n, px, px, 1), np.float32)
+    masks[:, px // 4: 3 * px // 4, 5 * px // 16: 11 * px // 16] = 1.0
+    return {k: torch.from_numpy(v).cuda() for k, v in {
+        "pixel_values": rng.uniform(-1, 1, (n, px, px, 3)).astype(np.float32),
+        "conditioning_pixel_values": rng.uniform(-1, 1, (n, px, px, 3)).astype(np.float32),
+        "masks": masks,
+        "depths": rng.uniform(-1, 1, (n, px, px, 1)).astype(np.float32),
+        "input_ids": rng.randint(0, 49408, (n, 77)).astype(np.int64)}.items()}
+
+
+def phase_attention_backend(torch, gpu_line: str, data: str, brushnet_path: str,
+                            base: str) -> dict:
+    """`--attention_backend xla` against the default `flash` on the card:
+    one fp32 pipeline step (TF32 off) xla against flash at 1e-3 of the
+    output's max; the 512² bf16 depth-concat pipeline (4 and 8 steps,
+    BACKEND_REPEATS each) and one bf16 training step at batch 4
+    (BACKEND_TRAIN_STEPS timed) under each backend, the backends in turns:
+    s/step, peak memory (the training step's from a step of its own each,
+    before the timed ones), a traced 4-step call each (device busy time,
+    idle share),
+    the launches (B1 40 in 8 steps and 5/5/5 a training step under flash,
+    B1/B3/B4 none under xla, B2 under both), the 8-step images' uint8
+    difference; then `cli.test.main --attention_backend xla` (bf16, batched
+    seeds, 2 steps) on `base` and `brushnet_path` over `data`: its sheets,
+    and no B1 launch -> {path: {(kernel, key): launches}}."""
+    import numpy as np
+    from PIL import Image
+
+    from reflecting_reality_tpu_torch.cli import test as cli_test
+    from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
+    from reflecting_reality_tpu_torch.models.clip_text import CLIPTextModel
+    from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
+    from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+    from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
+        StableDiffusionBrushNetPipeline,
+    )
+    from reflecting_reality_tpu_torch.training import TrainConfig, make_train_step
+
+    t_phase = time.perf_counter()
+    mods = full_width_modules(torch)
+    kw = pipeline_inputs(SEED)
+    fp32 = dict(kw, num_inference_steps=1, output_type="latent", deterministic_vae_encode=True,
+                latents=np.random.RandomState(SEED + 6).standard_normal(
+                    (1, CLI_PX // 8, CLI_PX // 8, 4)).astype(np.float32))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out32, launches32 = {}, {}
+    try:
+        pipe = StableDiffusionBrushNetPipeline(**mods, device="cuda")
+        for name in BACKENDS:
+            set_backend((pipe.unet, pipe.brushnet, pipe.vae), name)
+            reset_counters()
+            out32[name] = pipe(**fp32)
+            launches32[name] = read_counters()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    scale = float(np.abs(out32["flash"]).max())
+    fp32_step = {"max_abs_err": float(np.abs(out32["xla"] - out32["flash"]).max()),
+                 "max_abs_tol": 1e-3 * scale, "output_max_abs": scale,
+                 "launches": launches32}
+
+    # bf16: the same modules cast in place; the backends take turns
+    pipe = StableDiffusionBrushNetPipeline(**mods, dtype=torch.bfloat16, device="cuda")
+    attns = (pipe.unet, pipe.brushnet, pipe.vae)
+    switch = {n: functools.partial(set_backend, attns, n) for n in BACKENDS}
+    runs = timed_variants(torch, pipe, kw, BACKEND_REPEATS, switch)
+    paths = {f"attention_backend_{n}_pipeline_8_steps": r["by_shape_8"] for n, r in runs.items()}
+    traces = {}
+    for n in BACKENDS:          # device time, which the host's spread does not move
+        switch[n]()
+        traces[n] = trace(torch, lambda: pipe(**kw, num_inference_steps=4, output_type="np"))
+    diff = np.abs(runs["xla"]["image_8"].astype(np.int16)
+                  - runs["flash"]["image_8"].astype(np.int16))
+    del pipe, mods, attns, switch
+    torch.cuda.empty_cache()
+
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        unet, vae, text = UNet2DConditionModel(), AutoencoderKL(), CLIPTextModel()
+    brushnet = BrushNetModel.from_unet(unet, conditioning_channels=6)
+    fill_zero_convs(torch, brushnet, SEED, 0.02)
+    for m in (unet, vae, text):
+        m.to(torch.bfloat16)
+    step, init_state = make_train_step(unet, brushnet, vae, text,
+                                       TrainConfig(learning_rate=5e-6, lr_warmup_steps=0),
+                                       dtype=torch.bfloat16)
+    state = init_state()
+    batch = train_batch(torch, TRAIN_BATCH)
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    train = {n: {"s_each": [], "losses": [], "launches": dict.fromkeys(counters(), 0)}
+             for n in BACKENDS}
+    state, m = step(state, batch, gen)              # warm: AdamW makes its state
+    for n, t in train.items():      # a step each from the same state: its peak
+        set_backend((unet, brushnet, vae), n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, m = step(state, batch, gen)
+        t["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    for _ in range(BACKEND_TRAIN_STEPS):                    # the backends in turns
+        for n, t in train.items():
+            set_backend((unet, brushnet, vae), n)
+            torch.cuda.synchronize()
+            reset_counters()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, gen)
+            t["losses"].append(float(m["loss"]))
+            t["s_each"].append(time.perf_counter() - t0)
+            t["launches"] = {k: t["launches"][k] + v for k, v in read_counters().items()}
+            path = paths.setdefault(f"attention_backend_{n}_train_{BACKEND_TRAIN_STEPS}_steps",
+                                    {})
+            for key, v in read_counters_by_shape().items():
+                path[key] = path.get(key, 0) + v
+    for t in train.values():
+        t["s_per_step"] = statistics.median(t["s_each"])
+        t["launches_per_step"] = {k: v / BACKEND_TRAIN_STEPS for k, v in t.pop("launches").items()}
+    del state, step, m, batch, unet, brushnet, vae, text
+    torch.cuda.empty_cache()
+
+    sheets_dir = tempfile.mkdtemp(prefix="chip_smoke_xla_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        cli_test.main(["--brushnet_path", brushnet_path, "--base_model_path", base,
+                       "--train_data_dir", data, "--output_dir", sheets_dir, "--image_mode",
+                       "--depth_conditioning_mode", "concat", "--resolution", str(CLI_PX),
+                       "--seed", str(SEED), "--weight_dtype", "bf16", "--batch_seeds",
+                       "--num_inference_steps", "2", "--attention_backend", "xla"])
+        torch.cuda.synchronize()
+        sheets = [np.asarray(Image.open(os.path.join(sheets_dir, f)))
+                  for f in sorted(os.listdir(sheets_dir))]
+        paths["attention_backend_xla_test_cli"] = read_counters_by_shape()
+        test_cli = {"wall_s": time.perf_counter() - t0, "launches": read_counters(),
+                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                    "sheets": [{"shape": list(a.shape), "dtype": str(a.dtype),
+                                "std": float(a.std())} for a in sheets]}
+    finally:
+        shutil.rmtree(sheets_dir, ignore_errors=True)
+
+    res = {"phase": "attention_backend", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}",
+           "fp32_step_xla_vs_flash": fp32_step,
+           "pipeline_bf16": {n: {k: v for k, v in r.items() if k not in UNPRINTED}
+                             for n, r in runs.items()},
+           "pipeline_bf16_traced_4_steps": traces,
+           "image_8_uint8_max_diff": int(diff.max()),
+           "image_8_uint8_mean_diff": float(diff.mean()),
+           "xla_over_flash_s_per_step": runs["xla"]["s_per_step"] / runs["flash"]["s_per_step"],
+           "xla_minus_flash_peak_gib": (runs["xla"]["max_memory_allocated_bytes"]
+                                        - runs["flash"]["max_memory_allocated_bytes"]) / 2**30,
+           "train_bf16_batch_4": train,
+           "train_xla_over_flash_s_per_step": train["xla"]["s_per_step"]
+           / train["flash"]["s_per_step"],
+           "train_xla_minus_flash_peak_gib": (train["xla"]["max_memory_allocated_bytes"]
+                                              - train["flash"]["max_memory_allocated_bytes"])
+           / 2**30,
+           "test_cli_xla": test_cli, "phase_wall_s": time.perf_counter() - t_phase}
+    emit(res)
+    bad = []
+    if not fp32_step["max_abs_err"] <= fp32_step["max_abs_tol"]:
+        bad.append(f"fp32 xla vs flash {fp32_step}")
+    if launches32["flash"]["flash"] != 5 or launches32["xla"]["flash"] != 0:
+        bad.append(f"fp32 step launches {launches32}")
+    for name, want in (("flash", 40), ("xla", 0)):
+        got = runs[name]["launches_8_steps"]
+        if got["flash"] != want or got["groupnorm"] == 0:
+            bad.append(f"{name} pipeline launches {got}")
+        got = train[name]["launches_per_step"]
+        trio = (got["flash"], got["flash_bwd_dq"], got["flash_bwd_dkv"])
+        if trio != ((5, 5, 5) if name == "flash" else (0, 0, 0)) or got["groupnorm"] == 0:
+            bad.append(f"{name} training launches {got}")
+        if not all(math.isfinite(x) for x in train[name]["losses"]):
+            bad.append(f"{name} losses {train[name]['losses']}")
+    if test_cli["launches"]["flash"] != 0 or test_cli["launches"]["groupnorm"] == 0 or len(
+            sheets) != CLI_ROWS or any(a.shape != (2 * CLI_PX, 2 * CLI_PX, 3) or not a.std() > 0
+                                       for a in sheets):
+        bad.append(f"test CLI under xla {test_cli}")
+    if bad:
+        raise AssertionError(f"attention_backend failed: {bad}")
+    return paths
+
+
+# (batch per card, remat, EMA, base UNet, frozen): the recipes planned and
+# measured; the first is the tool's default, the reference recipe
+AOT_RECIPES = (
+    dict(batch_per_chip=2, policy="dots", use_ema=True, ema_dtype="fp32"),
+    dict(batch_per_chip=2, policy="full", use_ema=True, ema_dtype="fp32"),
+    dict(batch_per_chip=2, policy="full", use_ema=True, ema_dtype="bf16"),
+    dict(batch_per_chip=4, policy="full", use_ema=False),
+    dict(batch_per_chip=2, policy="dots", use_ema=True, ema_dtype="fp32", train_base_unet=True),
+    dict(batch_per_chip=2, policy="dots", use_ema=True, ema_dtype="fp32", frozen_bf16=False),
+)
+AOT_SEARCH = (0, 3)                 # the recipes whose largest batch is searched for ...
+AOT_MAX_BATCH = 64                  # ... up to this batch per card
+AOT_PROBES = (16, 32)               # the batches of each search's straight line
+AOT_TOL = (0.10, 1.0)               # measured peak within 10% of the plan, or 1 GiB
+AOT_PLAN = ("import json, sys; sys.path.insert(0, {root!r}); "
+            "from reflecting_reality_tpu_torch.tools import aot_memory as am; "
+            "print(json.dumps(am.plan(**json.loads(sys.argv[1]))))")
+AOT_MEASURE = ("import json, sys; sys.path.insert(0, {root!r}); "
+               "from reflecting_reality_tpu_torch.tools import aot_memory as am; "
+               "[print(json.dumps(am.measure(**r)), flush=True) "
+               "for r in json.loads(sys.argv[1])]")
+
+
+def aot_plans(recipes: list) -> list:
+    """The memory plan of each recipe on fake cuda tensors, each in a
+    process of its own, all started together (each takes a CPU core)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(recipe):
+        out = subprocess.run([sys.executable, "-c", AOT_PLAN.format(root=ROOT),
+                              json.dumps(recipe)], capture_output=True, text=True,
+                             timeout=600)
+        if out.returncode != 0:
+            raise RuntimeError(f"plan {recipe} failed:\n{out.stderr[-3000:]}")
+        return json.loads(out.stdout.strip().splitlines()[-1])
+
+    with ThreadPoolExecutor(min(len(recipes), os.cpu_count() or 1)) as pool:
+        return list(pool.map(one, recipes))
+
+
+def aot_measure(recipes: list) -> subprocess.Popen:
+    """Each recipe run for real on the card, one after another, in a process
+    of its own (nothing of this one is in its way): one JSON line each."""
+    return subprocess.Popen([sys.executable, "-c", AOT_MEASURE.format(root=ROOT),
+                             json.dumps(recipes)], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def aot_lines(proc: subprocess.Popen, n: int, what: str) -> list:
+    """The last `n` JSON lines of a finished `proc`; raise if it failed."""
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what} failed:\n{err[-3000:]}")
+    return [json.loads(ln) for ln in out.strip().splitlines()[-n:]]
+
+
+def phase_aot_memory(torch, gpu_line: str) -> None:
+    """`tools/aot_memory.py` at full width, 512², bf16 autocast: the tool's
+    CLI as a user runs it (plan and measurement of the reference recipe,
+    AOT_RECIPES[0]), the plan of each other recipe and the real runs of
+    them (two steps, peak allocated) in processes started together, then
+    the largest batch per card (<= AOT_MAX_BATCH) the plan fits into the
+    card for the AOT_SEARCH recipes (a straight line through the plans at
+    AOT_PROBES, then the plans at that batch and the next) and its real
+    run: every measured peak within AOT_TOL of its plan."""
+    from reflecting_reality_tpu_torch.tools import aot_memory as am
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    this_process = {"allocated_gib": torch.cuda.memory_allocated() / am.GIB,
+                    "reserved_gib": torch.cuda.memory_reserved() / am.GIB}
+    hbm = torch.cuda.get_device_properties(0).total_memory / am.GIB
+    budget = hbm - am.RESERVE_GIB
+    cli = subprocess.Popen([sys.executable, "-m", "reflecting_reality_tpu_torch.tools.aot_memory"],
+                           cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    others = list(AOT_RECIPES[1:])
+    runs = aot_measure(others)
+    probes = [dict(AOT_RECIPES[i], batch_per_chip=b) for i in AOT_SEARCH for b in AOT_PROBES]
+    first = aot_plans(others + probes)
+    cli_stats = aot_lines(cli, 1, "tools/aot_memory.py")[0]
+    plans = [cli_stats] + first[:len(others)]
+    probe_plans = first[len(others):]
+    measured = [cli_stats] + aot_lines(runs, len(others), "the measurements")
+    t_first = time.perf_counter() - t_phase
+
+    def peak(p):
+        return p["peak_gib_per_device"]
+
+    # past a few samples the peak is in the activations and grows by a
+    # fixed amount a sample (at batch 2 it is in AdamW's update): a line
+    # through the two probes
+    guesses = []
+    (b0, b1), n = AOT_PROBES, len(AOT_PROBES)
+    for k, i in enumerate(AOT_SEARCH):
+        p0, p1 = (peak(p) for p in probe_plans[n * k:n * k + n])
+        slope = (p1 - p0) / (b1 - b0)
+        guesses.append(max(1, min(AOT_MAX_BATCH, int((budget - p0) / slope) + b0)))
+    checks = aot_plans([dict(AOT_RECIPES[i], batch_per_chip=b + d)
+                        for i, b in zip(AOT_SEARCH, guesses) for d in (0, 1)])
+    largest = []
+    for k, (i, b) in enumerate(zip(AOT_SEARCH, guesses)):
+        at, above = checks[2 * k], checks[2 * k + 1]
+        while peak(at) > budget and b > 1:                      # the line was optimistic
+            b, above = b - 1, at
+            at = aot_plans([dict(AOT_RECIPES[i], batch_per_chip=b)])[0]
+        while peak(above) <= budget and b < AOT_MAX_BATCH:      # ... or pessimistic
+            b, at = b + 1, above
+            above = aot_plans([dict(AOT_RECIPES[i], batch_per_chip=b + 1)])[0]
+        largest.append({"recipe": dict(AOT_RECIPES[i], batch_per_chip=b), "plan": at,
+                        "next_batch_peak_gib": peak(above)})
+    recipes = list(AOT_RECIPES) + [x["recipe"] for x in largest]
+    plans += [x["plan"] for x in largest]
+    measured += aot_lines(aot_measure([x["recipe"] for x in largest]), len(largest),
+                          "the largest batches' measurements")
+    keep = ("argument_gib_per_device", "temp_gib_per_device", "peak_gib_per_device", "split")
+    rows = [{"recipe": r, **{k: p[k] for k in keep},
+             **{k: v for k, v in m.items() if k.startswith("measured") or k in ("fits", "oom")}}
+            for r, p, m in zip(recipes, plans, measured)]
+    for r in rows:
+        if r.get("fits"):
+            r["measured_over_planned"] = r["measured_peak_gib"] / r["peak_gib_per_device"]
+    res = {"phase": "aot_memory", "gpu": gpu_line, "hbm_gib": hbm, "budget_gib": budget,
+           "resolution": 512, "rows": rows,
+           "largest_batch": [{"recipe": x["recipe"], "planned_peak_gib": peak(x["plan"]),
+                              "next_batch_planned_peak_gib": x["next_batch_peak_gib"]}
+                             for x in largest],
+           "cli": cli_stats, "this_process": this_process, "first_wall_s": t_first,
+           "phase_wall_s": time.perf_counter() - t_phase}
+    emit(res)
+    bad = [r for r in rows if not r.get("fits") or abs(
+        r["measured_peak_gib"] - r["peak_gib_per_device"]) > max(
+        AOT_TOL[0] * r["peak_gib_per_device"], AOT_TOL[1])]
+    if bad:
+        raise AssertionError(f"aot_memory: measured off the plan {bad}")
+
+
+def cache_child(cache_dir: str, forbid_nvcc: bool) -> None:
+    """`--cache-child`: a fresh process points the build directory at
+    `cache_dir` through the test CLI's `--compilation_cache_dir` (as its
+    main does first), builds or loads the kernel libraries (with
+    `forbid_nvcc`, any nvcc call raises) and launches B1 and B2 once each
+    from them against their plain versions; one JSON line."""
+    import torch
+
+    from reflecting_reality_tpu_torch.cli.test import build_parser
+    from reflecting_reality_tpu_torch.core.jit_cache import enable_compilation_cache
+    from reflecting_reality_tpu_torch.ops.kernels import build
+    from reflecting_reality_tpu_torch.ops.kernels import flash_attention as fa
+    from reflecting_reality_tpu_torch.ops.kernels import groupnorm as gn
+
+    args = build_parser().parse_args(["--brushnet_path", "-", "--compilation_cache_dir",
+                                      cache_dir])
+    enable_compilation_cache(args.compilation_cache_dir)
+    if forbid_nvcc:
+        def no_nvcc():
+            raise AssertionError("nvcc called with the libraries in the cache")
+        build.nvcc = no_nvcc
+    built_now = {n: not build.library_path(n).exists() for n in LIBRARIES}
+    seconds = build_libraries()
+    g = torch.Generator("cuda").manual_seed(SEED)
+    q, k, v = (torch.randn((2, 4096, 8, 40), generator=g, device="cuda").bfloat16()
+               for _ in range(3))
+    x = torch.randn((2, 320, 64, 64), generator=g, device="cuda")
+    w, b = torch.ones(320, device="cuda"), torch.zeros(320, device="cuda")
+    plain, y_plain = fa.attention_plain(q, k, v).float(), gn.group_norm_plain(x, w, b, 32, 1e-5)
+    # phase 3's tolerances: 4 bf16 ulps of B1's output max, 1e-5 of B2's
+    checks = {"flash": ((fa.flash_attention_fwd(q, k, v)[0].float() - plain).abs().max().item(),
+                        4 * bf16_ulp(plain.abs().max().item())),
+              "groupnorm": ((gn.group_norm_silu_fwd(x, w, b, 32, 1e-5) - y_plain).abs().max()
+                            .item(), 1e-5 * max(1.0, y_plain.abs().max().item()))}
+    emit({"cache_dir": str(build.build_dir()), "built_now": built_now, "seconds": seconds,
+          "libraries": {n: str(build.library_path(n)) for n in LIBRARIES},
+          "max_abs_err_and_tol": checks})
+
+
+def phase_compilation_cache(torch, gpu_line: str) -> None:
+    """A fresh process builds the kernel libraries into a new directory
+    through `--compilation_cache_dir`; a second process loads them from it
+    without nvcc: each library and its ptxas log in the directory, the
+    second process's build seconds under 1, B1 (bf16) and B2 (fp32) from
+    the loaded libraries within phase 3's tolerances of their plain
+    versions."""
+    t_phase = time.perf_counter()
+    cache = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    try:
+        runs = []
+        for forbid in (False, True):
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, os.path.abspath(__file__), "--cache-child",
+                                  cache] + (["--no-nvcc"] if forbid else []),
+                                 capture_output=True, text=True, timeout=600)
+            if out.returncode != 0:
+                raise RuntimeError(f"cache child failed:\n{out.stderr[-3000:]}")
+            runs.append(dict(json.loads(out.stdout.strip().splitlines()[-1]),
+                             process_s=time.perf_counter() - t0))
+        files = sorted(os.listdir(cache))
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    res = {"phase": "compilation_cache", "gpu": gpu_line, "files": files,
+           "first": runs[0], "second": runs[1], "phase_wall_s": time.perf_counter() - t_phase}
+    emit(res)
+    first, second = runs
+    in_dir = all(os.path.dirname(p) == os.path.realpath(cache)
+                 for r in runs for p in r["libraries"].values())
+    logs = all(os.path.basename(p)[:-3] + ".log" in files for p in first["libraries"].values())
+    if not (in_dir and logs and all(first["built_now"].values())
+            and not any(second["built_now"].values())
+            and max(second["seconds"].values()) < 1.0
+            and all(e <= t for r in runs for e, t in r["max_abs_err_and_tol"].values())):
+        raise AssertionError(f"compilation_cache failed: {res}")
+
+
 # ------------------------------------------------------------------ main
 
 AB_RUN = ("import sys, torch; sys.path.insert(0, '.'); import chip_smoke as cs; "
@@ -3844,6 +4288,34 @@ def sdxl_alone(torch) -> None:
     print(gpu_line, flush=True)
 
 
+def backend_memory_cache_alone(torch) -> None:
+    """`--backend-memory-cache`: the build and phases 23-25 alone, the test
+    CLI of phase 23 on a seeded base folder and BrushNet written here."""
+    from reflecting_reality_tpu_torch.core.io import save_pretrained
+    from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
+
+    gpu_line = nvidia_smi()
+    phase_build(torch)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        base, data = os.path.join(tmp, "base"), os.path.join(tmp, "msd")
+        write_base_folder(torch, base)
+        write_image_mode_data(data)
+        torch.manual_seed(SEED)
+        with torch.device("cuda"):
+            brushnet = BrushNetModel(conditioning_channels=6)
+        fill_zero_convs(torch, brushnet, SEED, 0.02)
+        save_pretrained(brushnet, os.path.join(tmp, "ckpt", "brushnet"))
+        del brushnet
+        phase_attention_backend(torch, gpu_line, data, os.path.join(tmp, "ckpt"), base)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_aot_memory(torch, gpu_line)
+    phase_compilation_cache(torch, gpu_line)
+    emit({"phase": "run", "seconds": time.perf_counter() - T_START})
+    print(gpu_line, flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3871,6 +4343,12 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--sdxl"]:
         sdxl_alone(torch)
+        return 0
+    if sys.argv[1:2] == ["--cache-child"]:
+        cache_child(sys.argv[2], sys.argv[3:4] == ["--no-nvcc"])
+        return 0
+    if sys.argv[1:2] == ["--backend-memory-cache"]:
+        backend_memory_cache_alone(torch)
         return 0
     global TF32_DEFAULT
     TF32_DEFAULT = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -3903,6 +4381,9 @@ def main() -> int:
         new_paths.update(phase_baseline(torch, gpu_line, tmp, data))
         new_paths.update(phase_ddp(torch, gpu_line, tmp, cli32_s_step))
         new_paths.update(phase_data_parallel(torch, gpu_line, tmp, data))
+        new_paths.update(phase_attention_backend(torch, gpu_line, data,
+                                                 os.path.join(tmp, "run", "checkpoint-8"),
+                                                 os.path.join(tmp, "base")))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     new_paths.update(phase_modes(torch, gpu_line))
@@ -3910,6 +4391,8 @@ def main() -> int:
     new_paths.update(phase_int8(torch, gpu_line))
     new_paths.update(phase_sharded_vae(torch, gpu_line))
     new_paths.update(phase_sdxl(torch, gpu_line, entries, ptxas))
+    phase_aot_memory(torch, gpu_line)
+    phase_compilation_cache(torch, gpu_line)
 
     # each entry carries the launches of its own kernel, shape and dtype on
     # each path: the main path's 8-step call (and per denoise step), the

@@ -103,10 +103,11 @@ def run_one(name: str) -> None:
     import torch
 
     import chip_smoke as cs
+    from reflecting_reality_tpu_torch.core.jit_cache import enable_compilation_cache
     from reflecting_reality_tpu_torch.ops.kernels import build
     from reflecting_reality_tpu_torch.ops.kernels import flash_attention as fa
 
-    src = os.path.join(build.BUILD_DIR, "variants", name)
+    src = os.path.join(build.build_dir(), "variants", name)
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(build.CSRC_DIR, os.path.join(src, "csrc"))
     for fname, old, new in VARIANTS[name]:
@@ -116,7 +117,8 @@ def run_one(name: str) -> None:
         assert text.count(old) == 1, (name, old[:60])
         with open(p, "w") as f:
             f.write(text.replace(old, new))
-    build.CSRC_DIR, build.BUILD_DIR = Path(src) / "csrc", Path(src) / "_build"
+    build.CSRC_DIR = Path(src) / "csrc"
+    enable_compilation_cache(os.path.join(src, "_build"))
     g = torch.Generator("cuda").manual_seed(cs.SEED + 7)
     q, k, v, do = (torch.randn(SHAPE, generator=g, device="cuda") for _ in range(4))
     out, lse = fa.flash_attention_fwd(q, k, v)

@@ -41,9 +41,12 @@ per layer, as in JAX.  `--data_parallel` (JAX :453-458) splits each
 batched call over the visible cards (`enable_data_parallel(make_mesh())`;
 the CPU is one device), the batch padded with copies of its last request
 until it divides by the card count and the padded images dropped (JAX
-:318-331).  `--attention_backend xla` raises (performance follow-up 5: the
-port routes attention by device and shape); `--compilation_cache_dir` is
-accepted and ignored (no XLA cache).
+:318-331).  `--attention_backend xla` puts every attention of the UNet,
+BrushNet and VAE on the plain einsum-softmax path (set on those modules, so
+it holds for every request thread and replica; the default `flash` sends
+the long self-attentions to kernel B1 on the card).
+`--compilation_cache_dir` builds and loads the kernel libraries there
+(`core/jit_cache.py`).
 """
 
 from __future__ import annotations
@@ -64,7 +67,6 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-ROADMAP = "ROADMAP.md"
 
 
 def _decode_image(value, channels: Optional[int] = None) -> np.ndarray:
@@ -400,26 +402,12 @@ def make_handler(server: BatchingPipelineServer):
     return Handler
 
 
-def refuse_unported(args) -> None:
-    """Options whose feature the port does not have yet raise, naming the
-    ROADMAP item that ports it."""
-    unported = [
-        (args.attention_backend == "xla",
-         "--attention_backend xla (the port routes attention by device and shape)",
-         "performance follow-up 5"),
-    ]
-    for is_set, what, item in unported:
-        if is_set:
-            raise NotImplementedError(f"{what} is not ported to the PyTorch package yet "
-                                      f"({ROADMAP} {item})")
-
-
 def build_pipeline(args):
+    from reflecting_reality_tpu_torch.ops.attention import set_attention_backend
     from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
         StableDiffusionBrushNetPipeline,
     )
 
-    refuse_unported(args)
     dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[args.weight_dtype]
     pipe = StableDiffusionBrushNetPipeline.from_pretrained(
         args.base_model_path,
@@ -430,6 +418,8 @@ def build_pipeline(args):
         dtype=dtype,
         device=args.device,
     )
+    for m in (pipe.unet, pipe.brushnet, pipe.vae):
+        set_attention_backend(m, args.attention_backend)
     if args.deep_cache:
         pipe.enable_deep_cache(args.deep_cache)
     if args.encoder_reuse:
@@ -497,9 +487,9 @@ def build_parser():
                    help="denoise dispatch of requests that name none; the port runs one "
                         "step at a time either way, so both give the same images")
     p.add_argument("--attention_backend", type=str, default="flash", choices=["flash", "xla"],
-                   help="'flash': the port's attention routes by device and shape (kernel B1 "
-                        "for long self-attention on the card). 'xla' is not ported: raises "
-                        "(ROADMAP.md performance follow-up 5)")
+                   help="attention: 'flash' (kernel B1 for the long self-attentions on the "
+                        "card; short or wide shapes and the CPU take the plain path) or "
+                        "'xla' (the plain einsum-softmax path everywhere)")
     p.add_argument("--batch_window", type=float, default=0.0,
                    help="with --max_batch > 1: hold a partial batch up to this many seconds "
                         "for more compatible requests before launching")
@@ -511,9 +501,9 @@ def build_parser():
     p.add_argument("--warmup", type=int, default=None, metavar="RES",
                    help="one warm-up call at this resolution before serving")
     p.add_argument("--compilation_cache_dir", type=str, default=None,
-                   help="accepted for launch-script compatibility; the port compiles its "
-                        "kernels with nvcc into the package's _build directory and has no "
-                        "XLA cache")
+                   help="build and load the kernel libraries (nvcc's lib<name>-<hash>.so, "
+                        "keyed by their sources) here instead of the package's _build "
+                        "directories")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu' (the plain "
                         "PyTorch paths)")
@@ -529,6 +519,9 @@ def make_server(args, pipe) -> BatchingPipelineServer:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    from reflecting_reality_tpu_torch.core.jit_cache import enable_compilation_cache
+
+    enable_compilation_cache(args.compilation_cache_dir)
     pipe = build_pipeline(args)
     server = make_server(args, pipe)
     if args.warmup:

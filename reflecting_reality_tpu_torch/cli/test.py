@@ -31,8 +31,11 @@ the card count.  Under torchrun (`torchrun --nproc_per_node N -m
 reflecting_reality_tpu_torch.cli.test ...`) each process joins the group,
 takes `cuda:LOCAL_RANK` and its contiguous share of the rows
 (`split_between_processes`), and `--data_parallel` then splits over that
-one card.  `--attention_backend xla` raises NotImplementedError naming
-performance follow-up 5 (the port routes attention by device and shape).
+one card.  `--attention_backend xla` puts every attention of the UNet,
+BrushNet and VAE on the plain einsum-softmax path (`ops.attention.
+set_attention_backend` on each module; the default `flash` sends the long
+self-attentions to kernel B1 on the card).  `--compilation_cache_dir`
+builds and loads the kernel libraries there (`core/jit_cache.py`).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import numpy as np
 import torch
 
 from reflecting_reality_tpu_torch.core.device import resolve_device
+from reflecting_reality_tpu_torch.core.jit_cache import enable_compilation_cache
 from reflecting_reality_tpu_torch.data.synmirror import (
     MIRROR_PROMPT,
     apply_transforms_depth,
@@ -52,12 +56,11 @@ from reflecting_reality_tpu_torch.data.synmirror import (
     extract_data_from_hdf5,
     normals_to_uint8,
 )
+from reflecting_reality_tpu_torch.ops.attention import set_attention_backend
 from reflecting_reality_tpu_torch.parallel import multihost
 from reflecting_reality_tpu_torch.parallel.mesh import make_mesh, split_between_processes
 
 logger = logging.getLogger(__name__)
-
-ROADMAP = "ROADMAP.md"
 
 
 # -- predicted-geometry readers (reference test_brushnet.py:22-56) -----------
@@ -108,20 +111,6 @@ def get_blended_image(gt_image, gen_image, mask):
     blended = Image.blend(gt_image, gen_image, alpha=0.5)
     blended.paste(gen_image, (0, 0), mask)
     return blended
-
-
-def refuse_unported(args) -> None:
-    """Options whose feature the port does not have yet raise, naming the
-    ROADMAP item that ports it."""
-    unported = [
-        (args.attention_backend == "xla",
-         "--attention_backend xla (the port routes attention by device and shape)",
-         "performance follow-up 5"),
-    ]
-    for is_set, what, item in unported:
-        if is_set:
-            raise NotImplementedError(f"{what} is not ported to the PyTorch package yet "
-                                      f"({ROADMAP} {item})")
 
 
 def data_parallel_mesh(args, device: torch.device):
@@ -175,6 +164,8 @@ def run_inference(args, brushnet_path: str, output_dir: str, test_df) -> None:
         dtype=dtype,
         device=device,
     )
+    for m in (pipe.unet, pipe.brushnet, pipe.vae):
+        set_attention_backend(m, args.attention_backend)
     if args.deep_cache:
         pipe.enable_deep_cache(args.deep_cache)
     if args.encoder_reuse:
@@ -364,7 +355,7 @@ def main(argv=None):
 
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    refuse_unported(args)
+    enable_compilation_cache(args.compilation_cache_dir)
     multihost.initialize(device=args.device)
     device = resolve_device(multihost.local_device(args.device))  # fail before reading
     if args.data_parallel:
@@ -447,14 +438,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "sequential per-seed calls)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--compilation_cache_dir", type=str, default=None,
-                   help="accepted for launch-script compatibility; the port compiles its "
-                        "kernels with nvcc into the package's _build directory, keyed by "
-                        "their sources, and has no XLA cache")
+                   help="build and load the kernel libraries (nvcc's lib<name>-<hash>.so, "
+                        "keyed by their sources) here instead of the package's _build "
+                        "directories")
     p.add_argument("--attention_backend", type=str, default="flash",
                    choices=["flash", "xla"],
-                   help="'flash': the port's attention routes by device and shape (kernel "
-                        "B1 for long sequences on the card, the plain path elsewhere). "
-                        "'xla' is not ported: raises (ROADMAP.md performance follow-up 5)")
+                   help="attention: 'flash' (kernel B1 for the long self-attentions on the "
+                        "card; short or wide shapes and the CPU take the plain path) or "
+                        "'xla' (the plain einsum-softmax path everywhere)")
     p.add_argument("--num_samples", type=int, default=None)
     p.add_argument("--train_data_dir", type=str, default="data/blenderproc")
     p.add_argument("--output_dir", type=str, default=None)

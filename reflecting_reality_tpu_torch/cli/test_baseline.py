@@ -9,8 +9,10 @@ UNet, so the baseline's sheets go through the same metrics downstream.
 `--brushnet_path` names the UNet (a `checkpoint-N` folder or its `unet/`);
 with `--all_ckpt` it is the run's root and every `checkpoint-N` is swept
 (`--ckpt_modulo` keeps every N-th step).  Flags of the BrushNet tester that
-the baseline does not read are ignored, as in JAX.  `--device` defaults to
-`cuda` (raising without a card; `cpu` runs the plain PyTorch paths).
+the baseline does not read are ignored, as in JAX (`--attention_backend`
+among them); `--compilation_cache_dir` is read (`core/jit_cache.py`).
+`--device` defaults to `cuda` (raising without a card; `cpu` runs the plain
+PyTorch paths).
 """
 
 from __future__ import annotations
@@ -66,11 +68,13 @@ def main(argv=None):
 
     from reflecting_reality_tpu_torch.cli.test import build_parser
     from reflecting_reality_tpu_torch.core.device import resolve_device
+    from reflecting_reality_tpu_torch.core.jit_cache import enable_compilation_cache
 
     parser = build_parser()
     parser.description = "SD-inpainting baseline inference (PyTorch port)"
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    enable_compilation_cache(args.compilation_cache_dir)
     resolve_device(args.device)     # fail before reading anything
 
     test_df = pd.read_csv(os.path.join(args.train_data_dir, args.csv))

@@ -46,8 +46,10 @@ import numpy as np
 import torch
 
 from reflecting_reality_tpu_torch.core.device import resolve_device
+from reflecting_reality_tpu_torch.core.jit_cache import enable_compilation_cache
 from reflecting_reality_tpu_torch.data.loader import DataLoader, prefetch_to_device
 from reflecting_reality_tpu_torch.data.synmirror import read_rows
+from reflecting_reality_tpu_torch.ops.attention import set_attention_backend
 from reflecting_reality_tpu_torch.parallel import multihost
 from reflecting_reality_tpu_torch.training import checkpoint as ckpt
 from reflecting_reality_tpu_torch.training.profiling import device_memory_stats
@@ -151,12 +153,10 @@ def _dir_gb(path: str) -> float:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    enable_compilation_cache(args.compilation_cache_dir)
     multihost.initialize(device=args.device)
     rank, world = multihost.rank_and_world()
     device = resolve_device(multihost.local_device(args.device))
-    if args.attention_backend == "xla" and device.type == "cuda":
-        raise ValueError("--attention_backend xla: the port routes attention by device and "
-                         "shape (kernel B1 on the card) and has no user-selectable plain path")
     dtype = {"no": torch.float32, "fp16": torch.float32, "bf16": torch.bfloat16}[
         args.mixed_precision]
     transport_dtype = None
@@ -170,6 +170,8 @@ def main(argv=None):
     t_load = time.time()
     logger.info("Loading models from %s ...", args.pretrained_model_name_or_path)
     unet, brushnet, vae, text, tokenizer, normal_proj = load_models(args)
+    for m in (unet, brushnet, vae):     # the training step's and validation's attentions
+        set_attention_backend(m, args.attention_backend)
     logger.info("Models loaded in %.1fs", time.time() - t_load)
 
     rows = read_rows(os.path.join(args.train_data_dir, args.train_csv), args.max_train_samples)
@@ -584,10 +586,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "logging land on the K-step boundaries. The RNG/step stream is "
                         "the same as K=1")
     p.add_argument("--attention_backend", type=str, default="flash", choices=["flash", "xla"],
-                   help="'flash': the port's attention routes by device and shape (kernel "
-                        "B1 for long sequences on the card, the plain path on the CPU). "
-                        "'xla' is refused on the card (there is no user-selectable plain "
-                        "path) and changes nothing on the CPU")
+                   help="attention: 'flash' (kernels B1/B3/B4 for the long "
+                        "self-attentions on the card; short or wide shapes and the CPU take "
+                        "the plain path) or 'xla' (the plain einsum-softmax path everywhere, "
+                        "differentiated by torch autograd)")
     p.add_argument("--serialize_dispatch", type=str, default="auto",
                    choices=["auto", "on", "off"],
                    help="accepted for launch-script compatibility; the port's step waits "
@@ -613,9 +615,9 @@ def build_parser() -> argparse.ArgumentParser:
     # training
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--compilation_cache_dir", type=str, default=None,
-                   help="accepted for launch-script compatibility; the port compiles its "
-                        "kernels with nvcc into the package's _build directory, keyed by "
-                        "their sources, and has no XLA cache")
+                   help="build and load the kernel libraries (nvcc's lib<name>-<hash>.so, "
+                        "keyed by their sources) here instead of the package's _build "
+                        "directories")
     p.add_argument("--resolution", type=int, default=512)
     p.add_argument("--train_batch_size", type=int, default=4)
     p.add_argument("--num_train_epochs", type=int, default=1)

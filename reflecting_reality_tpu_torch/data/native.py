@@ -7,8 +7,10 @@ several loader threads runs in parallel.  Every entry point has a numpy/PIL
 path in `data/synmirror.py` that gives bit-identical results.
 
 Loading: the first call builds `native/transforms.cpp` with g++ into
-`data/_build/` of this package (a directory .gitignore lists), unless a
-library built from the same source is there already, and loads it.
+`data/_build/` of this package (a directory .gitignore lists), or into the
+directory `core.jit_cache.enable_compilation_cache` named
+(`--compilation_cache_dir`), unless a library built from the same source is
+there already, and loads it.
 `RR_DISABLE_NATIVE=1`, a missing g++ or a failed build select the numpy
 path.  Which path was taken is logged once.
 """
@@ -26,10 +28,12 @@ from typing import Optional
 
 import numpy as np
 
+from reflecting_reality_tpu_torch.core import jit_cache
+
 logger = logging.getLogger(__name__)
 
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "transforms.cpp"
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ABI_VERSION = 2
 
 _lib: Optional[ctypes.CDLL] = None
@@ -44,13 +48,13 @@ _f = ctypes.c_float
 
 def library_path() -> Path:
     digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libtransforms-{digest}.so"
+    return (jit_cache.cache_dir() or DEFAULT_BUILD_DIR) / f"libtransforms-{digest}.so"
 
 
 def _build(so_path: Path) -> None:
     """g++ into a temporary name, then an atomic rename, so a concurrent
     builder never leaves a truncated library behind."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so_path.parent.mkdir(parents=True, exist_ok=True)
     tmp = so_path.with_name(f".{so_path.name}.{os.getpid()}.tmp")
     try:
         subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", str(tmp), str(SOURCE)],

@@ -1,8 +1,10 @@
 """Attention for the SD-1.5 UNet and VAE (counterpart of
 `reflecting_reality_tpu/ops/attention.py`).
 
-`dot_product_attention(q, k, v)` takes (B, T, H, D), the JAX layout.  It
-routes by the tensors' device and shape, never by a process global:
+`dot_product_attention(q, k, v, backend=None)` takes (B, T, H, D), the JAX
+layout, and JAX's backend names.  `"xla"` takes the plain path below
+whatever the device and shape.  `None` or `"flash"` routes by the tensors'
+device and shape:
 
 - CUDA tensors whose shape the JAX dispatch rule sends to flash
   (`ops/attention.py:63-64`: Tq >= 2048, Tq == Tk, Tq % 8 == 0) and whose
@@ -16,6 +18,13 @@ routes by the tensors' device and shape, never by a process global:
   included, takes the plain path, the JAX einsum path (:69-72): fp32
   logits and softmax, probabilities cast to q.dtype before P V; torch
   autograd differentiates it.
+
+The backend is chosen per module, never by a process global (the JAX
+package's `set_attention_backend(name)` sets one; a server's threads and
+data-parallel replicas share this process): every `Attention` carries an
+`attention_backend` attribute, "flash" by default, and passes it on both
+its calls, and `set_attention_backend(module, name)` sets it on every
+`Attention` of a module tree.
 
 `Attention` keeps separate to_q/to_k/to_v parameters (diffusers names) and
 concatenates them for one fused qkv (self) or kv (cross) product (:196-214);
@@ -55,11 +64,20 @@ def routes_to_flash(q: torch.Tensor, k: torch.Tensor) -> bool:
     return t >= 2048 and t == k.shape[1] and t % 8 == 0 and d <= _MAX_D and d % 8 == 0
 
 
-def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          backend: Optional[str] = None) -> torch.Tensor:
     """Scaled dot-product attention over (batch, tokens, heads, head_dim)."""
-    if q.is_cuda and routes_to_flash(q, k):
+    if backend != "xla" and q.is_cuda and routes_to_flash(q, k):
         return flash_attention(q, k, v)
     return attention_plain(q, k, v)
+
+
+def set_attention_backend(module: nn.Module, name: str) -> None:
+    """Set the backend ("xla" or "flash") of every `Attention` in `module`."""
+    assert name in ("xla", "flash")
+    for m in module.modules():
+        if isinstance(m, Attention):
+            m.attention_backend = name
 
 
 class Attention(nn.Module):
@@ -81,6 +99,7 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(ctx_dim, inner, bias=qkv_bias)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim), nn.Identity()])
         self.ip_num_tokens, self.ip_scale = ip_num_tokens, ip_scale
+        self.attention_backend = "flash"
         if ip_num_tokens:
             self.to_k_ip = nn.Linear(ctx_dim, inner, bias=False)
             self.to_v_ip = nn.Linear(ctx_dim, inner, bias=False)
@@ -127,12 +146,14 @@ class Attention(nn.Module):
             q,
             k.view(bq, tk, self.heads, self.dim_head),
             v.view(bq, tk, self.heads, self.dim_head),
+            self.attention_backend,
         )
         if ip_context is not None:
             ti = ip_context.shape[1]
             out = out + self.ip_scale * dot_product_attention(
                 q, self.to_k_ip(ip_context).view(bq, ti, self.heads, self.dim_head),
-                self.to_v_ip(ip_context).view(bq, ti, self.heads, self.dim_head))
+                self.to_v_ip(ip_context).view(bq, ti, self.heads, self.dim_head),
+                self.attention_backend)
         out = self.to_out[0](out.reshape(bq, tq, inner))
 
         if spatial:

@@ -1,11 +1,17 @@
 """Build and load the port's CUDA C++ kernels (plain C interface + ctypes).
 
 Each `csrc/<name>.cu` compiles with nvcc for sm_90a into
-`_build/lib<name>-<hash>.so` beside this file (a directory .gitignore lists),
-keyed by a hash of the source, the shared headers (`csrc/*.cuh`) and the
-flags, so a rebuild happens only when one of them changes.  Nothing is built when the module is imported: the first
-`load` (the first kernel launch) builds.  The ptxas report (`-Xptxas -v`:
+`lib<name>-<hash>.so` in `build_dir()`: `_build/` beside this file (a
+directory .gitignore lists) unless `core.jit_cache.enable_compilation_cache`
+(`--compilation_cache_dir`) named another.  Libraries are keyed by a hash of
+the source, the shared headers (`csrc/*.cuh`) and the flags, so a rebuild
+happens only when one of them changes.  Nothing is built when the module is
+imported: the first `load` (the first kernel launch) builds.  The ptxas report (`-Xptxas -v`:
 registers, shared memory, spills) is kept beside each library as `<lib>.log`.
+
+A fake tensor (`torch._subclasses.fake_tensor.FakeTensor`, the memory plan of
+`tools/aot_memory.py`) holds no data: the kernel wrappers give it outputs of
+the right shape and dtype and neither build, launch nor count (`is_fake`).
 """
 
 from __future__ import annotations
@@ -18,9 +24,13 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
+from torch._subclasses.fake_tensor import FakeTensor
+
+from reflecting_reality_tpu_torch.core import jit_cache
+
 KERNEL_DIR = Path(__file__).resolve().parent
 CSRC_DIR = KERNEL_DIR / "csrc"
-BUILD_DIR = KERNEL_DIR / "_build"
+DEFAULT_BUILD_DIR = KERNEL_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,12 +50,22 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
 
 
+def build_dir() -> Path:
+    """Where the libraries are built and loaded from."""
+    return jit_cache.cache_dir() or DEFAULT_BUILD_DIR
+
+
+def is_fake(x) -> bool:
+    """x is a fake tensor: shapes and dtypes, no data (a memory plan)."""
+    return isinstance(x, FakeTensor)
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _build(name: str) -> Path:
@@ -54,7 +74,7 @@ def _build(name: str) -> Path:
     lib = library_path(name)
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

@@ -66,7 +66,9 @@ TFLOP/s.  `bwd_f32_plan` mirrors their `DqF32Cfg` / `DkvF32Cfg`.
 are the wrappers: each checks device, dtype, shape and strides, raises on
 anything its kernel does not take (head dims past 160 among them: no model
 of the port meets one), launches, and counts launches in `.launches` and,
-per (shape, dtype) of q, in `.launches_by_shape`.  `FlashAttention` is the
+per (shape, dtype) of q, in `.launches_by_shape`.  Given fake tensors (the
+memory plan of `tools/aot_memory.py`) they allocate their outputs and
+return them without a launch or a count.  `FlashAttention` is the
 `torch.autograd.Function` over them (the `_flash` custom VJP of the JAX
 package, :281-298): B1 forward saving q, k, v, out and lse; backward the
 delta = rowsum(dO∘O) prologue in plain fp32 PyTorch (XLA in JAX, :231),
@@ -391,7 +393,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tenso
     for name, x in (("q", q), ("k", k), ("v", v)) + tuple(("dO", x) for x in more):
         if x.stride(3) != 1 or x.stride(2) != d:
             raise ValueError(f"{name} needs packed (H, D) dims, got strides {x.stride()}")
-        tma_geometry(tuple(x.shape), x.stride(), x.data_ptr(), x.element_size())
+        tma_geometry(tuple(x.shape), x.stride(), 0 if build.is_fake(x) else x.data_ptr(),
+                     x.element_size())
 
 
 def _check_rows(q: torch.Tensor, *rows: torch.Tensor) -> None:
@@ -422,6 +425,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
     tk = k.shape[1]
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
+    if build.is_fake(q):
+        return out, lse
     err = build.launch(
         _fwd_lib().rr_flash_attn_fwd, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
@@ -439,6 +444,8 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_rows(q, lse, delta)
     b, tq, h, d = q.shape
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    if build.is_fake(q):
+        return dq
     err = build.launch(
         _bwd_lib().rr_flash_attn_bwd_dq, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -468,9 +475,11 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, do, who="flash_attention_bwd_dkv")
     _check_rows(q, lse, delta)
     b, tq, h, d = q.shape
-    lse, delta = _tma_rows(lse), _tma_rows(delta)     # B4 reads them through TMA
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    if build.is_fake(q):
+        return dk, dv
+    lse, delta = _tma_rows(lse), _tma_rows(delta)     # B4 reads them through TMA
     err = build.launch(
         _bwd_lib().rr_flash_attn_bwd_dkv, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),

@@ -34,7 +34,9 @@ the shape alone; the C entry point takes its numbers.
 contiguity, raises on anything the kernel does not take, launches, and
 counts calls that launch (one per norm, whatever the regime) in
 `group_norm_silu_fwd.launches` and, per (shape, dtype, SiLU), in
-`group_norm_silu_fwd.launches_by_shape`.
+`group_norm_silu_fwd.launches_by_shape`.  Given a fake tensor (the memory
+plan of `tools/aot_memory.py`) it allocates its outputs and returns them
+without a launch or a count.
 
 `GroupNormSiLU` is the `torch.autograd.Function` for training: B2 forward,
 and a backward in plain fp32 PyTorch (`group_norm_bwd_plain`, the closed
@@ -166,6 +168,8 @@ def group_norm_silu_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
     y = torch.empty_like(x)
     partials = (torch.empty((args[0], plan.slices, 2), dtype=torch.float32, device=x.device)
                 if plan.regime == "split" else None)
+    if build.is_fake(x):        # a memory plan: the outputs, no launch
+        return y
     lib = _lib()
     ptr = x.data_ptr()
     launch = (ptr, y.data_ptr(), weight.data_ptr(), bias.data_ptr(),

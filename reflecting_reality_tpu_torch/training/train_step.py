@@ -47,6 +47,8 @@ At fp32 the forward and backward run under `core.device.fp32_convolutions`
 The non-finite guard needs the host to see the loss and the gradient norm
 (one synchronisation a step): a NaN/Inf in either leaves the parameters, the
 AdamW moments, the accumulated gradients and the EMA untouched (:370-389).
+On fake tensors (`tools/aot_memory.py` runs this step to plan its memory)
+the host reads see no value: the step takes the finite branch and clips.
 `gradient_accumulation_steps = K` averages K micro-steps and updates on the
 K-th, like `optax.MultiSteps`; the LR schedule counts updates, not
 micro-steps.  `draws=` lets a caller pass the step's random numbers in (the
@@ -75,6 +77,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.checkpoint import checkpoint
 
 from reflecting_reality_tpu_torch.core.device import fp32_convolutions, resolve_device
@@ -273,11 +276,17 @@ def lr_schedule(config: TrainConfig, data_parallel_size: int = 1) -> Callable[[i
 def make_optimizer(config: TrainConfig, params, data_parallel_size: int = 1,
                    ) -> Tuple[torch.optim.AdamW, Callable[[int], float]]:
     """AdamW over `params` and its LR schedule.  torch's AdamW is optax's
-    `adamw`: decoupled decay p·(1 − lr·wd) and ε added to sqrt(v̂)."""
+    `adamw`: decoupled decay p·(1 − lr·wd) and ε added to sqrt(v̂).  On
+    CUDA parameters the multi-tensor (foreach) update, PyTorch's default
+    there, is asked for by name: a fake tensor's type hides it from that
+    default, and the memory plan (`tools/aot_memory.py`) must run the
+    update, and its whole-list temporaries, that the card runs."""
+    params = list(params)
     schedule = lr_schedule(config, data_parallel_size)
     optimizer = torch.optim.AdamW(
         params, lr=schedule(0), betas=(config.adam_beta1, config.adam_beta2),
         eps=config.adam_epsilon, weight_decay=config.adam_weight_decay,
+        foreach=True if params and all(p.device.type == "cuda" for p in params) else None,
     )
     return optimizer, schedule
 
@@ -347,6 +356,13 @@ def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
+def _host_float(x: torch.Tensor, planned: float) -> float:
+    """x's value on the host.  A fake tensor (the memory plan of
+    `tools/aot_memory.py`) has none and gives `planned`: a plan takes the
+    finite branch, clipping included."""
+    return planned if isinstance(x, FakeTensor) else x.item()
+
+
 def gradients_and_loss(params: List[nn.Parameter], loss: torch.Tensor
                        ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """After `loss.backward()`: the parameters' gradients (zeros where none
@@ -377,7 +393,7 @@ def apply_update(state: TrainState, grads: List[torch.Tensor], config: TrainConf
         update = state.micro_step == k
         grads = state.grad_acc
     if update:
-        norm = _global_norm(grads).item()
+        norm = _host_float(_global_norm(grads), config.max_grad_norm)
         if norm >= config.max_grad_norm:   # optax: g / ‖g‖ · max_norm
             torch._foreach_div_(grads, norm)
             torch._foreach_mul_(grads, config.max_grad_norm)
@@ -394,6 +410,15 @@ def apply_update(state: TrainState, grads: List[torch.Tensor], config: TrainConf
         for name, module in state.trainable.items():
             ema_update(state.ema[name], dict(module.named_parameters()), state.step,
                        config.ema_decay)
+
+
+def _move(module: nn.Module, device: torch.device) -> None:
+    """module.to(device) unless every tensor of it is there already (the
+    memory plan's fake tensors are made on the device and cannot be moved
+    in place)."""
+    if not all(t.device.type == device.type and device.index in (None, t.device.index)
+               for t in (*module.parameters(), *module.buffers())):
+        module.to(device)
 
 
 def make_train_step(unet: nn.Module, brushnet: nn.Module, vae: nn.Module,
@@ -432,7 +457,7 @@ def make_train_step(unet: nn.Module, brushnet: nn.Module, vae: nn.Module,
         from reflecting_reality_tpu_torch.models.ip_adapter import ip_parameters
 
         for m in (unet, brushnet, vae, text_encoder) + ((normal_proj,) if ip_mode else ()):
-            m.to(device)
+            _move(m, device)
         trainable = {"brushnet": brushnet}
         frozen = {"vae": vae, "text": text_encoder}
         # ip mode: the UNet is trainable so its to_k_ip/to_v_ip train
@@ -504,7 +529,7 @@ def make_train_step(unet: nn.Module, brushnet: nn.Module, vae: nn.Module,
             loss.backward()
         grads, loss = gradients_and_loss(state.params, loss)
         grad_norm = _global_norm(grads)
-        finite = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
+        finite = bool(_host_float(torch.isfinite(loss) & torch.isfinite(grad_norm), 1.0))
         if finite:
             apply_update(state, grads, config, schedule_fn)
         for p in state.params:

@@ -257,6 +257,37 @@ def test_modes_give_the_same_training(env, tmp_path, precision):
             assert torch.equal(w[k], ref_w[k]), (name, k)
 
 
+def test_attention_backend_xla_trains_the_plain_path(env, tmp_path, monkeypatch):
+    """`--attention_backend xla` (refused on the card before it was ported)
+    reaches every attention of the UNet, BrushNet and VAE the step trains,
+    and on the CPU, where both backends take the plain path (JAX's einsum
+    path, the one tests/test_torch_training.py holds the step against),
+    gives the default run's losses and weights bit for bit."""
+    from reflecting_reality_tpu_torch.ops.attention import Attention
+
+    _, _, cache = env
+    seen = []
+    real = train.make_train_step
+
+    def recording(unet, brushnet, vae, *a, **kw):
+        seen.append({m.attention_backend for mod in (unet, brushnet, vae)
+                     for m in mod.modules() if isinstance(m, Attention)})
+        return real(unet, brushnet, vae, *a, **kw)
+
+    monkeypatch.setattr(train, "make_train_step", recording)
+    got = {}
+    for backend in ("flash", "xla"):
+        out = str(tmp_path / backend)
+        train.main(_argv(env, out, "--train_batch_size", "2", "--max_train_steps", "2",
+                         "--checkpointing_steps", "100", "--precomputed_latents_dir", cache,
+                         "--attention_backend", backend, "--device", "cpu"))
+        got[backend] = (_losses(out), _brushnet(out, 2))
+    assert seen == [{"flash"}, {"xla"}]
+    assert got["xla"][0] == got["flash"][0] and sorted(got["xla"][0]) == [1, 2]
+    for k, w in got["flash"][1].items():
+        assert torch.equal(got["xla"][1][k], w), k
+
+
 def test_nonfinite_loss_saves_and_aborts(tmp_path):
     import h5py
 

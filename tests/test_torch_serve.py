@@ -5,7 +5,8 @@ held against the JAX package's on the same payloads, and the micro-batching
 server (batched equals solo within 1 uint8 level, seeds per request, nip >
 1, incompatible requests split, the batch window, a concurrent round trip,
 a worker that survives a failing batch, 503 backpressure, the `dispatch`
-payload), the normals ip_adapter payload, and the options still to port.
+payload), the normals ip_adapter payload, and `--attention_backend xla`
+against the JAX server's pipeline.
 Every HTTP call has a client timeout and every server stops in a `finally`."""
 
 import base64
@@ -432,10 +433,49 @@ def _argv(*extra):
             "--device", "cpu", *extra]
 
 
-@pytest.mark.parametrize("extra,item", [(("--attention_backend", "xla"), "follow-up 5")])
-def test_unported_options_raise(extra, item):
-    with pytest.raises(NotImplementedError, match=item):
-        serve.main(_argv(*extra))
+def test_attention_backend_xla_matches_jax(tmp_path):
+    """`--attention_backend xla` (refused before it was ported) reaches
+    every attention of the pipeline `build_pipeline` makes, and a request
+    through it gives the JAX server's pipeline under the JAX "xla" backend
+    on the same folder and payload (initial noise from the payload's seed
+    with numpy, the VAE encode at its mode): fp32, within 1 uint8 level."""
+    import jax.numpy as jnp
+
+    from reflecting_reality_tpu.ops import attention as j_attention
+    from reflecting_reality_tpu_torch.core.io import load_pretrained, save_pretrained
+    from reflecting_reality_tpu_torch.ops.attention import Attention
+    from tests.test_torch_cli import write_tiny_base
+
+    base = write_tiny_base(str(tmp_path / "base"))
+    unet = load_pretrained(UNet2DConditionModel, base, subfolder="unet")
+    torch.manual_seed(0)
+    brushnet = BrushNetModel.from_unet(unet, conditioning_channels=6)
+    with torch.no_grad():
+        for p in brushnet.parameters():
+            if not p.abs().max() > 0:
+                p.normal_(0.0, 0.05)
+    save_pretrained(brushnet, str(tmp_path / "bn"))
+    argv = ["--base_model_path", base, "--brushnet_path", str(tmp_path / "bn"),
+            "--depth_conditioning_mode", "concat", "--weight_dtype", "fp32",
+            "--attention_backend", "xla"]
+    pipe = serve.build_pipeline(serve.build_parser().parse_args(argv + ["--device", "cpu"]))
+    attns = [m for mod in (pipe.unet, pipe.brushnet, pipe.vae) for m in mod.modules()
+             if isinstance(m, Attention)]
+    assert attns and {m.attention_backend for m in attns} == {"xla"}
+    before = j_attention.get_attention_backend()
+    j_attention.set_attention_backend("xla")      # what JAX's serve.main does with the flag
+    try:
+        jpipe = j_serve.build_pipeline(j_serve.build_parser().parse_args(argv))
+        payload = _distinct_payload(0)
+        noise = np.random.RandomState(0).standard_normal((1, H // 8, W // 8, 4)).astype(
+            np.float32)
+        got = pipe(**_parse_payload(payload, pipe, 2), latents=noise)[0]
+        want = np.asarray(jpipe(**j_serve._parse_payload(payload, jpipe, 2),
+                                latents=jnp.asarray(noise)))[0]
+    finally:
+        j_attention.set_attention_backend(before)
+    assert got.shape == want.shape == (H, W, 3) and got.std() > 0
+    assert np.abs(got.astype(np.int16) - want.astype(np.int16)).max() <= 1
 
 
 def test_data_parallel_pads_the_bucket(tmp_path, monkeypatch):

@@ -10,8 +10,8 @@ equal.  Row selection (`--num_samples`, `--infer_list`, `--all_ckpt
 Everything here moves data without arithmetic, so every comparison is
 exact.  Then the port's own journey on the tiny checkpoint: train two
 steps, sweep the checkpoints, EMA weights, batched seeds, a restart that
-writes nothing, the approximate and ip_adapter modes, and the options still
-to port."""
+writes nothing, the approximate and ip_adapter modes, and
+`--attention_backend xla` against the JAX CLI's."""
 
 import io
 import os
@@ -296,11 +296,58 @@ def test_ip_adapter_mode_runs(trained, tmp_path):
     assert pipe.unet.ip_scale == 0.5
 
 
-@pytest.mark.parametrize("extra,item", [(("--attention_backend", "xla"), "follow-up 5")])
-def test_unported_options_raise(trained, extra, item):
+@pytest.fixture()
+def restore_jax_attention_backend():
+    """JAX's `main` sets its package's process-global attention backend."""
+    from reflecting_reality_tpu.ops.attention import get_attention_backend, set_attention_backend
+
+    before = get_attention_backend()
+    yield
+    set_attention_backend(before)
+
+
+def _pinned_noise(monkeypatch, cls, to_array):
+    """Each call of `cls` (a pipeline) starts from numpy noise drawn from its
+    seed and encodes with the VAE's mode: torch's and JAX's RNGs differ."""
+    real = cls.__call__
+
+    def call(self, *a, seed=0, num_images_per_prompt=1, **kw):
+        noise = np.random.RandomState(seed).standard_normal(
+            (num_images_per_prompt, SIZE // 8, SIZE // 8, 4)).astype(np.float32)
+        return real(self, *a, seed=seed, num_images_per_prompt=num_images_per_prompt,
+                    latents=to_array(noise), deterministic_vae_encode=True, **kw)
+
+    monkeypatch.setattr(cls, "__call__", call)
+
+
+def test_attention_backend_xla_matches_jax(trained, tmp_path, monkeypatch,
+                                           restore_jax_attention_backend):
+    """`--attention_backend xla` (refused before it was ported) runs, and its
+    sheets are the JAX CLI's under `--attention_backend xla` on the same
+    checkpoint, row and seeds (initial noise and VAE encode pinned on both
+    sides): fp32 on both, within 1 uint8 level, the tolerance of
+    tests/test_torch_pipeline.py (a value on a rounding boundary)."""
+    import jax.numpy as jnp
+
+    from reflecting_reality_tpu.pipelines.brushnet_pipeline import (
+        StableDiffusionBrushNetPipeline as JPipeline,
+    )
+
+    _pinned_noise(monkeypatch, StableDiffusionBrushNetPipeline, lambda x: x)
+    _pinned_noise(monkeypatch, JPipeline, jnp.asarray)
     _, _, out = trained
-    with pytest.raises(NotImplementedError, match=item):
-        t_test.main(_infer_argv(trained, "--brushnet_path", out, *extra))
+    port_argv = _infer_argv(trained)            # ends with the port's --device cpu
+    common = ["--brushnet_path", os.path.join(out, "checkpoint-2"),
+              "--attention_backend", "xla", "--num_samples", "1"]
+    sheets = {n: str(tmp_path / n) for n in ("port", "jax")}
+    t_test.main([*port_argv, *common, "--output_dir", sheets["port"]])
+    j_test.main([*port_argv[:-2], *common, "--output_dir", sheets["jax"]])
+    files = sorted(os.listdir(sheets["port"]))
+    assert files == sorted(os.listdir(sheets["jax"])) and len(files) == 1
+    a, b = (np.asarray(Image.open(os.path.join(sheets[n], files[0]))).astype(int)
+            for n in ("port", "jax"))
+    assert a.shape == (2 * SIZE, SIZE, 3) and a.std() > 0
+    assert np.abs(a - b).max() <= 1
 
 
 def test_data_parallel_writes_the_batched_seeds_sheets(trained, tmp_path, monkeypatch):
