@@ -9,6 +9,8 @@
     python3 chip_smoke.py --sdxl      (phases 2 and 22 alone, B1 at SDXL's shapes)
     python3 chip_smoke.py --backend-memory-cache   (phases 2 and 23-25 alone)
     python3 chip_smoke.py --cache-child DIR [--no-nvcc]   (a process of phase 25)
+    python3 chip_smoke.py --train-cli-modes TMP OUT_JSON   (a process of phase 9)
+    python3 chip_smoke.py --cpu-references DIR   (the reference process, below)
 
 The second form times the main path (phases 2 and 5 below) of another
 checkout (e.g. the parent commit unpacked with `git archive`) and of this
@@ -57,9 +59,11 @@ Phases, each printing one JSON line:
              `flash_attention_bwd_plain` on B1's own out and lse, and two
              launches of each on the same inputs must be bit-identical; their
              library time is SDPA's backward.
-  4. slice   full-width SD-1.5 UNet + BrushNet(conditioning_channels=6), one
-             denoise step's forward at 64x64 latents, batch 2, fp32 with TF32
-             off: the card (kernels) against the CPU (plain versions).
+  4. slice   SD-1.5 UNet + BrushNet(conditioning_channels=6) at the
+             published widths and PARITY_DEPTH (one resnet a level, so that
+             the CPU's side takes about half the time), one denoise step's
+             forward at 64x64 latents, batch 2, fp32 with TF32 off: the card
+             (kernels; B1 3 launches) against the CPU (plain versions).
   5. main    StableDiffusionBrushNetPipeline at full SD-1.5 width in bf16:
              512x512, CFG 7.5, UniPC, depth concat; a warm run, then timed
              4- and 8-step runs in turns, MAIN_REPEATS of each (medians;
@@ -69,12 +73,13 @@ Phases, each printing one JSON line:
              step must take the single-pass (cluster) regime.
   6. profile one traced 4-step call: device busy time, idle share, device
              time by kind of kernel and the top kernels (torch.profiler).
-  7. train_parity  full-width UNet + BrushNet (`from_unet`, seeded zero
-             convs), fp32 with TF32 off, 64x64 latents, batch 1: one loss and
+  7. train_parity  UNet + BrushNet (`from_unet`, seeded zero convs) at the
+             published widths and PARITY_DEPTH, fp32 with TF32 off, 64x64
+             latents, batch 1: one loss and
              backward on the card (through the kernels' autograd Functions)
              against the CPU (plain paths) on the same draws: the loss and
              four BrushNet gradients, each with its tolerance; B1/B3/B4 must
-             launch 5/5/5 times and GroupNorm at least once.
+             launch 3/3/3 times and GroupNorm at least once.
   8. train_main  the training step (`make_train_step`) at full width: bf16
              autocast, frozen UNet/VAE/CLIP stored in bf16, fp32 BrushNet
              master weights, 512² batch 4, depth concat, AdamW lr 5e-6 without
@@ -91,7 +96,9 @@ Phases, each printing one JSON line:
              16-sample 512² latent-moments cache and its train.csv; 8 steps
              (bf16, batch 4, depth concat, checkpoints every 4, total limit
              1), a resume to step 10, 4 steps with --device_cache and 4 with
-             --steps_per_dispatch 2 and --async_save; then
+             --steps_per_dispatch 2 and --async_save (these two in a process
+             of their own, `--train-cli-modes`, beside the resume and the
+             checks after it: their s/step are not speed figures); then
              `StableDiffusionBrushNetPipeline.from_pretrained` on
              checkpoint-8 with the safetensors package blocked and a 4-step
              512² call.  Checks: finite losses, BrushNet moved, frozen modules
@@ -128,22 +135,23 @@ Phases, each printing one JSON line:
              Checks: finite losses, BrushNet moved, B1/B3/B4 each launched 5
              times a step at (4, 4096, 8, 40) fp32.  Prints s/step (median of
              steps 2-6), samples/s, peak memory and the launches.
-     fp32_conv_cost  C4's cost, TF32 at its default, in turns in one
-             process: the fp32 pipeline step (512², one image) and the fp32
-             training step (full width, batch 4) with full-fp32 cuDNN
-             convolutions, as the port runs them, against one TF32 pass.
+     fp32_conv_cost  C4's cost, TF32 at its default, in turns
+             (FP32_COST_REPEATS, 2) in one process: the fp32 pipeline step
+             (512², one image) and the fp32 training step (full width, batch
+             4) with full-fp32 cuDNN convolutions, as the port runs them,
+             against one TF32 pass.
  13. ip_adapter  the normals ip_adapter mode at full width, 512²: the
              pipeline (depth concat + the mean normal's token; IP UNet and
              NormalProjModel from a seed) in bf16, CFG 7.5, UniPC, 4- and
-             8-step calls in turns (IP_REPEATS each; s/step, s/image, peak
+             8-step calls in turns (IP_REPEATS, 2, each; s/step, s/image, peak
              memory, B1 40 launches in 8 steps), another normal must change
-             the image, one fp32 step card vs CPU; then the training CLI in
-             ip mode at its default fp32 from the base folder and a latent
-             cache with normals: batch 4, IP_TRAIN_STEPS steps with a
-             checkpoint at the end (unet/ and ip_adapter/normal_proj), a
-             resume to +2.  Checks: every non-IP UNet weight bit-identical
-             to the base folder, every to_k_ip/to_v_ip moved, B1/B3/B4 5/5/5
-             a step at (4, 4096, 8, 40) fp32, finite losses.
+             the image, one fp32 step card vs CPU at PARITY_DEPTH (B1 3
+             launches); then the training CLI in ip mode at its default fp32
+             from the base folder and a latent cache with normals: batch 4,
+             IP_TRAIN_STEPS steps with a checkpoint at the end (unet/ and
+             ip_adapter/normal_proj), a resume to +2.  Checks: every non-IP UNet weight
+             bit-identical to the base folder, every to_k_ip/to_v_ip moved,
+             B1/B3/B4 5/5/5 a step at (4, 4096, 8, 40) fp32, finite losses.
  14. serve   `cli/serve.py` as started by a user (its parser and
              `build_pipeline` on the base folder and checkpoint-8's
              BrushNet, bf16, `--max_batch 4`, `warmup` at 512²) behind its
@@ -159,9 +167,10 @@ Phases, each printing one JSON line:
              CLI's default, 512² batch 4, depth concat, AdamW lr 5e-6): a
              warm step and BASELINE_STEPS timed ones (median s/step, peak
              memory, B1/B3/B4 5/5/5 a step at (4, 4096, 8, 40) fp32, conv_in
-             moved), one step at batch 1 card vs CPU on the same draws (the
-             loss at 1e-4, the first AdamW moment of four leaves at 1e-3 of
-             each one's largest element), `save_pretrained` to
+             moved), one step at batch 1 card vs CPU on the same draws, UNet
+             and VAE at PARITY_DEPTH (the loss at 1e-4, the first AdamW
+             moment of four leaves at 1e-3 of each one's largest element;
+             B1/B3/B4 3/3/3), `save_pretrained` to
              checkpoint-N/unet, then `cli.test_baseline.main --image_mode` on
              it at its default fp32: 2 rows, 4 seeds, 4 steps, 1024x1024
              sheets, B1 160 launches.  (The card has no h5py, so the
@@ -170,10 +179,12 @@ Phases, each printing one JSON line:
  16. modes   a full-width 512² bf16 pipeline call, 4 steps, depth `latents`
              + normals `concat` (BrushNet with 12 conditioning channels):
              a finite, non-constant uint8 image, B1 20 launches; then fp32
-             depth `concat` + normals `latents`, one denoise step, TF32 off,
-             the card against the CPU at slice parity's tolerance (the
-             normals drawn from their own seed).
- 17. approx  the main path (bf16, 512², 4 and 8 steps in turns) exact, with
+             depth `concat` + normals `latents` at PARITY_DEPTH, one denoise
+             step, TF32 off, the card against the CPU at slice parity's
+             tolerance (the normals drawn from their own seed; B1 3
+             launches).
+ 17. approx  the main path (bf16, 512², 4 and 8 steps in turns, APPROX_REPEATS,
+             3, each) exact, with
              DeepCache every 3 steps and with encoder reuse every 3 steps in
              one process: s/step and s/image of each beside the exact
              path's, each 8-step image's mean and max uint8 difference from
@@ -183,7 +194,7 @@ Phases, each printing one JSON line:
              mean difference, the tiled decode's launches.
  18. int8    W8A8 int8 (`enable_int8()`, the default policy) at full width,
              bf16, 512²: the main path exact, then quantized in place, 4-
-             and 8-step calls in turns (INT8_REPEATS each): s/step, s/image,
+             and 8-step calls in turns (INT8_REPEATS, 2, each): s/step, s/image,
              peak memory, the quantized-module counts (256 UNet, 92
              BrushNet: JAX's selection), the 8-step image's mean and max
              uint8 difference from the exact one, B1 40 launches, the int8
@@ -191,8 +202,8 @@ Phases, each printing one JSON line:
              every int8 GEMM shape the 8-step call launched, `int8_mm` held
              exactly against an fp64 product on the card and timed beside
              the whole int8 layer and the bf16 conv or linear it replaces;
-             one fp32 int8 denoise step card vs CPU, held to the int8
-             mode's own error (within twice the CPU's int8-vs-exact
+             one fp32 int8 denoise step card vs CPU at PARITY_DEPTH, held to
+             the int8 mode's own error (within twice the CPU's int8-vs-exact
              difference, max and mean: a code flip on one side cascades),
              and the exact fp32 step beside it at 1e-3; then (C5) one
              `Int8Conv2d` (3x3, input (2, 640, 64, 64)) and one fused-qkv
@@ -210,7 +221,8 @@ Phases, each printing one JSON line:
              1e-3 of its largest, the ranks identical, B1/B3/B4 5/5/5 a
              rank step at (2, 4096, 8, 40) fp32; a second, timed step (its
              seconds include gloo staging through the host: not a scaling
-             figure).  The children load the libraries phase 2 built.  Then
+             figure).  The ranks and the one-process reference run side by
+             side.  The children load the libraries phase 2 built.  Then
              the training CLI as torchrun starts one process (NCCL,
              WORLD_SIZE=1) at fp32, batch 4: DDP_CLI_STEPS steps with a
              checkpoint from rank 0, a resume to DDP_CLI_RESUME_TO; its
@@ -235,14 +247,16 @@ Phases, each printing one JSON line:
              cross dim 2048, text_time; BrushNet `config_from_unet` with 6
              conditioning channels; CLIP-L and bigG; the SD VAE) from
              seeded weights made on the card, bf16, 1024², CFG 7.5, UniPC,
-             depth concat: 4- and 8-step calls in turns (SDXL_REPEATS each;
+             depth concat: 4- and 8-step calls in turns (SDXL_REPEATS, 2, each;
              s/step, s/image, peak memory, B1 and B2 launches by shape a
              denoise step, B1 exactly 10 a step at (2, 4096, 10, 64)), a
              traced 4-step call (idle share); one fp32 denoise step and
              decode card vs CPU at 1e-3 of the output's max under C4's
-             rule (the transformer depth cut to 1/1/1 and 2-layer text
-             encoders, SDXL_PARITY_*, so the CPU's side stays near a
-             minute; B1 5 launches at (2, 4096, 10, 64) fp32); B1's
+             rule (the transformer depth cut to 1/1/1, one resnet a level in
+             the UNet, BrushNet and VAE, 2-layer text encoders,
+             SDXL_PARITY_*; B1 3 launches at (2, 4096, 10, 64) fp32; phase
+             3 measures SDXL_FULL_DEPTH_NORM, the B2 shape only two resnets
+             a level give); B1's
              head-dim-64 instances without spills; and the 60
              self-attentions a step at 1024 tokens, which JAX's T >= 2048
              rule sends to the plain path, timed there against B1
@@ -251,9 +265,9 @@ Phases, each printing one JSON line:
  23. attention_backend  `--attention_backend xla` against the default
              `flash`: one fp32 pipeline step (TF32 off) at 1e-3 of the
              output's max; the 512² bf16 pipeline (4- and 8-step calls,
-             BACKEND_REPEATS each) and the bf16 training step at batch 4
-             (BACKEND_TRAIN_STEPS timed), the backends in turns: s/step,
-             peak memory, a traced 4-step call each (device busy time, idle
+             BACKEND_REPEATS, 2, each) and the bf16 training step at batch 4
+             (BACKEND_TRAIN_STEPS, 2, timed), the backends in turns: s/step,
+             peak memory, a traced 2-step call each (device busy time, idle
              share), launches (B1/B3/B4 none under xla), the 8-step images'
              uint8 difference; `cli.test.main --attention_backend xla` on
              checkpoint-8 (2 rows, 2 steps, no B1 launch).
@@ -262,17 +276,35 @@ Phases, each printing one JSON line:
              plans and real runs (two steps, `max_memory_allocated`) of the
              other AOT_RECIPES, in processes started together, then the
              largest batch per card the plan fits for the AOT_SEARCH recipes
-             and its real run: every measured peak within 10% of its plan,
-             or 1 GiB.
+             (a line through the plans at the largest batch found before and
+             the next, which are then the search's check when that holds;
+             every plan started at once at a lower priority than the CLI,
+             each recipe planned once) and its
+             real run, in the process that measured the others: every
+             measured peak within 10% of its plan,
+             or 1 GiB.  Seconds of each stage in `stages_s`.
  25. compilation_cache  a fresh process builds the libraries into a new
              directory through the test CLI's `--compilation_cache_dir`; a
              second loads them with nvcc forbidden (under 1 s); B1 and B2
-             from them against their plain versions.
+             from them against their plain versions.  Phases 24 and 25 run
+             side by side: 25 in a thread during 24's first plans and
+             measurements, waited for before 24's largest batches.
 C4: train_parity and every `card_vs_cpu_one_step` run the card again with
 TF32 at PyTorch's default, bare (`tf32_default`: cuDNN convolutions in one
 TF32 pass, what the fp32 paths ran before C4's repair) and as the port runs
 its fp32 paths (`tf32_default_fp32_convolutions`), each error beside the
 TF32-off check's tolerance; the second must meet it (int8: printed only).
+The CPU sides of the fp32 steps of ip_adapter, baseline, modes, int8 and
+sdxl come from the reference process (`--cpu-references DIR`, started
+first): it makes each step's modules on the card from the phase's seed
+during phase 2 (phase 3 waits for it to leave the card), keeps their
+fingerprint (each phase checks its own against it) and computes the steps
+on the CPU at the lowest priority, off two cores.  It is stopped (SIGSTOP)
+through the phases whose speed PERF.md quotes (main, profile, train_main,
+train_cli, test_cli, train_cli_fp32, serve, ddp's NCCL CLI, data_parallel,
+sdxl), through phase 3's timings and through the CPU sides that slice and
+train_parity compute themselves, but for any wait of a phase for its
+file; it ends before phase 24.
 Then `kernels_late` (any kernel shape a path launched that phase 3 did not
 list, measured and checked against its plain version now), `kernels_detail`
 (every measured kernel and shape with the launches each path gave that
@@ -286,7 +318,10 @@ int8 pipeline's 8-step call, rank 0's ddp step, the one-rank NCCL CLI run,
 the data-parallel 8-step call, test CLI run and served requests, the
 sharded decodes, SDXL's bf16 8-step call and fp32 step, and the attention
 backends' 8-step calls, training steps and xla test CLI run, 0 where none;
-the run fails if a path launched a shape with no entry), the
+the run fails if a path launched a shape with no entry), `phase_seconds`
+(each phase's `phase_wall_s` by the name on its line, and `run_s`, the
+seconds since the script started; phases 24 and 25 overlap, so their sum
+exceeds the run), the
 `{"kernels": [...]}` summary line (the kernels and shapes the paths
 launched), the run's seconds, the nvidia-smi name/power-limit line, and
 last `{"ok": true, "device": {...}}`.  Any failed check raises and
@@ -306,6 +341,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -326,10 +362,32 @@ PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core bf16
               "int8": 1979e12,      # dense tensor-core int8 (TOP/s)
               "float32": 67e12}     # fp32 outside the tensor cores
 TF32_PASSES = 3                     # an fp32-accurate product on TF32 (hi·lo + lo·hi + hi·hi)
+# the fp32 card-vs-CPU steps of slice, train_parity, ip_adapter, baseline,
+# modes and int8 (and SDXL's VAE): the published widths with one resnet a
+# level in the UNet, BrushNet and VAE, so that the CPU's side takes about
+# half the time; B1 and B2 still launch at the full-depth paths' shapes
+PARITY_DEPTH = dict(layers_per_block=1)
+
+
+def b1_launches_per_unet_forward(layers_per_block: int = 2) -> int:
+    """An SD-1.5 UNet forward's 4096-token self-attentions at 512² (down
+    block 0's `layers_per_block`, up block 3's one more): B1's launches."""
+    return 2 * layers_per_block + 1
+
+
+PHASE_SECONDS = {}                  # {phase: its phase_wall_s}, for the phase_seconds line
 
 
 def emit(obj) -> None:
+    if "phase_wall_s" in obj:
+        PHASE_SECONDS[obj["phase"]] = obj["phase_wall_s"]
     print(json.dumps(obj), flush=True)
+
+
+def emit_phase_seconds() -> None:
+    """One line of every phase's wall seconds so far, and the run's."""
+    emit({"phase": "phase_seconds", "seconds": PHASE_SECONDS,
+          "run_s": time.perf_counter() - T_START})
 
 
 def nvidia_smi() -> str:
@@ -495,19 +553,28 @@ def phase_build(torch):
     from reflecting_reality_tpu_torch.ops.kernels import build
     from reflecting_reality_tpu_torch.ops.kernels import flash_attention as fa
 
+    t_phase = time.perf_counter()
     names = LIBRARIES
     built_now = {n: not build.library_path(n).exists() for n in names}
     t_nvcc = build_libraries()
     ptxas, warnings, sass, f32_sass = {}, {}, {}, {}
     tool = cuobjdump()
+
+    def disassemble(n):
+        return subprocess.run([tool, "-sass", str(build.library_path(n))], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(names)) as pool:      # one cuobjdump a library, together
+        sass_text = dict(zip(names, pool.map(disassemble, names)))
     for n in names:
         lib = build.library_path(n)
         log = lib.with_suffix(".log")
         text = log.read_text() if log.exists() else ""
         ptxas[n] = ptxas_kernels(text)
         warnings[n] = [ln.strip() for ln in text.splitlines() if "C75" in ln]
-        text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                              timeout=300, check=True).stdout
+        text = sass_text[n]
         sass[n] = {op: sum(ln.count(op) for ln in text.splitlines()) for op in SASS_COUNTS}
         if n != "groupnorm":   # the fp32 instances of B1, B3 and B4, each on its own
             f32_sass.update(sass_by_function(text, "_tf32"))
@@ -528,7 +595,8 @@ def phase_build(torch):
           "bwd_plan": {d: {k: list(v) for k, v in p.items()} for d, p in lib_plans.items()},
           "bwd_f32_plan": {d: {k: list(v) for k, v in p.items()}
                            for d, p in lib_bwd_f32_plans.items()},
-          "fwd_f32_plan": {d: list(p) for d, p in lib_f32_plans.items()}})
+          "fwd_f32_plan": {d: list(p) for d, p in lib_f32_plans.items()},
+          "phase_wall_s": time.perf_counter() - t_phase})
     missing = {n: op for n, ops in SASS_WANT.items() for op in ops if sass[n][op] == 0}
     missing.update({fn: op for fn, counts in f32_sass.items() for op, c in counts.items()
                     if c == 0})
@@ -830,6 +898,7 @@ def kernel_entries(torch, kern: str, key: tuple) -> list:
 
 
 def phase_kernels(torch):
+    t_phase = time.perf_counter()
     keys = [("flash", (shape, dt)) for shape, dt in FLASH_SHAPES]
     keys += [("flash_bwd", (shape, dt)) for shape, dt in FLASH_BWD_SHAPES]
     gn_cases = {(shape, dt, silu) for shape in GN_SHAPES for dt in ("bfloat16", "float32")
@@ -845,9 +914,11 @@ def phase_kernels(torch):
     gn_cases |= {(shape, "float32", silu) for shape, silu in step_norms + vae_norms}
     gn_cases |= {((shape[0] * k,) + shape[1:], "float32", silu)
                  for shape, silu in step_norms for k in range(1, TRAIN_BATCH + 1)}
+    gn_cases.add(SDXL_FULL_DEPTH_NORM)
     keys += [("groupnorm", case) for case in sorted(gn_cases, key=str)]
     entries = [e for kern, key in keys for e in kernel_entries(torch, kern, key)]
-    emit({"phase": "kernels", "checked": len(entries), "all_within_tolerance": True})
+    emit({"phase": "kernels", "checked": len(entries), "all_within_tolerance": True,
+          "phase_wall_s": time.perf_counter() - t_phase})
     return entries
 
 
@@ -895,13 +966,14 @@ def phase_slice(torch):
     from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
     from reflecting_reality_tpu_torch.ops.embeddings import precompute_time_embeddings
 
+    t_phase = time.perf_counter()
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(SEED)
     with torch.device("cuda"):
-        unet = UNet2DConditionModel().eval()
-        brushnet = BrushNetModel(conditioning_channels=6).eval()
+        unet = UNet2DConditionModel(**PARITY_DEPTH).eval()
+        brushnet = BrushNetModel(conditioning_channels=6, **PARITY_DEPTH).eval()
     fill_zero_convs(torch, brushnet, SEED, 0.02)
     g = torch.Generator("cuda").manual_seed(SEED + 1)
     lat = torch.randn(1, 4, 64, 64, generator=g, device="cuda")
@@ -935,12 +1007,13 @@ def phase_slice(torch):
     tol = 1e-3 * scale
     res = {"phase": "slice_parity", "max_abs_err": err, "max_abs_tol": tol,
            "output_max_abs": scale, "finite": bool(torch.isfinite(gpu).all()),
-           "launches": launched, "gpu_forward_s": round(t_gpu, 3),
-           "cpu_forward_s": round(t_cpu, 3)}
+           "depth": PARITY_DEPTH, "launches": launched, "gpu_forward_s": round(t_gpu, 3),
+           "cpu_forward_s": round(t_cpu, 3), "phase_wall_s": time.perf_counter() - t_phase}
     emit(res)
     if not (res["finite"] and err <= tol):
         raise AssertionError(f"slice parity failed: {res}")
-    if launched["flash"] != 5 or launched["groupnorm"] == 0:
+    if launched["flash"] != b1_launches_per_unet_forward(**PARITY_DEPTH) \
+            or launched["groupnorm"] == 0:
         raise AssertionError(f"slice forward did not run through the kernels: {launched}")
     del unet, brushnet, unet_c, bn_c
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
@@ -959,6 +1032,7 @@ def phase_main(torch, gpu_line: str):
         StableDiffusionBrushNetPipeline,
     )
 
+    t_phase = time.perf_counter()
     torch.manual_seed(SEED)
     with torch.device("cuda"):
         unet = UNet2DConditionModel()
@@ -1025,7 +1099,8 @@ def phase_main(torch, gpu_line: str):
           "launches_by_shape_8_steps": [
               {"kernel": kern, "key": list(key), "launches": n,
                "per_step": (n - by_shape[4].get((kern, key), 0)) / 4}
-              for (kern, key), n in sorted(by_shape[8].items(), key=str)]})
+              for (kern, key), n in sorted(by_shape[8].items(), key=str)],
+          "phase_wall_s": time.perf_counter() - t_phase})
     phase_profile(torch, pipe, kw)
     return by_shape, per_step
 
@@ -1076,8 +1151,10 @@ def trace(torch, fn, top: int = 12) -> dict:
 
 def phase_profile(torch, pipe, kw, steps: int = 4) -> None:
     """One traced 4-step pipeline call."""
+    t_phase = time.perf_counter()
     res = trace(torch, lambda: pipe(**kw, num_inference_steps=steps, output_type="np"))
-    emit({"phase": "profile", "steps": steps, **res})
+    emit({"phase": "profile", "steps": steps, **res,
+          "phase_wall_s": time.perf_counter() - t_phase})
 
 
 # ---------------------------------------------------------------- phase 7/8
@@ -1103,12 +1180,13 @@ def phase_train_parity(torch):
         TrainConfig, denoise, diffusion_loss,
     )
 
+    t_phase = time.perf_counter()
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(SEED)
     with torch.device("cuda"):
-        unet = UNet2DConditionModel().requires_grad_(False)
+        unet = UNet2DConditionModel(**PARITY_DEPTH).requires_grad_(False)
     brushnet = BrushNetModel.from_unet(unet, conditioning_channels=6)
     fill_zero_convs(torch, brushnet, SEED, 0.02)
     config = TrainConfig()
@@ -1147,8 +1225,9 @@ def phase_train_parity(torch):
     # largest element (the forward alone agreed to ~4e-6 of its scale)
     res = {"phase": "train_parity", "loss": card_loss, "cpu_loss": cpu_loss,
            "loss_rel_err": abs(card_loss - cpu_loss) / abs(cpu_loss), "loss_rel_tol": 1e-4,
-           "launches": launched, "card_loss_backward_s": round(t_card, 3),
-           "cpu_loss_backward_s": round(t_cpu, 3), "grads": {}}
+           "depth": PARITY_DEPTH, "launches": launched,
+           "card_loss_backward_s": round(t_card, 3), "cpu_loss_backward_s": round(t_cpu, 3),
+           "grads": {}}
     for n in names:
         scale = cpu[n].abs().max().item()
         res["grads"][n] = {"max_abs_err": (card[n] - cpu[n]).abs().max().item(),
@@ -1169,6 +1248,7 @@ def phase_train_parity(torch):
             {n: ((d_grads[n] - cpu[n]).abs().max().item(), res["grads"][n]["max_abs_tol"])
              for n in names})
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    res["phase_wall_s"] = time.perf_counter() - t_phase
     emit(res)
     if not res["tf32_default_fp32_convolutions"]["meets_tolerance"]:
         raise AssertionError(f"train parity with TF32 at its default failed: {res}")
@@ -1176,9 +1256,11 @@ def phase_train_parity(torch):
            if not (r["finite"] and r["max_abs"] > 0 and r["max_abs_err"] <= r["max_abs_tol"])]
     if bad or not res["loss_rel_err"] <= res["loss_rel_tol"]:
         raise AssertionError(f"train parity failed ({bad}): {res}")
-    if (launched["flash"], launched["flash_bwd_dq"], launched["flash_bwd_dkv"]) != (5, 5, 5) \
+    b1 = b1_launches_per_unet_forward(**PARITY_DEPTH)
+    if (launched["flash"], launched["flash_bwd_dq"], launched["flash_bwd_dkv"]) != (b1, b1, b1) \
             or launched["groupnorm"] == 0:
-        raise AssertionError(f"train parity did not run through the kernels: {launched}")
+        raise AssertionError(f"train parity did not run through the kernels: {launched} "
+                             f"(want {b1} each)")
     del unet, brushnet, unet_c, bn_c
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     torch.cuda.empty_cache()
@@ -1194,6 +1276,7 @@ def phase_train_main(torch, gpu_line: str) -> dict:
     from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
     from reflecting_reality_tpu_torch.training import TrainConfig, make_train_step
 
+    t_phase = time.perf_counter()
     torch.manual_seed(SEED)
     with torch.device("cuda"):
         unet = UNet2DConditionModel()
@@ -1278,7 +1361,7 @@ def phase_train_main(torch, gpu_line: str) -> dict:
           "losses": losses, "last_grad_norm": float(m["grad_norm"]),
           "brushnet_max_abs_change": moved, "frozen_bit_identical": frozen_same,
           "gradient_checkpointing_step": ckpt, "gradient_checkpointing_dots_step": dots,
-          "trace": traced})
+          "trace": traced, "phase_wall_s": time.perf_counter() - t_phase})
     if not all(v > 0 for v in moved.values()) or not all(frozen_same.values()):
         raise AssertionError(f"train step moved {moved}, frozen unchanged {frozen_same}")
     want = {"flash": 5, "flash_bwd_dq": 5, "flash_bwd_dkv": 5}
@@ -1373,6 +1456,49 @@ def read_metrics(out: str) -> list:
         return [json.loads(line) for line in f]
 
 
+def train_cli_argv(tmp: str, out: str, *extra) -> list:
+    """The training CLI's arguments on train_cli's base folder and latent
+    cache in `tmp` (bf16, batch TRAIN_BATCH, depth concat)."""
+    return ["--pretrained_model_name_or_path", os.path.join(tmp, "base"),
+            "--train_data_dir", os.path.join(tmp, "data"),
+            "--output_dir", out, "--logging_dir", os.path.join(out, "logs"),
+            "--mixed_precision", "bf16", "--train_batch_size", str(TRAIN_BATCH),
+            "--depth_conditioning_mode", "concat", "--learning_rate", "5e-6",
+            "--lr_warmup_steps", "0", "--precomputed_latents_dir", os.path.join(tmp, "cache"),
+            "--dataloader_num_workers", "4", "--log_every", "1",
+            "--validation_steps", "0", "--report_to", "none", "--seed", "0", *extra]
+
+
+# the train_cli phase's runs in the CLI's other modes, 4 steps each
+TRAIN_CLI_MODES = (("device_cache", ("--device_cache",)),
+                   ("steps_per_dispatch_2", ("--steps_per_dispatch", "2", "--async_save",
+                                             "--checkpointing_steps", "2",
+                                             "--checkpoints_total_limit", "1")))
+
+
+def train_cli_modes(tmp: str, out_json: str) -> None:
+    """`--train-cli-modes TMP OUT_JSON` (a process of the train_cli phase):
+    the TRAIN_CLI_MODES runs one after the other -> OUT_JSON {mode: wall
+    seconds, launches, steps, metrics}."""
+    import torch
+
+    from reflecting_reality_tpu_torch.cli import train as cli
+
+    runs = {}
+    for name, extra in TRAIN_CLI_MODES:
+        out = os.path.join(tmp, name)
+        reset_counters()
+        t0 = time.perf_counter()
+        cli.main(train_cli_argv(tmp, out, "--max_train_steps", "4", *extra))
+        torch.cuda.synchronize()
+        runs[name] = {"wall_s": time.perf_counter() - t0, "launches": read_counters(),
+                      "steps": 4, "metrics": read_metrics(out)}
+        shutil.rmtree(out)
+        torch.cuda.empty_cache()
+    with open(out_json, "w") as f:
+        json.dump(runs, f)
+
+
 def phase_train_cli(torch, gpu_line: str, train_main_s_step: float, tmp: str) -> dict:
     """The training CLI end to end at full width on the card, in `tmp` ->
     {(kernel, key): launches} over its first run's 8 steps.  It leaves the
@@ -1399,14 +1525,7 @@ def phase_train_cli(torch, gpu_line: str, train_main_s_step: float, tmp: str) ->
     write_latent_cache(data, cache, CLI_SAMPLES)
     setup_s = time.perf_counter() - t0
 
-    def argv(out, *extra):
-        return ["--pretrained_model_name_or_path", base, "--train_data_dir", data,
-                "--output_dir", out, "--logging_dir", os.path.join(out, "logs"),
-                "--mixed_precision", "bf16", "--train_batch_size", str(TRAIN_BATCH),
-                "--depth_conditioning_mode", "concat", "--learning_rate", "5e-6",
-                "--lr_warmup_steps", "0", "--precomputed_latents_dir", cache,
-                "--dataloader_num_workers", "4", "--log_every", "1",
-                "--validation_steps", "0", "--report_to", "none", "--seed", "0", *extra]
+    argv = functools.partial(train_cli_argv, tmp)
 
     # instrumentation: the initial BrushNet, the first host batch, the
     # first batch the step sees, and the state right after a resume
@@ -1476,6 +1595,16 @@ def phase_train_cli(torch, gpu_line: str, train_main_s_step: float, tmp: str) ->
         torch.cuda.empty_cache()
         listing_a = sorted(os.listdir(out_a))
 
+        # the other modes' runs in a process of their own, beside the resume
+        # and the checks below: they share the card, so their s/step are
+        # not speed figures
+        modes_json, modes_log = (os.path.join(tmp, f"train_cli_modes.{x}") for x in ("json",
+                                                                                     "log"))
+        with open(modes_log, "w") as log:
+            modes = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                      "--train-cli-modes", tmp, modes_json],
+                                     stdout=log, stderr=subprocess.STDOUT)
+
         reset_counters()
         t0 = time.perf_counter()
         cli.main(argv(out_a, "--max_train_steps", "10", "--checkpointing_steps", "4",
@@ -1486,20 +1615,6 @@ def phase_train_cli(torch, gpu_line: str, train_main_s_step: float, tmp: str) ->
                           "launches": read_counters(), "steps": 2}
         shutil.rmtree(os.path.join(out_a, "checkpoint-10"))     # 7.4 GB not needed
         torch.cuda.empty_cache()
-        for name, extra in (("device_cache", ("--device_cache",)),
-                            ("steps_per_dispatch_2", ("--steps_per_dispatch", "2",
-                                                      "--async_save",
-                                                      "--checkpointing_steps", "2",
-                                                      "--checkpoints_total_limit", "1"))):
-            out = os.path.join(tmp, name)
-            reset_counters()
-            t0 = time.perf_counter()
-            cli.main(argv(out, "--max_train_steps", "4", *extra))
-            torch.cuda.synchronize()
-            runs[name] = {"wall_s": time.perf_counter() - t0, "launches": read_counters(),
-                          "steps": 4, "metrics": read_metrics(out)}
-            shutil.rmtree(out)
-            torch.cuda.empty_cache()
 
     # the checkpoint read back through the port's reader, then the
     # pipeline loading it with the safetensors package blocked
@@ -1525,6 +1640,11 @@ def phase_train_cli(torch, gpu_line: str, train_main_s_step: float, tmp: str) ->
     image_u8 = pipe(**kw, output_type="np")
     del pipe
     torch.cuda.empty_cache()
+    if modes.wait(timeout=900) != 0:
+        with open(modes_log) as log:
+            raise RuntimeError(f"the train_cli modes' process failed:\n{log.read()[-3000:]}")
+    with open(modes_json) as f:
+        runs.update(json.load(f))
 
     # the upload alone: the first host batch packed as the loader packs
     # it, copied back-to-back from its pinned buffer on an idle card
@@ -2003,17 +2123,14 @@ def phase_modes(torch, gpu_line: str) -> dict:
     """The pipeline's other conditioning modes at full width, 512²: bf16
     depth `latents` + normals `concat` (BrushNet with 12 conditioning
     channels), 4 steps; then fp32 depth `concat` + normals `latents`, one
-    denoise step (slice_parity's depth), the card against the CPU
-    -> {path: {(kernel, key): launches}}."""
-    import numpy as np
-
+    denoise step (PARITY_DEPTH), the card against the CPU -> {path:
+    {(kernel, key): launches}}."""
     from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
         StableDiffusionBrushNetPipeline,
     )
 
     t_phase = time.perf_counter()
-    kw = pipeline_inputs(SEED + 5)
-    kw["normals"] = np.random.RandomState(SEED + 6).rand(CLI_PX, CLI_PX, 3).astype(np.float32)
+    kw = modes_inputs()
     mods = full_width_modules(torch, "latents", "concat")
     channels = mods["brushnet"].conditioning_channels
     pipe = StableDiffusionBrushNetPipeline(**mods, dtype=torch.bfloat16, device="cuda")
@@ -2028,10 +2145,10 @@ def phase_modes(torch, gpu_line: str) -> dict:
     del pipe, mods
     torch.cuda.empty_cache()
 
-    mods = full_width_modules(torch, "concat", "latents")
-    p = {"depth": "concat", "normals": "latents",
+    cls, mods, kw = parity_case(torch, "modes")
+    p = {"depth": "concat", "normals": "latents", "unet_depth": PARITY_DEPTH,
          "conditioning_channels": mods["brushnet"].conditioning_channels,
-         **card_vs_cpu_one_step(torch, mods, kw)}
+         **card_vs_cpu_one_step(torch, mods, kw, cls, reference="modes")}
     by_shape = bf16.pop("by_shape")
     res = {"phase": "modes", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}", "bf16": bf16,
            "fp32_parity": p, "phase_wall_s": time.perf_counter() - t_phase}
@@ -2044,9 +2161,10 @@ def phase_modes(torch, gpu_line: str) -> dict:
         bad.append(f"bf16 image {bf16}")
     if bf16["launches"]["flash"] != 20 or bf16["launches"]["groupnorm"] == 0:
         bad.append(f"bf16 launches {bf16['launches']}")
+    b1 = b1_launches_per_unet_forward(**PARITY_DEPTH)
     if not (p["finite"] and p["max_abs_err"] <= p["max_abs_tol"]) \
-            or p["launches"]["flash"] != 5 or p["launches"]["groupnorm"] == 0:
-        bad.append(f"fp32 parity {p}")
+            or p["launches"]["flash"] != b1 or p["launches"]["groupnorm"] == 0:
+        bad.append(f"fp32 parity {p} (B1: want {b1})")
     if bad:
         raise AssertionError(f"modes failed: {bad}")
     return {"modes_bf16_4_steps": by_shape}
@@ -2054,18 +2172,21 @@ def phase_modes(torch, gpu_line: str) -> dict:
 
 # ------------------------------------------------- phases 14-16 (PR 9 paths)
 
-IP_REPEATS = 3                      # timed 4- and 8-step calls of each count
+IP_REPEATS = 2                      # timed 4- and 8-step calls of each count
+APPROX_REPEATS = 3                  # timed 4- and 8-step calls of each approximate mode
 IP_TRAIN_STEPS = 4                  # the ip training CLI's first run (checkpoint at its end)
 SERVE_REQUESTS = 8                  # concurrent requests of the serve phase
 SERVE_MAX_BATCH = 4
 SERVE_STEPS = 8
 
 
-def full_width_modules(torch, depth_mode: str = "concat", normals_mode=None) -> dict:
+def full_width_modules(torch, depth_mode: str = "concat", normals_mode=None,
+                       depth: dict = None) -> dict:
     """Seeded full-width SD-1.5 modules for the pipeline in these
     conditioning modes (BrushNet's zero convs given small values); normals
     `ip_adapter` gives an IP-Adapter UNet (to_k_ip/to_v_ip copied from
-    to_k/to_v) and a NormalProjModel."""
+    to_k/to_v) and a NormalProjModel; `depth` (PARITY_DEPTH) cuts the
+    UNet's, BrushNet's and VAE's depth."""
     from reflecting_reality_tpu_torch.cli.train import conditioning_channels_for
     from reflecting_reality_tpu_torch.data.tokenizer import HashTokenizer
     from reflecting_reality_tpu_torch.models import ip_adapter
@@ -2077,10 +2198,12 @@ def full_width_modules(torch, depth_mode: str = "concat", normals_mode=None) -> 
     ip = normals_mode == "ip_adapter"
     torch.manual_seed(SEED)
     with torch.device("cuda"):
-        unet = UNet2DConditionModel(ip_num_tokens=ip_adapter.DEFAULT_NUM_TOKENS if ip else None)
-        mods = dict(unet=unet, vae=AutoencoderKL(), text_encoder=CLIPTextModel(),
+        depth = depth or {}
+        unet = UNet2DConditionModel(ip_num_tokens=ip_adapter.DEFAULT_NUM_TOKENS if ip else None,
+                                    **depth)
+        mods = dict(unet=unet, vae=AutoencoderKL(**depth), text_encoder=CLIPTextModel(),
                     brushnet=BrushNetModel(conditioning_channels=conditioning_channels_for(
-                        depth_mode, normals_mode)))
+                        depth_mode, normals_mode), **depth))
         if ip:
             ip_adapter.init_ip_params_from_unet(unet)
             mods["normal_proj"] = ip_adapter.NormalProjModel(768)
@@ -2101,6 +2224,18 @@ def pipeline_inputs(seed: int, normal=None) -> dict:
               scheduler="unipc", seed=SEED)
     if normal is not None:
         kw["normals"] = np.asarray(normal, np.float32).reshape(1, 3)
+    return kw
+
+
+IP_NORMAL = [0.0, 0.6, 0.8]          # the ip_adapter phase's normal
+
+
+def modes_inputs() -> dict:
+    """The modes phase's inputs: normals drawn from their own seed."""
+    import numpy as np
+
+    kw = pipeline_inputs(SEED + 5)
+    kw["normals"] = np.random.RandomState(SEED + 6).rand(CLI_PX, CLI_PX, 3).astype(np.float32)
     return kw
 
 
@@ -2157,15 +2292,38 @@ def timed_variants(torch, pipe, kw, repeats: int, variants: dict) -> dict:
     return res
 
 
+def fp32_step_inputs(kw: dict) -> dict:
+    """A pipeline's inputs `kw` as the fp32 card-vs-CPU steps take them:
+    one denoise step, deterministic encode, latents from a seed."""
+    import numpy as np
+
+    h, w = kw["image"].shape[:2]
+    return dict(kw, num_inference_steps=1, output_type="latent", deterministic_vae_encode=True,
+                latents=np.random.RandomState(SEED + 6).standard_normal(
+                    (1, h // 8, w // 8, 4)).astype(np.float32))
+
+
+def fingerprint(torch, mods: dict) -> float:
+    """The fp64 sum of every parameter of the modules in `mods`, on the
+    device they are on: a phase and the reference process hold the same
+    weights when theirs agree."""
+    with torch.no_grad():
+        return sum(float(sum(p.double().sum() for p in mods[k].parameters()))
+                   for k in sorted(mods) if isinstance(mods[k], torch.nn.Module))
+
+
 def card_vs_cpu_one_step(torch, mods, kw, pipeline_cls=None, keep: bool = False,
-                         exact: bool = True, by_shape: dict = None):
+                         exact: bool = True, by_shape: dict = None, reference: str = None):
     """One fp32 denoise step (TF32 off, deterministic encode, given latents)
     of a pipeline on `mods` (`pipeline_cls`, by default the BrushNet
     pipeline), the card against the CPU's plain paths -> the comparison
     (and, with `keep`, the card's and the CPU's images after it).  `exact`
     holds the C4 run to the tolerance (int8 is held to its own error by
     its phase); `by_shape`, when given, receives the card call's launches
-    by shape."""
+    by shape.  `reference` names the step in CPU_REFERENCES: in a full run
+    the reference process has computed its CPU side from the same seeded
+    modules and inputs (their fingerprints must agree); otherwise the CPU
+    side runs here."""
     import numpy as np
 
     from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
@@ -2173,16 +2331,16 @@ def card_vs_cpu_one_step(torch, mods, kw, pipeline_cls=None, keep: bool = False,
     )
 
     pipeline_cls = pipeline_cls or StableDiffusionBrushNetPipeline
-    h, w = kw["image"].shape[:2]
-
+    fp32 = fp32_step_inputs(kw)
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cpu_mods = {k: copy.deepcopy(v).cpu() if isinstance(v, torch.nn.Module) else v
-                for k, v in mods.items()}
-    fp32 = dict(kw, num_inference_steps=1, output_type="latent", deterministic_vae_encode=True,
-                latents=np.random.RandomState(SEED + 6).standard_normal(
-                    (1, h // 8, w // 8, 4)).astype(np.float32))
+    elsewhere = reference is not None and REFERENCES is not None
+    if elsewhere:
+        weights = fingerprint(torch, mods)
+    else:
+        cpu_mods = {k: copy.deepcopy(v).cpu() if isinstance(v, torch.nn.Module) else v
+                    for k, v in mods.items()}
     try:
         reset_counters()
         t0 = time.perf_counter()
@@ -2192,9 +2350,10 @@ def card_vs_cpu_one_step(torch, mods, kw, pipeline_cls=None, keep: bool = False,
         launched = read_counters()
         if by_shape is not None:
             by_shape.update(read_counters_by_shape())
-        t0 = time.perf_counter()
-        cpu = pipeline_cls(**cpu_mods, device="cpu")(**fp32)
-        t_cpu = time.perf_counter() - t0
+        if not elsewhere:
+            t0 = time.perf_counter()
+            cpu = pipeline_cls(**cpu_mods, device="cpu")(**fp32)
+            t_cpu = time.perf_counter() - t0
         # C4: the card step again with TF32 at PyTorch's default, bare
         # (`generate`: cuDNN convolutions in one TF32 pass, what an fp32
         # call ran before C4's repair) and as a call runs it (full-fp32
@@ -2204,11 +2363,17 @@ def card_vs_cpu_one_step(torch, mods, kw, pipeline_cls=None, keep: bool = False,
         card_default = card_pipe(**fp32)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    if elsewhere:
+        ref = REFERENCES.get(reference)
+        if not math.isclose(ref["fingerprint"], weights, rel_tol=1e-12):
+            raise AssertionError(f"{reference}: the reference process's weights differ "
+                                 f"({ref['fingerprint']} against {weights})")
+        cpu, t_cpu = ref["cpu"], ref["cpu_s"]
     scale = float(np.abs(cpu).max())
     err = float(np.abs(card - cpu).max())
     res = {"steps": 1, "max_abs_err": err, "max_abs_tol": 1e-3 * scale, "output_max_abs": scale,
            "finite": bool(np.isfinite(card).all()), "launches": launched, "card_s": t_card,
-           "cpu_s": t_cpu,
+           "cpu_s": t_cpu, "cpu_side": "reference process" if elsewhere else "here",
            "tf32_default": tf32_default_report(
                0.0, 0.0, {"output": (float(np.abs(card_bare - cpu).max()), 1e-3 * scale)}),
            "tf32_default_fp32_convolutions": tf32_default_report(
@@ -2216,6 +2381,170 @@ def card_vs_cpu_one_step(torch, mods, kw, pipeline_cls=None, keep: bool = False,
     if exact and not res["tf32_default_fp32_convolutions"]["meets_tolerance"]:
         raise AssertionError(f"a card call with TF32 at its default misses the CPU: {res}")
     return (res, card, cpu) if keep else res
+
+
+def int8_pipeline_class():
+    """The BrushNet pipeline that quantizes its modules in place as it is
+    made (`enable_int8()`)."""
+    from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
+        StableDiffusionBrushNetPipeline,
+    )
+
+    class Int8Pipeline(StableDiffusionBrushNetPipeline):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.enable_int8()
+
+    return Int8Pipeline
+
+
+def parity_case(torch, name: str, tok_dir: str = None) -> tuple:
+    """(pipeline class, seeded modules made on the card at the cut depth,
+    inputs) of the fp32 card-vs-CPU step of phase `name` (ip_adapter,
+    modes, int8 or sdxl; sdxl's tokenizer in `tok_dir`), as the phase and
+    the reference process both make them."""
+    from reflecting_reality_tpu_torch.pipelines import StableDiffusionXLBrushNetPipeline
+    from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
+        StableDiffusionBrushNetPipeline,
+    )
+
+    if name == "sdxl":
+        return (StableDiffusionXLBrushNetPipeline,
+                sdxl_modules(torch, tok_dir, SDXL_PARITY_DEPTH, SDXL_PARITY_TEXT_LAYERS,
+                             PARITY_DEPTH), sdxl_inputs(SEED))
+    modes, kw = {"ip_adapter": (("concat", "ip_adapter"), pipeline_inputs(SEED + 7, IP_NORMAL)),
+                 "modes": (("concat", "latents"), modes_inputs()),
+                 "int8": (("concat", None), pipeline_inputs(SEED))}[name]
+    return StableDiffusionBrushNetPipeline, full_width_modules(torch, *modes, PARITY_DEPTH), kw
+
+
+# the CPU sides that the reference process computes, in the order the phases
+# read them: each phase's fp32 step but slice's and train_parity's, which
+# come before it has any, and int8's two (exact, then quantized)
+CPU_REFERENCES = ("ip_adapter", "baseline", "modes", "int8_exact", "int8", "sdxl")
+REFERENCES = None                   # the full run's `CpuReferences`; None: CPU sides run in place
+
+
+def references_paused():
+    """A stretch whose speed PERF.md quotes: the reference process, if
+    there is one, stops through it."""
+    return REFERENCES.paused() if REFERENCES is not None else contextlib.nullcontext()
+
+
+class CpuReferences:
+    """The reference process (`--cpu-references DIR`): the CPU sides of the
+    fp32 card-vs-CPU steps in CPU_REFERENCES, computed from the same seeded
+    modules and inputs as their phases make, one file each in DIR as it
+    finishes.  It runs beside this process at the lowest priority and off
+    two of its cores, and is stopped where this process times what PERF.md
+    quotes (`paused`, `references_paused`).  A phase that reads a file not
+    written yet lets it run until it is; `cpu_s` in a step's line is the
+    process's wall seconds for that side, stops included."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_refs_")
+        self.log = open(os.path.join(self.dir, "log.txt"), "w")
+        self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                      "--cpu-references", self.dir],
+                                     stdout=self.log, stderr=subprocess.STDOUT)
+        self.stopped = False
+
+    def tail(self) -> str:
+        self.log.flush()
+        with open(self.log.name) as f:
+            return f.read()[-3000:]
+
+    def send(self, sig) -> None:
+        if self.proc.poll() is None:
+            self.proc.send_signal(sig)
+
+    @contextlib.contextmanager
+    def paused(self):
+        self.stopped = True
+        self.send(signal.SIGSTOP)
+        try:
+            yield
+        finally:
+            self.stopped = False
+            self.send(signal.SIGCONT)
+
+    def get(self, name: str):
+        """What the process wrote as `name`, once it has."""
+        import torch
+
+        path = os.path.join(self.dir, name + ".pt")
+        if not os.path.exists(path):
+            self.send(signal.SIGCONT)
+            while not os.path.exists(path):
+                if self.proc.poll() is not None:
+                    raise RuntimeError(f"the reference process ended ({self.proc.returncode}) "
+                                       f"before {name}:\n{self.tail()}")
+                time.sleep(0.2)
+            if self.stopped:
+                self.send(signal.SIGSTOP)
+        return torch.load(path, weights_only=False)
+
+    def close(self, join: bool) -> None:
+        """With `join`, wait for the process to end (it has written every
+        file by then) and raise if it failed; otherwise kill it.  Either way
+        remove its directory."""
+        self.send(signal.SIGCONT)
+        try:
+            if join and self.proc.wait(timeout=300) != 0:
+                raise RuntimeError(f"the reference process failed ({self.proc.returncode}):\n"
+                                   f"{self.tail()}")
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self.log.close()
+            shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def cpu_references(out_dir: str) -> None:
+    """`--cpu-references`: the reference process.  It makes every case's
+    modules on the card as its phase does, keeps their fingerprints and
+    moves them to the CPU (written as "modules_on_cpu", which the run waits
+    for before it times anything), then computes each CPU side in the order
+    of CPU_REFERENCES into OUT_DIR/<name>.pt, with a thread for each core
+    it may use (main sets its priority and cores)."""
+    import torch
+
+    from reflecting_reality_tpu_torch.tools.make_synthetic_fullscale import (
+        write_byte_tokenizer,
+    )
+
+    torch.set_num_threads(len(os.sched_getaffinity(0)))
+
+    def write(name, obj):
+        torch.save(obj, os.path.join(out_dir, name + ".tmp"))
+        os.replace(os.path.join(out_dir, name + ".tmp"), os.path.join(out_dir, name + ".pt"))
+
+    cases = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sdxl_") as tok_dir:
+        write_byte_tokenizer(tok_dir)
+        for name in ("ip_adapter", "modes", "int8", "sdxl"):
+            cls, mods, kw = parity_case(torch, name, tok_dir)
+            weights = fingerprint(torch, mods)
+            cpu_mods = {k: v.cpu() if isinstance(v, torch.nn.Module) else v
+                        for k, v in mods.items()}
+            cases[name] = (cls, cpu_mods, fp32_step_inputs(kw), weights)
+            del mods
+        torch.cuda.empty_cache()
+        write("modules_on_cpu", {})
+        for name in CPU_REFERENCES:
+            if name == "baseline":
+                write(name, baseline_parity_step(torch, "cpu"))
+                continue
+            t0 = time.perf_counter()
+            cls, mods, fp32, weights = cases[name.removesuffix("_exact")]
+            if name == "int8":
+                cls = int8_pipeline_class()      # quantizes the exact step's modules in place
+            cpu = cls(**mods, device="cpu")(**fp32)
+            write(name, {"cpu": cpu, "fingerprint": weights,
+                         "cpu_s": time.perf_counter() - t0})
+            if name != "int8_exact":
+                del cases[name]
 
 
 def phase_ip_adapter(torch, gpu_line: str, tmp: str) -> dict:
@@ -2232,8 +2561,7 @@ def phase_ip_adapter(torch, gpu_line: str, tmp: str) -> dict:
     )
 
     t_phase = time.perf_counter()
-    normal = [0.0, 0.6, 0.8]
-    kw = pipeline_inputs(SEED + 7, normal)
+    kw = pipeline_inputs(SEED + 7, IP_NORMAL)
     mods = full_width_modules(torch, "concat", "ip_adapter")
     pipe = StableDiffusionBrushNetPipeline(**mods, dtype=torch.bfloat16, device="cuda")
     bf16 = timed_calls(torch, pipe, kw, IP_REPEATS)
@@ -2243,7 +2571,10 @@ def phase_ip_adapter(torch, gpu_line: str, tmp: str) -> dict:
                                                     output_type="np").astype(int)).max())
     del pipe, mods
     torch.cuda.empty_cache()
-    parity = card_vs_cpu_one_step(torch, full_width_modules(torch, "concat", "ip_adapter"), kw)
+    cls, mods, kw32 = parity_case(torch, "ip_adapter")
+    parity = dict(card_vs_cpu_one_step(torch, mods, kw32, cls, reference="ip_adapter"),
+                  depth=PARITY_DEPTH)
+    del mods
     torch.cuda.empty_cache()
 
     data, cache = os.path.join(tmp, "data_ip"), os.path.join(tmp, "cache_ip")
@@ -2324,9 +2655,10 @@ def phase_ip_adapter(torch, gpu_line: str, tmp: str) -> dict:
         bad.append(f"pipeline launches {bf16['launches_8_steps']}")
     if not token_moves > 0:
         bad.append("another normal gave the same image")
+    b1 = b1_launches_per_unet_forward(**PARITY_DEPTH)
     if not (parity["finite"] and parity["max_abs_err"] <= parity["max_abs_tol"]) \
-            or parity["launches"]["flash"] != 5 or parity["launches"]["groupnorm"] == 0:
-        bad.append(f"fp32 parity {parity}")
+            or parity["launches"]["flash"] != b1 or parity["launches"]["groupnorm"] == 0:
+        bad.append(f"fp32 parity {parity} (B1: want {b1})")
     t = res["train_cli_fp32"]
     if not all(math.isfinite(x) for x in t["losses"]) or len(t["losses"]) != IP_TRAIN_STEPS + 2:
         bad.append(f"losses {t['losses']}")
@@ -2365,7 +2697,7 @@ def phase_approx(torch, gpu_line: str) -> dict:
         pipe.disable_encoder_reuse()
         if name != "exact":
             getattr(pipe, f"enable_{name}")(3)
-        modes[name] = timed_calls(torch, pipe, kw, MAIN_REPEATS)
+        modes[name] = timed_calls(torch, pipe, kw, APPROX_REPEATS)
     pipe.disable_deep_cache()
     pipe.disable_encoder_reuse()
     exact = modes["exact"]["image_8"].astype(np.int16)
@@ -2567,7 +2899,7 @@ def phase_serve(torch, gpu_line: str, tmp: str, int8: bool = False, exact=None):
 
 # ------------------------------------------------------------------ int8
 
-INT8_REPEATS = 3                    # timed 4- and 8-step calls of each mode
+INT8_REPEATS = 2                    # timed 4- and 8-step calls of each mode
 INT8_WANT = {"unet": 256, "brushnet": 92}   # modules JAX's default policy selects
 
 
@@ -2697,8 +3029,8 @@ def phase_int8(torch, gpu_line: str) -> dict:
     `enable_int8()` in one process (s/step, s/image, peak memory, the
     quantized-module counts, the images' difference), every int8 GEMM shape
     the int8 path launched against fp64 and beside the bf16 op it replaces,
-    and one fp32 int8 denoise step card vs CPU -> {path: {(kernel, key):
-    launches}}."""
+    and one fp32 int8 denoise step card vs CPU (PARITY_DEPTH) -> {path:
+    {(kernel, key): launches}}."""
     import numpy as np
 
     from reflecting_reality_tpu_torch.ops import quant
@@ -2753,15 +3085,11 @@ def phase_int8(torch, gpu_line: str) -> dict:
     # CPU exact, in max and in mean (the exact step itself at 1e-3, as the
     # other phases hold it); a wrong layout, scale or bias would stand far
     # outside that.
-    class Int8Pipeline(StableDiffusionBrushNetPipeline):
-        def __init__(self, *a, **k):
-            super().__init__(*a, **k)
-            self.enable_int8()
-
-    mods = full_width_modules(torch)
-    exact1, card_e, cpu_e = card_vs_cpu_one_step(torch, mods, kw, keep=True)
-    parity, card_q, cpu_q = card_vs_cpu_one_step(torch, mods, kw, pipeline_cls=Int8Pipeline,
-                                                 keep=True, exact=False)
+    cls, mods, kw = parity_case(torch, "int8")
+    exact1, card_e, cpu_e = card_vs_cpu_one_step(torch, mods, kw, cls, keep=True,
+                                                 reference="int8_exact")
+    parity, card_q, cpu_q = card_vs_cpu_one_step(      # quantizes mods in place
+        torch, mods, kw, int8_pipeline_class(), keep=True, exact=False, reference="int8")
     # the card's own sensitivity: the same int8 step on latents moved by 1e-6
     # of themselves (TF32 off, as in the comparison)
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -2774,6 +3102,10 @@ def phase_int8(torch, gpu_line: str) -> dict:
                    deterministic_vae_encode=True, latents=lat * np.float32(1 + 1e-6)))
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del mods
+    torch.cuda.empty_cache()
+    # C5: whole int8 layers card vs CPU on the same input
+    res["layers_card_vs_cpu"] = int8_layers_card_vs_cpu(torch)
     noise = np.abs(cpu_q - cpu_e)
     err = np.abs(card_q - cpu_q)
     parity.update(max_abs_tol=2 * float(noise.max()), mean_abs_err=float(err.mean()),
@@ -2782,14 +3114,17 @@ def phase_int8(torch, gpu_line: str) -> dict:
                   cpu_int8_vs_exact_mean=float(noise.mean()),
                   card_int8_vs_input_moved_1e6_max=float(np.abs(moved - card_q).max()),
                   exact_step_max_abs_err=exact1["max_abs_err"],
-                  exact_step_max_abs_tol=exact1["max_abs_tol"])
+                  exact_step_max_abs_tol=exact1["max_abs_tol"], depth=PARITY_DEPTH)
     res["fp32_step_card_vs_cpu"] = parity
-    del mods, card_e, cpu_e, card_q, cpu_q, moved
-    torch.cuda.empty_cache()
-    # C5: whole int8 layers card vs CPU on the same input
-    res["layers_card_vs_cpu"] = int8_layers_card_vs_cpu(torch)
     res["phase_wall_s"] = time.perf_counter() - t_phase
     emit(res)
+    int8_checks(res, q, parity)
+    return {"int8_inference_8_steps": q["by_shape_8"]}
+
+
+def int8_checks(res: dict, q: dict, parity: dict) -> None:
+    """The int8 phase's checks on its line `res`, the int8 path's timed
+    calls `q` and the fp32 step card vs CPU `parity`."""
     bad = []
     for name, r in res["layers_card_vs_cpu"].items():
         if not (r["scale_equal"] and r["codes_differing_off_ties"] == 0 and r["output_within"]):
@@ -2813,7 +3148,6 @@ def phase_int8(torch, gpu_line: str) -> dict:
         bad.append(f"fp32 int8 step card vs CPU {parity}")
     if bad:
         raise AssertionError(f"int8 failed: {bad}")
-    return {"int8_inference_8_steps": q["by_shape_8"]}
 
 
 # -------------------------------------------------------------- baseline
@@ -2836,37 +3170,98 @@ def baseline_batch(n: int, seed: int) -> dict:
             "input_ids": r.randint(0, 49408, (n, 77)).astype(np.int64)}
 
 
+BASELINE_CONFIG = dict(learning_rate=5e-6, lr_warmup_steps=0, depth_conditioning_mode="concat")
+# the leaves whose first AdamW moment the card-vs-CPU step compares
+BASELINE_LEAVES = ("conv_in.weight",
+                   "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q.weight",
+                   "mid_block.resnets.0.conv1.weight", "conv_out.weight")
+
+
+def baseline_modules(torch, device: str, depth: dict = None) -> tuple:
+    """The baseline's seeded 10-channel UNet, VAE and CLIP on `device`
+    (`depth` cuts the UNet's and the VAE's)."""
+    from reflecting_reality_tpu_torch.models.clip_text import CLIPTextModel
+    from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
+    from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+
+    torch.manual_seed(SEED + 20)
+    with torch.device(device):
+        return (UNet2DConditionModel(in_channels=10, **(depth or {})),
+                AutoencoderKL(**(depth or {})), CLIPTextModel())
+
+
+def baseline_parity_step(torch, device: str) -> dict:
+    """One baseline training step at batch 1 and PARITY_DEPTH on `device`
+    (the modules made on the CPU from their seed, the draws from theirs; the
+    caller sets TF32) -> its loss, gradient norm and seconds and the first
+    AdamW moment of BASELINE_LEAVES, on the CPU."""
+    from reflecting_reality_tpu_torch.baseline.sd_inpainting import make_baseline_train_step
+    from reflecting_reality_tpu_torch.training.train_step import TrainConfig
+
+    gd = torch.Generator().manual_seed(SEED + 22)
+    shape = (1, 4, CLI_PX // 8, CLI_PX // 8)
+    draws = {"vae_noise": {"latents": torch.randn(shape, generator=gd),
+                           "cond": torch.randn(shape, generator=gd)},
+             "noise": torch.randn(shape, generator=gd), "timesteps": torch.tensor([321])}
+    unet, vae, text = baseline_modules(torch, "cpu", PARITY_DEPTH)
+    step, init = make_baseline_train_step(unet, vae, text, TrainConfig(**BASELINE_CONFIG),
+                                          device=device)
+    state = init()
+    params = dict(unet.named_parameters())
+    t0 = time.perf_counter()
+    state, m = step(state, baseline_batch(1, SEED + 23), draws=draws)
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "s": time.perf_counter() - t0,
+            "mu": {n: state.optimizer.state[params[n]]["exp_avg"].detach().cpu()
+                   for n in BASELINE_LEAVES}}
+
+
 def phase_baseline(torch, gpu_line: str, tmp: str, data: str) -> dict:
     """The SD-inpainting baseline at full width: its training step (the whole
     10-channel UNet, fp32 as the CLI's default, 512² batch 4, depth concat;
     a warm step, BASELINE_STEPS timed ones, peak memory), one step card vs
-    CPU at batch 1 on the same draws, `save_pretrained` to
-    checkpoint-N/unet, then `cli.test_baseline.main --image_mode` on it at
-    its default fp32 (2 rows, 4 seeds, 4 steps) -> {path: {(kernel, key):
-    launches}}."""
+    CPU at batch 1 on the same draws (`baseline_parity_step`),
+    `save_pretrained` to checkpoint-N/unet, then
+    `cli.test_baseline.main --image_mode` on it at its default fp32 (2 rows,
+    4 seeds, 4 steps) -> {path: {(kernel, key): launches}}."""
     import numpy as np
     from PIL import Image
 
     from reflecting_reality_tpu_torch.baseline.sd_inpainting import make_baseline_train_step
     from reflecting_reality_tpu_torch.cli import test_baseline
     from reflecting_reality_tpu_torch.core.io import save_pretrained
-    from reflecting_reality_tpu_torch.models.clip_text import CLIPTextModel
-    from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
-    from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
     from reflecting_reality_tpu_torch.training.train_step import TrainConfig
 
     t_phase = time.perf_counter()
-    config = TrainConfig(learning_rate=5e-6, lr_warmup_steps=0, depth_conditioning_mode="concat")
-
-    def modules(device):
-        torch.manual_seed(SEED + 20)
-        with torch.device(device):
-            return UNet2DConditionModel(in_channels=10), AutoencoderKL(), CLIPTextModel()
-
     res = {"phase": "baseline", "gpu": gpu_line, "size": f"{CLI_PX}x{CLI_PX}",
            "batch": TRAIN_BATCH, "dtype": "float32 (the CLI's default)", "in_channels": 10}
-    unet, vae, text = modules("cuda")
-    step, init = make_baseline_train_step(unet, vae, text, config, device="cuda")
+    # one step, card vs CPU, batch 1, the same draws, TF32 off: the loss and
+    # the first AdamW moment (0.1 x the clipped gradient) of a few leaves,
+    # each at 1e-3 of its largest element (train_parity's tolerance)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        reset_counters()
+        card = dict(baseline_parity_step(torch, "cuda"), launches=read_counters())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    cpu = REFERENCES.get("baseline")
+    res["step_card_vs_cpu"] = {
+        "loss": card["loss"], "cpu_loss": cpu["loss"],
+        "loss_rel_err": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]), "loss_rel_tol": 1e-4,
+        "grad_norm": card["grad_norm"], "cpu_grad_norm": cpu["grad_norm"],
+        "card_s": card["s"], "cpu_s": cpu["s"], "launches": card["launches"],
+        "depth": PARITY_DEPTH, "cpu_side": "reference process",
+        "adam_mu": {n: {"max_abs_err": (card["mu"][n] - cpu["mu"][n]).abs().max().item(),
+                        "max_abs_tol": 1e-3 * cpu["mu"][n].abs().max().item(),
+                        "finite": bool(torch.isfinite(card["mu"][n]).all())}
+                    for n in BASELINE_LEAVES}}
+
+    unet, vae, text = baseline_modules(torch, "cuda")
+    step, init = make_baseline_train_step(unet, vae, text, TrainConfig(**BASELINE_CONFIG),
+                                          device="cuda")
     state = init()
     w0 = unet.conv_in.weight.detach().clone()
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in
@@ -2900,48 +3295,6 @@ def phase_baseline(torch, gpu_line: str, tmp: str, data: str) -> dict:
     del state, step, init, unet, vae, text, batch
     torch.cuda.empty_cache()
 
-    # one step, card vs CPU, batch 1, the same draws, TF32 off: the loss and
-    # the first AdamW moment (0.1 x the clipped gradient) of a few leaves,
-    # each at 1e-3 of its largest element (train_parity's tolerance)
-    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    gd = torch.Generator().manual_seed(SEED + 22)
-    shape = (1, 4, CLI_PX // 8, CLI_PX // 8)
-    draws = {"vae_noise": {"latents": torch.randn(shape, generator=gd),
-                           "cond": torch.randn(shape, generator=gd)},
-             "noise": torch.randn(shape, generator=gd), "timesteps": torch.tensor([321])}
-    one = baseline_batch(1, SEED + 23)
-    names = ("conv_in.weight", "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q.weight",
-             "mid_block.resnets.0.conv1.weight", "conv_out.weight")
-    sides = {}
-    try:
-        for device in ("cuda", "cpu"):
-            unet, vae, text = modules("cpu")
-            st_fn, st_init = make_baseline_train_step(unet, vae, text, config, device=device)
-            st = st_init()
-            reset_counters()
-            t0 = time.perf_counter()
-            st, mm = st_fn(st, one, draws=draws)
-            params = dict(unet.named_parameters())
-            sides[device] = {"loss": float(mm["loss"]), "grad_norm": float(mm["grad_norm"]),
-                             "s": time.perf_counter() - t0, "launches": read_counters(),
-                             "mu": {n: st.optimizer.state[params[n]]["exp_avg"].detach().cpu()
-                                    for n in names}}
-            del st, st_fn, st_init, unet, vae, text, params
-            torch.cuda.empty_cache()
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    card, cpu = sides["cuda"], sides["cpu"]
-    res["step_card_vs_cpu"] = {
-        "loss": card["loss"], "cpu_loss": cpu["loss"],
-        "loss_rel_err": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]), "loss_rel_tol": 1e-4,
-        "grad_norm": card["grad_norm"], "cpu_grad_norm": cpu["grad_norm"],
-        "card_s": card["s"], "cpu_s": cpu["s"], "launches": card["launches"],
-        "adam_mu": {n: {"max_abs_err": (card["mu"][n] - cpu["mu"][n]).abs().max().item(),
-                        "max_abs_tol": 1e-3 * cpu["mu"][n].abs().max().item(),
-                        "finite": bool(torch.isfinite(card["mu"][n]).all())} for n in names}}
-
     # the test CLI on the checkpoint, --image_mode, its default fp32
     out = os.path.join(tmp, "baseline_infer")
     argv = ["--brushnet_path", ckpt, "--base_model_path", os.path.join(tmp, "base"),
@@ -2973,9 +3326,10 @@ def phase_baseline(torch, gpu_line: str, tmp: str, data: str) -> dict:
     if not p["loss_rel_err"] <= p["loss_rel_tol"] or any(
             not (r["finite"] and r["max_abs_err"] <= r["max_abs_tol"]) for r in p["adam_mu"].values()):
         bad.append(f"card vs CPU {p}")
+    b1 = b1_launches_per_unet_forward(**PARITY_DEPTH)
     if (p["launches"]["flash"], p["launches"]["flash_bwd_dq"], p["launches"]["flash_bwd_dkv"]) \
-            != (5, 5, 5):
-        bad.append(f"card step launches {p['launches']} (want 5/5/5)")
+            != (b1, b1, b1):
+        bad.append(f"card step launches {p['launches']} (want {b1} each)")
     t = res["test_cli"]
     if sheets != ["scene0.png", "scene1.png"] or any(s != [1024, 1024, 3]
                                                       for s in t["sheet_shapes"]) \
@@ -3079,7 +3433,7 @@ DDP_CLI_RESUME_TO = 4               # ... and its resume
 DP_SEEDS = 4                        # images of a data-parallel call
 DP_REPEATS = 2                      # timed 4- and 8-step calls of each
 SHARDS = 4                          # entries of the sharded decodes' mesh
-FP32_COST_REPEATS = 3               # turns of each mode in the fp32_conv_cost phase
+FP32_COST_REPEATS = 2               # turns of each mode in the fp32_conv_cost phase
 
 
 def ddp_global_batch(n: int) -> dict:
@@ -3185,17 +3539,17 @@ def phase_ddp(torch, gpu_line: str, tmp: str, cli_fp32_s_step: float) -> dict:
     # one's cached blocks first.  The kernel libraries exist (phase build),
     # so the children load them and build nothing.
     torch.cuda.empty_cache()
+    # the ranks and the one-process reference run side by side (they fit
+    # on the card together; only their results are compared)
     script = os.path.join(ROOT, "chip_smoke.py")
     t0 = time.perf_counter()
     port = str(free_port())
-    spawn([[sys.executable, script, "--ddp-step", str(r), str(DDP_WORLD), port, out]
-           for r in range(DDP_WORLD)],
-          [os.path.join(out, f"rank{r}.log") for r in range(DDP_WORLD)], timeout_s=600)
-    ranks_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    spawn([[sys.executable, script, "--ddp-step", "0", "1", "0", out]],
-          [os.path.join(out, "one.log")], timeout_s=600)
-    one_s = time.perf_counter() - t0
+    commands = [[sys.executable, script, "--ddp-step", str(r), str(DDP_WORLD), port, out]
+                for r in range(DDP_WORLD)]
+    commands.append([sys.executable, script, "--ddp-step", "0", "1", "0", out])
+    spawn(commands, [os.path.join(out, f"rank{r}.log") for r in range(DDP_WORLD)]
+          + [os.path.join(out, "one.log")], timeout_s=600)
+    processes_s = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(out, f"ddp_{DDP_WORLD}p_{r}.pt"), weights_only=False)
              for r in range(DDP_WORLD)]
     one = torch.load(os.path.join(out, "ddp_1p_0.pt"), weights_only=False)
@@ -3218,13 +3572,14 @@ def phase_ddp(torch, gpu_line: str, tmp: str, cli_fp32_s_step: float) -> dict:
            "rank_first_step_s": [r["first_step_s"] for r in ranks],
            "one_process_step_s": one["timed_step_s"],
            "note": "the ranks' step seconds include gloo staging the gradients through the "
-                   "host and two processes sharing one card: not a scaling figure",
+                   "host and three processes sharing one card (the ranks and the one-process "
+                   "reference side by side): not a scaling figure",
            "rank_peak_bytes": [r["peak_bytes"] for r in ranks],
            "one_process_peak_bytes": one["peak_bytes"],
            "launches_per_rank_step_at_2x4096x8x40_fp32": {
                k: r0["by_shape"].get((k, DDP_KEY), 0)
                for k in ("flash", "flash_bwd_dq", "flash_bwd_dkv")},
-           "ranks_wall_s": ranks_s, "one_process_wall_s": one_s}
+           "ranks_and_one_process_wall_s": processes_s}
 
     # the training CLI as torchrun starts one process: NCCL, WORLD_SIZE=1
     env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
@@ -3244,21 +3599,22 @@ def phase_ddp(torch, gpu_line: str, tmp: str, cli_fp32_s_step: float) -> dict:
 
     os.environ.update(env)
     try:
-        reset_counters()
-        t0 = time.perf_counter()
-        state = cli.main(argv(DDP_CLI_STEPS))
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
-        cli_by_shape = read_counters_by_shape()
-        backend, world = dist.get_backend(), dist.get_world_size()
-        del state
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        state = cli.main(argv(DDP_CLI_RESUME_TO, "--resume_from_checkpoint", "latest"))
-        torch.cuda.synchronize()
-        resume_s = time.perf_counter() - t0
-        resumed_step = state.step
-        del state
+        with references_paused():       # the NCCL CLI's s/step is quoted
+            reset_counters()
+            t0 = time.perf_counter()
+            state = cli.main(argv(DDP_CLI_STEPS))
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            cli_by_shape = read_counters_by_shape()
+            backend, world = dist.get_backend(), dist.get_world_size()
+            del state
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            state = cli.main(argv(DDP_CLI_RESUME_TO, "--resume_from_checkpoint", "latest"))
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            resumed_step = state.step
+            del state
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -3545,7 +3901,7 @@ def phase_sharded_vae(torch, gpu_line: str) -> dict:
 # ---------------------------------------------------------------- phase 22
 
 SDXL_PX = 1024
-SDXL_REPEATS = 3                    # timed 4- and 8-step calls of each count
+SDXL_REPEATS = 2                    # timed 4- and 8-step calls of each count
 # stabilityai/stable-diffusion-xl-base-1.0, unet/config.json
 SDXL_UNET = dict(
     sample_size=128, in_channels=4, out_channels=4,
@@ -3561,18 +3917,24 @@ SDXL_TEXT = dict(hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
                  intermediate_size=3072)
 SDXL_TEXT_2 = dict(hidden_size=1280, num_hidden_layers=32, num_attention_heads=20,
                    intermediate_size=5120, projection_dim=1280)
-# the fp32 card-vs-CPU step: the published widths, the transformer depth cut
-# so that the CPU's side stays near a minute
-SDXL_PARITY_DEPTH = dict(transformer_layers_per_block=(1, 1, 1))
+# the fp32 card-vs-CPU step: the published widths, the transformer depth and
+# the resnets a level (UNet, BrushNet and VAE: PARITY_DEPTH) cut so that the
+# CPU's side stays well under a minute
+SDXL_PARITY_DEPTH = dict(transformer_layers_per_block=(1, 1, 1), **PARITY_DEPTH)
+# the one B2 shape of SDXL's fp32 step at two resnets a level that the cut
+# depth does not give (an up-block resnet's input, 640 + 640 channels): the
+# kernels phase holds it against its plain version
+SDXL_FULL_DEPTH_NORM = ((2, 1280, 64, 64), "float32", True)
 SDXL_PARITY_TEXT_LAYERS = 2
 
 
-def sdxl_modules(torch, tok_dir: str, depth: dict = None, text_layers: int = None) -> dict:
+def sdxl_modules(torch, tok_dir: str, depth: dict = None, text_layers: int = None,
+                 vae_depth: dict = None) -> dict:
     """Seeded SDXL-base modules at the published widths, made on the card
     (the UNet alone is 10.3 GB in fp32), BrushNet `config_from_unet` with 6
     conditioning channels (depth concat, its zero convs given small values),
-    and the byte-level tokenizer of `tok_dir` for both encoders; `depth` and
-    `text_layers` cut the transformer depth."""
+    and the byte-level tokenizer of `tok_dir` for both encoders; `depth`,
+    `text_layers` and `vae_depth` cut the depth."""
     from reflecting_reality_tpu_torch.data.tokenizer import CLIPTokenizer
     from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
     from reflecting_reality_tpu_torch.models.clip_text import (
@@ -3586,7 +3948,7 @@ def sdxl_modules(torch, tok_dir: str, depth: dict = None, text_layers: int = Non
     torch.manual_seed(SEED)
     with torch.device("cuda"):
         unet = UNet2DConditionModel(**dict(SDXL_UNET, **(depth or {})))
-        mods = dict(unet=unet, vae=AutoencoderKL(),
+        mods = dict(unet=unet, vae=AutoencoderKL(**(vae_depth or {})),
                     brushnet=BrushNetModel(**BrushNetModel.config_from_unet(
                         unet, conditioning_channels=6)),
                     text_encoder=CLIPTextModel(**dict(SDXL_TEXT, **layers)),
@@ -3631,8 +3993,6 @@ def phase_sdxl(torch, gpu_line: str, entries: list, ptxas: dict) -> dict:
     denoise step and decode card vs CPU at 1e-3 of the output's largest
     value (C4's rule), and B1 against the plain path at the 1024-token
     self-attentions -> {path: {(kernel, key): launches}}."""
-    import numpy as np
-
     from reflecting_reality_tpu_torch.ops.kernels import groupnorm as gn
     from reflecting_reality_tpu_torch.pipelines import StableDiffusionXLBrushNetPipeline
     from reflecting_reality_tpu_torch.tools.make_synthetic_fullscale import (
@@ -3656,9 +4016,9 @@ def phase_sdxl(torch, gpu_line: str, entries: list, ptxas: dict) -> dict:
         torch.cuda.empty_cache()
 
         parity_by_shape = {}
-        mods = sdxl_modules(torch, tok_dir, SDXL_PARITY_DEPTH, SDXL_PARITY_TEXT_LAYERS)
-        parity = card_vs_cpu_one_step(torch, mods, kw, StableDiffusionXLBrushNetPipeline,
-                                      by_shape=parity_by_shape)
+        cls, mods, kw32 = parity_case(torch, "sdxl", tok_dir)
+        parity = card_vs_cpu_one_step(torch, mods, kw32, cls, by_shape=parity_by_shape,
+                                      reference="sdxl")
         del mods
         torch.cuda.empty_cache()
 
@@ -3691,7 +4051,7 @@ def phase_sdxl(torch, gpu_line: str, entries: list, ptxas: dict) -> dict:
            "profile_4_steps": profile, "b1_vs_plain_1024_tokens": b1_plain,
            "b1_d64_ptxas": d64,
            "fp32_parity": dict(parity, depth=SDXL_PARITY_DEPTH,
-                               text_layers=SDXL_PARITY_TEXT_LAYERS),
+                               text_layers=SDXL_PARITY_TEXT_LAYERS, vae_depth=PARITY_DEPTH),
            "phase_wall_s": time.perf_counter() - t_phase}
     emit(res)
     bad = []
@@ -3777,8 +4137,9 @@ def int8_layers_card_vs_cpu(torch) -> dict:
 
 # ------------------------------------------------------------ phase 23-25
 
-BACKEND_REPEATS = 5                 # timed 4- and 8-step calls of each attention backend
-BACKEND_TRAIN_STEPS = 4             # timed training steps of each backend
+BACKEND_REPEATS = 2                 # timed 4- and 8-step calls of each attention backend
+BACKEND_TRAIN_STEPS = 2             # timed training steps of each backend
+BACKEND_TRACE_STEPS = 2             # steps of each backend's traced pipeline call
 BACKENDS = ("flash", "xla")
 
 
@@ -3812,7 +4173,7 @@ def phase_attention_backend(torch, gpu_line: str, data: str, brushnet_path: str,
     BACKEND_REPEATS each) and one bf16 training step at batch 4
     (BACKEND_TRAIN_STEPS timed) under each backend, the backends in turns:
     s/step, peak memory (the training step's from a step of its own each,
-    before the timed ones), a traced 4-step call each (device busy time,
+    before the timed ones), a traced 2-step call each (device busy time,
     idle share),
     the launches (B1 40 in 8 steps and 5/5/5 a training step under flash,
     B1/B3/B4 none under xla, B2 under both), the 8-step images' uint8
@@ -3864,7 +4225,8 @@ def phase_attention_backend(torch, gpu_line: str, data: str, brushnet_path: str,
     traces = {}
     for n in BACKENDS:          # device time, which the host's spread does not move
         switch[n]()
-        traces[n] = trace(torch, lambda: pipe(**kw, num_inference_steps=4, output_type="np"))
+        traces[n] = trace(torch, lambda: pipe(**kw, num_inference_steps=BACKEND_TRACE_STEPS,
+                                              output_type="np"))
     diff = np.abs(runs["xla"]["image_8"].astype(np.int16)
                   - runs["flash"]["image_8"].astype(np.int16))
     del pipe, mods, attns, switch
@@ -3937,7 +4299,7 @@ def phase_attention_backend(torch, gpu_line: str, data: str, brushnet_path: str,
            "fp32_step_xla_vs_flash": fp32_step,
            "pipeline_bf16": {n: {k: v for k, v in r.items() if k not in UNPRINTED}
                              for n, r in runs.items()},
-           "pipeline_bf16_traced_4_steps": traces,
+           f"pipeline_bf16_traced_{BACKEND_TRACE_STEPS}_steps": traces,
            "image_8_uint8_max_diff": int(diff.max()),
            "image_8_uint8_mean_diff": float(diff.mean()),
            "xla_over_flash_s_per_step": runs["xla"]["s_per_step"] / runs["flash"]["s_per_step"],
@@ -3985,42 +4347,64 @@ AOT_RECIPES = (
     dict(batch_per_chip=2, policy="dots", use_ema=True, ema_dtype="fp32", train_base_unet=True),
     dict(batch_per_chip=2, policy="dots", use_ema=True, ema_dtype="fp32", frozen_bf16=False),
 )
-AOT_SEARCH = (0, 3)                 # the recipes whose largest batch is searched for ...
+# the recipes whose largest batch is searched for, each with the two batches
+# of its straight line: the largest batch the search found on the H100 (PR
+# 13) and the next, so that while that answer holds they are also its check
+AOT_SEARCH = {0: (52, 53), 3: (59, 60)}
 AOT_MAX_BATCH = 64                  # ... up to this batch per card
-AOT_PROBES = (16, 32)               # the batches of each search's straight line
 AOT_TOL = (0.10, 1.0)               # measured peak within 10% of the plan, or 1 GiB
-AOT_PLAN = ("import json, sys; sys.path.insert(0, {root!r}); "
+# plans run at a lower priority than the rest: the tool's own CLI process,
+# which plans and then measures, is the phase's longest chain
+AOT_PLAN = ("import json, os, sys; os.nice(10); sys.path.insert(0, {root!r}); "
             "from reflecting_reality_tpu_torch.tools import aot_memory as am; "
             "print(json.dumps(am.plan(**json.loads(sys.argv[1]))))")
 AOT_MEASURE = ("import json, sys; sys.path.insert(0, {root!r}); "
                "from reflecting_reality_tpu_torch.tools import aot_memory as am; "
                "[print(json.dumps(am.measure(**r)), flush=True) "
-               "for r in json.loads(sys.argv[1])]")
+               "for line in sys.stdin for r in json.loads(line)]")
 
 
-def aot_plans(recipes: list) -> list:
-    """The memory plan of each recipe on fake cuda tensors, each in a
-    process of its own, all started together (each takes a CPU core)."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    def one(recipe):
-        out = subprocess.run([sys.executable, "-c", AOT_PLAN.format(root=ROOT),
-                              json.dumps(recipe)], capture_output=True, text=True,
-                             timeout=600)
-        if out.returncode != 0:
-            raise RuntimeError(f"plan {recipe} failed:\n{out.stderr[-3000:]}")
-        return json.loads(out.stdout.strip().splitlines()[-1])
-
-    with ThreadPoolExecutor(min(len(recipes), os.cpu_count() or 1)) as pool:
-        return list(pool.map(one, recipes))
+def aot_plan(recipe: dict) -> dict:
+    """The memory plan of a recipe on fake cuda tensors, in a process of its
+    own (it takes a CPU core)."""
+    out = subprocess.run([sys.executable, "-c", AOT_PLAN.format(root=ROOT), json.dumps(recipe)],
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"plan {recipe} failed:\n{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 def aot_measure(recipes: list) -> subprocess.Popen:
     """Each recipe run for real on the card, one after another, in a process
-    of its own (nothing of this one is in its way): one JSON line each."""
-    return subprocess.Popen([sys.executable, "-c", AOT_MEASURE.format(root=ROOT),
-                             json.dumps(recipes)], stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    of its own (nothing of this one is in its way), which takes a further
+    list a line on its standard input (`aot_measure_more`) until that
+    closes: one JSON line a recipe (`aot_measured`)."""
+    err = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, "-c", AOT_MEASURE.format(root=ROOT)],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+                            text=True)
+    proc.err_file = err
+    aot_measure_more(proc, recipes)
+    return proc
+
+
+def aot_measure_more(proc: subprocess.Popen, recipes: list) -> None:
+    proc.stdin.write(json.dumps(recipes) + "\n")
+    proc.stdin.flush()
+
+
+def aot_measured(proc: subprocess.Popen, n: int, what: str) -> list:
+    """The next `n` JSON lines of a measuring process; raise if it ended."""
+    lines = []
+    while len(lines) < n:
+        line = proc.stdout.readline()
+        if not line:
+            proc.wait(timeout=60)
+            proc.err_file.seek(0)
+            raise RuntimeError(f"{what} failed:\n{proc.err_file.read()[-3000:]}")
+        if line.startswith("{"):
+            lines.append(json.loads(line))
+    return lines
 
 
 def aot_lines(proc: subprocess.Popen, n: int, what: str) -> list:
@@ -4031,15 +4415,20 @@ def aot_lines(proc: subprocess.Popen, n: int, what: str) -> list:
     return [json.loads(ln) for ln in out.strip().splitlines()[-n:]]
 
 
-def phase_aot_memory(torch, gpu_line: str) -> None:
+def phase_aot_memory(torch, gpu_line: str, before_largest) -> None:
     """`tools/aot_memory.py` at full width, 512², bf16 autocast: the tool's
     CLI as a user runs it (plan and measurement of the reference recipe,
     AOT_RECIPES[0]), the plan of each other recipe and the real runs of
     them (two steps, peak allocated) in processes started together, then
     the largest batch per card (<= AOT_MAX_BATCH) the plan fits into the
     card for the AOT_SEARCH recipes (a straight line through the plans at
-    AOT_PROBES, then the plans at that batch and the next) and its real
-    run: every measured peak within AOT_TOL of its plan."""
+    its two batches, then the plans at that batch and the next) and its real
+    run: every measured peak within AOT_TOL of its plan.  Every plan starts
+    at once, beside the measurements, and a recipe is planned once;
+    `before_largest` waits for the work running beside this phase that
+    holds card memory, before the largest batches run."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from reflecting_reality_tpu_torch.tools import aot_memory as am
 
     t_phase = time.perf_counter()
@@ -4052,43 +4441,59 @@ def phase_aot_memory(torch, gpu_line: str) -> None:
                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     others = list(AOT_RECIPES[1:])
     runs = aot_measure(others)
-    probes = [dict(AOT_RECIPES[i], batch_per_chip=b) for i in AOT_SEARCH for b in AOT_PROBES]
-    first = aot_plans(others + probes)
-    cli_stats = aot_lines(cli, 1, "tools/aot_memory.py")[0]
-    plans = [cli_stats] + first[:len(others)]
-    probe_plans = first[len(others):]
-    measured = [cli_stats] + aot_lines(runs, len(others), "the measurements")
-    t_first = time.perf_counter() - t_phase
+    pool = ThreadPoolExecutor(len(others) + 2 * len(AOT_SEARCH))
+    planned = {}
+
+    def plan_of(recipe):            # a future; each recipe planned once
+        key = json.dumps(recipe, sort_keys=True)
+        if key not in planned:
+            planned[key] = pool.submit(aot_plan, recipe)
+        return planned[key]
 
     def peak(p):
         return p["peak_gib_per_device"]
 
-    # past a few samples the peak is in the activations and grows by a
-    # fixed amount a sample (at batch 2 it is in AdamW's update): a line
-    # through the two probes
-    guesses = []
-    (b0, b1), n = AOT_PROBES, len(AOT_PROBES)
-    for k, i in enumerate(AOT_SEARCH):
-        p0, p1 = (peak(p) for p in probe_plans[n * k:n * k + n])
-        slope = (p1 - p0) / (b1 - b0)
-        guesses.append(max(1, min(AOT_MAX_BATCH, int((budget - p0) / slope) + b0)))
-    checks = aot_plans([dict(AOT_RECIPES[i], batch_per_chip=b + d)
-                        for i, b in zip(AOT_SEARCH, guesses) for d in (0, 1)])
+    probes = {i: [plan_of(dict(AOT_RECIPES[i], batch_per_chip=b)) for b in bs]
+              for i, bs in AOT_SEARCH.items()}
+    other_futures = [plan_of(r) for r in others]
+    stages = {}
     largest = []
-    for k, (i, b) in enumerate(zip(AOT_SEARCH, guesses)):
-        at, above = checks[2 * k], checks[2 * k + 1]
+    for i, (b0, b1) in AOT_SEARCH.items():
+        # past a few samples the peak is in the activations and grows by a
+        # fixed amount a sample (at batch 2 it is in AdamW's update): a line
+        # through the two probes, then the plans at its batch and the next
+        p0, p1 = (peak(f.result()) for f in probes[i])
+        b = max(1, min(AOT_MAX_BATCH, int((budget - p0) / ((p1 - p0) / (b1 - b0))) + b0))
+        at, above = (plan_of(dict(AOT_RECIPES[i], batch_per_chip=b + d)) for d in (0, 1))
+        at, above = at.result(), above.result()
         while peak(at) > budget and b > 1:                      # the line was optimistic
             b, above = b - 1, at
-            at = aot_plans([dict(AOT_RECIPES[i], batch_per_chip=b)])[0]
+            at = plan_of(dict(AOT_RECIPES[i], batch_per_chip=b)).result()
         while peak(above) <= budget and b < AOT_MAX_BATCH:      # ... or pessimistic
             b, at = b + 1, above
-            above = aot_plans([dict(AOT_RECIPES[i], batch_per_chip=b + 1)])[0]
+            above = plan_of(dict(AOT_RECIPES[i], batch_per_chip=b + 1)).result()
         largest.append({"recipe": dict(AOT_RECIPES[i], batch_per_chip=b), "plan": at,
                         "next_batch_peak_gib": peak(above)})
+    stages["plans_made"] = len(planned) + 1      # and the CLI's own
+    stages["search_planned"] = time.perf_counter() - t_phase
+    cli_stats = aot_lines(cli, 1, "tools/aot_memory.py")[0]
+    stages["cli_done"] = time.perf_counter() - t_phase
+    plans = [cli_stats] + [f.result() for f in other_futures]
+    pool.shutdown()
+    stages["other_plans_done"] = time.perf_counter() - t_phase
+    measured = [cli_stats] + aot_measured(runs, len(others), "the measurements")
+    t_first = time.perf_counter() - t_phase
+    before_largest()
+    stages["beside_done"] = time.perf_counter() - t_phase
     recipes = list(AOT_RECIPES) + [x["recipe"] for x in largest]
     plans += [x["plan"] for x in largest]
-    measured += aot_lines(aot_measure([x["recipe"] for x in largest]), len(largest),
-                          "the largest batches' measurements")
+    aot_measure_more(runs, [x["recipe"] for x in largest])     # the same process
+    measured += aot_measured(runs, len(largest), "the largest batches' measurements")
+    runs.stdin.close()
+    if runs.wait(timeout=60) != 0:
+        runs.err_file.seek(0)
+        raise RuntimeError(f"the measurements failed:\n{runs.err_file.read()[-3000:]}")
+    runs.err_file.close()
     keep = ("argument_gib_per_device", "temp_gib_per_device", "peak_gib_per_device", "split")
     rows = [{"recipe": r, **{k: p[k] for k in keep},
              **{k: v for k, v in m.items() if k.startswith("measured") or k in ("fits", "oom")}}
@@ -4102,6 +4507,7 @@ def phase_aot_memory(torch, gpu_line: str) -> None:
                               "next_batch_planned_peak_gib": x["next_batch_peak_gib"]}
                              for x in largest],
            "cli": cli_stats, "this_process": this_process, "first_wall_s": t_first,
+           "stages_s": stages,
            "phase_wall_s": time.perf_counter() - t_phase}
     emit(res)
     bad = [r for r in rows if not r.get("fits") or abs(
@@ -4109,6 +4515,18 @@ def phase_aot_memory(torch, gpu_line: str) -> None:
         AOT_TOL[0] * r["peak_gib_per_device"], AOT_TOL[1])]
     if bad:
         raise AssertionError(f"aot_memory: measured off the plan {bad}")
+
+
+def aot_memory_beside_compilation_cache(torch, gpu_line: str) -> None:
+    """Phases 24 and 25 side by side: the build cache's two processes
+    (nvcc and a few MB on the card) run in a thread during the memory
+    planner's first plans and measurements, and are waited for before its
+    largest batches fill the card."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        cache = pool.submit(phase_compilation_cache, torch, gpu_line)
+        phase_aot_memory(torch, gpu_line, before_largest=cache.result)
 
 
 def cache_child(cache_dir: str, forbid_nvcc: bool) -> None:
@@ -4258,6 +4676,7 @@ def measure_late(torch, entries: list, paths: dict) -> set:
     batch follows its traffic, SDXL's norms their widths) is measured and
     checked now, after the paths, and added to `entries` -> every launched
     (kernel, key)."""
+    t_phase = time.perf_counter()
     measured = {e["key"] for e in entries}
     launched = {k for counts in paths.values() for k, n in counts.items() if n > 0}
     late = sorted(launched - measured, key=str)
@@ -4267,7 +4686,8 @@ def measure_late(torch, entries: list, paths: dict) -> set:
             e["measured_after_paths"] = True
             measured.add(e["key"])
         entries += new
-    emit({"phase": "kernels_late", "measured": [[k, list(key)] for k, key in late]})
+    emit({"phase": "kernels_late", "measured": [[k, list(key)] for k, key in late],
+          "phase_wall_s": time.perf_counter() - t_phase})
     return launched
 
 
@@ -4285,6 +4705,7 @@ def sdxl_alone(torch) -> None:
             | {"launches_by_path": {p: c.get(e["key"], 0) for p, c in paths.items()}}
             for e in entries]
     emit({"phase": "kernels_detail", "kernels": rows})
+    emit_phase_seconds()
     print(gpu_line, flush=True)
 
 
@@ -4310,13 +4731,20 @@ def backend_memory_cache_alone(torch) -> None:
         phase_attention_backend(torch, gpu_line, data, os.path.join(tmp, "ckpt"), base)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    phase_aot_memory(torch, gpu_line)
-    phase_compilation_cache(torch, gpu_line)
+    aot_memory_beside_compilation_cache(torch, gpu_line)
+    emit_phase_seconds()
     emit({"phase": "run", "seconds": time.perf_counter() - T_START})
     print(gpu_line, flush=True)
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--cpu-references"]:
+        # before torch starts a thread: the reference process's threads
+        # keep off two cores and run at the lowest priority
+        cores = sorted(os.sched_getaffinity(0))
+        if len(cores) > 4:
+            os.sched_setaffinity(0, cores[2:])
+        os.nice(19)
     import torch
 
     if not torch.cuda.is_available():
@@ -4344,55 +4772,79 @@ def main() -> int:
     if sys.argv[1:2] == ["--sdxl"]:
         sdxl_alone(torch)
         return 0
+    if sys.argv[1:2] == ["--train-cli-modes"]:
+        train_cli_modes(*sys.argv[2:4])
+        return 0
     if sys.argv[1:2] == ["--cache-child"]:
         cache_child(sys.argv[2], sys.argv[3:4] == ["--no-nvcc"])
+        return 0
+    if sys.argv[1:2] == ["--cpu-references"]:
+        cpu_references(sys.argv[2])
         return 0
     if sys.argv[1:2] == ["--backend-memory-cache"]:
         backend_memory_cache_alone(torch)
         return 0
-    global TF32_DEFAULT
+    global TF32_DEFAULT, REFERENCES
     TF32_DEFAULT = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    gpu_line = nvidia_smi()
-    emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
-          "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
-          "capability": list(torch.cuda.get_device_capability(0)),
-          "device_count": torch.cuda.device_count(), "nvidia_smi": gpu_line,
-          "importable": {m: importlib.util.find_spec(m) is not None for m in ABSENT_MODULES},
-          "clocks_max_sm_mhz": max_sm_clock_hz() / 1e6,
-          "tf32_default": {"matmul": TF32_DEFAULT[0], "cudnn": TF32_DEFAULT[1]}})
-    ptxas = phase_build(torch)
-    entries = phase_kernels(torch)
-    phase_slice(torch)
-    by_shape, main_per_step = phase_main(torch, gpu_line)
-    parity_by_shape = phase_train_parity(torch)
-    train_by_shape, train_s_step = phase_train_main(torch, gpu_line)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    REFERENCES = refs = CpuReferences()
     try:
-        cli_by_shape = phase_train_cli(torch, gpu_line, train_s_step, tmp)
-        test_by_shape, sheets, data = phase_test_cli(torch, gpu_line, tmp, main_per_step,
-                                                     entries)
-        phase_evaluate(torch, gpu_line, tmp, sheets, data)
-        cli32_by_shape, cli32_s_step = phase_train_cli_fp32(torch, gpu_line, tmp)
-        phase_fp32_conv_cost(torch, gpu_line)
-        new_paths = phase_ip_adapter(torch, gpu_line, tmp)
-        serve_paths, serve_rate = phase_serve(torch, gpu_line, tmp)
-        new_paths.update(serve_paths)
-        new_paths.update(phase_serve(torch, gpu_line, tmp, int8=True, exact=serve_rate)[0])
-        new_paths.update(phase_baseline(torch, gpu_line, tmp, data))
-        new_paths.update(phase_ddp(torch, gpu_line, tmp, cli32_s_step))
-        new_paths.update(phase_data_parallel(torch, gpu_line, tmp, data))
-        new_paths.update(phase_attention_backend(torch, gpu_line, data,
-                                                 os.path.join(tmp, "run", "checkpoint-8"),
-                                                 os.path.join(tmp, "base")))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    new_paths.update(phase_modes(torch, gpu_line))
-    new_paths.update(phase_approx(torch, gpu_line))
-    new_paths.update(phase_int8(torch, gpu_line))
-    new_paths.update(phase_sharded_vae(torch, gpu_line))
-    new_paths.update(phase_sdxl(torch, gpu_line, entries, ptxas))
-    phase_aot_memory(torch, gpu_line)
-    phase_compilation_cache(torch, gpu_line)
+        gpu_line = nvidia_smi()
+        emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
+              "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
+              "capability": list(torch.cuda.get_device_capability(0)),
+              "device_count": torch.cuda.device_count(), "nvidia_smi": gpu_line,
+              "importable": {m: importlib.util.find_spec(m) is not None for m in ABSENT_MODULES},
+              "clocks_max_sm_mhz": max_sm_clock_hz() / 1e6,
+              "cpu_count": os.cpu_count(), "torch_threads": torch.get_num_threads(),
+              "tf32_default": {"matmul": TF32_DEFAULT[0], "cudnn": TF32_DEFAULT[1]}})
+        ptxas = phase_build(torch)
+        refs.get("modules_on_cpu")      # the reference process is done with the card
+        # it stops through the phases whose speed PERF.md quotes (the main
+        # path, the training step and CLIs, the test CLI, the server, the
+        # NCCL CLI, the replicas, SDXL), through the kernels' timings, and
+        # through slice's and train_parity's own CPU sides
+        with references_paused():
+            entries = phase_kernels(torch)
+            phase_slice(torch)
+            by_shape, main_per_step = phase_main(torch, gpu_line)
+            parity_by_shape = phase_train_parity(torch)
+            train_by_shape, train_s_step = phase_train_main(torch, gpu_line)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            with references_paused():
+                cli_by_shape = phase_train_cli(torch, gpu_line, train_s_step, tmp)
+                test_by_shape, sheets, data = phase_test_cli(torch, gpu_line, tmp,
+                                                             main_per_step, entries)
+            phase_evaluate(torch, gpu_line, tmp, sheets, data)
+            with references_paused():
+                cli32_by_shape, cli32_s_step = phase_train_cli_fp32(torch, gpu_line, tmp)
+            phase_fp32_conv_cost(torch, gpu_line)
+            new_paths = phase_ip_adapter(torch, gpu_line, tmp)
+            with references_paused():
+                serve_paths, serve_rate = phase_serve(torch, gpu_line, tmp)
+            new_paths.update(serve_paths)
+            new_paths.update(phase_serve(torch, gpu_line, tmp, int8=True, exact=serve_rate)[0])
+            new_paths.update(phase_baseline(torch, gpu_line, tmp, data))
+            new_paths.update(phase_ddp(torch, gpu_line, tmp, cli32_s_step))
+            with references_paused():
+                new_paths.update(phase_data_parallel(torch, gpu_line, tmp, data))
+            new_paths.update(phase_attention_backend(torch, gpu_line, data,
+                                                     os.path.join(tmp, "run", "checkpoint-8"),
+                                                     os.path.join(tmp, "base")))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        new_paths.update(phase_modes(torch, gpu_line))
+        new_paths.update(phase_approx(torch, gpu_line))
+        new_paths.update(phase_int8(torch, gpu_line))
+        new_paths.update(phase_sharded_vae(torch, gpu_line))
+        with references_paused():
+            new_paths.update(phase_sdxl(torch, gpu_line, entries, ptxas))
+    except BaseException:
+        refs.close(join=False)
+        raise
+    REFERENCES = None
+    refs.close(join=True)               # its CUDA context leaves the card before aot_memory
+    aot_memory_beside_compilation_cache(torch, gpu_line)
 
     # each entry carries the launches of its own kernel, shape and dtype on
     # each path: the main path's 8-step call (and per denoise step), the
@@ -4423,6 +4875,7 @@ def main() -> int:
         row.update({k: e[k] for k in e if k not in row and k not in ("key", "kernel", "ms")})
         rows.append(row)
     emit({"phase": "kernels_detail", "kernels": rows})
+    emit_phase_seconds()
     summary = [r for r in rows if r["launches"] > 0]
     missing = {e["kernel"] for e in entries} - {e["kernel"] for e, r in zip(entries, rows)
                                                  if r["launches"] > 0}

@@ -24,6 +24,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from reflecting_reality_tpu_torch.tools import aot_memory
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 RES = 64
 BATCH = 2

@@ -20,6 +20,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from reflecting_reality_tpu.ops.attention import dot_product_attention as j_attention
 from reflecting_reality_tpu_torch.ops import attention
 from tests.test_torch_helpers import TINY
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 def test_xla_never_reaches_flash(monkeypatch):

@@ -45,17 +45,10 @@ from tests.test_torch_training import (
     BATCH, CFG, H, LR, STEP_CFG, TEXT_CFG, VAE_CFG, W, _grad_tol, _update_tol, adam_moments,
     batch_of, flat, recover_grads,
 )
+from tests.test_torch_helpers import one_thread_env, one_torch_thread  # noqa: F401
 
 IN_CH = 10                       # depth concat
 STEP_KW = dict(snr_gamma=5.0, prediction_type="v_prediction")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")
@@ -335,7 +328,8 @@ def test_cli_two_processes_train_one_global_batch(tmp_path):
     port = str(free_port())
     spawn([[sys.executable, "-c", BASELINE_RANK, str(r), port, run, json.dumps(argv(run, 1))]
            for r in range(2)], [str(tmp_path / f"rank{r}.log") for r in range(2)],
-          timeout_s=120, cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+          timeout_s=120, env=one_thread_env(),
+          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert open(os.path.join(run, "wrote_0.txt")).read().split() == ["checkpoint-2/unet"]
     assert not os.path.exists(os.path.join(run, "wrote_1.txt"))
     w0, w1 = (torch.load(os.path.join(run, f"unet_{r}.pt"), weights_only=True) for r in (0, 1))

@@ -23,6 +23,7 @@ from reflecting_reality_tpu_torch.training import checkpoint as ckpt
 from tests.test_torch_training import (  # noqa: F401  (jax_models is a fixture)
     BATCH, STEP_CFG, batch_of, jax_models, torch_models,
 )
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 VARIANTS = {"default": {}, "unet_ema": dict(train_base_unet=True, use_ema=True)}
 

@@ -39,6 +39,7 @@ from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
 )
 from reflecting_reality_tpu_torch.tools import precompute_latents
 from tests.tiny_checkpoint import TINY_TEXT, TINY_UNET, make_synmirror_data
+from tests.test_torch_helpers import one_thread_env, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.integration
 
@@ -449,7 +450,8 @@ def test_two_processes_train_one_global_batch(env, tmp_path):
     port = str(free_port())
     spawn([[sys.executable, "-c", TRAIN_RANK, str(r), port, out, json.dumps(argv)]
            for r in range(2)], [str(tmp_path / f"rank{r}.log") for r in range(2)],
-          timeout_s=120, cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+          timeout_s=120, env=one_thread_env(),
+          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert open(os.path.join(out, "wrote_0.txt")).read().split() == ["1", "2"]
     assert not os.path.exists(os.path.join(out, "wrote_1.txt"))
     assert sorted(d for d in os.listdir(out) if d.startswith("checkpoint")) == [

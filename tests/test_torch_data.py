@@ -22,6 +22,7 @@ from reflecting_reality_tpu.data.tokenizer import CLIPTokenizer as JTokenizer
 from reflecting_reality_tpu_torch.data import latent_cache, loader, native, rng, synmirror
 from reflecting_reality_tpu_torch.data.tokenizer import CLIPTokenizer, write_byte_vocab
 from tests.tiny_checkpoint import make_synmirror_data, write_char_tokenizer
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "dataset_transforms.npz")
 

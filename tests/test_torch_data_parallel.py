@@ -33,17 +33,10 @@ from tests.test_torch_training import (
 )
 from tests.test_torch_training import jax_models  # noqa: F401  (fixture)
 from tests.test_torch_training import STEP_CFG
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 N = 4                # images a call: two a mesh entry
 CPU2 = ("cpu", "cpu")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _kw():

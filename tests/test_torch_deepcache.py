@@ -42,16 +42,9 @@ from tests.test_torch_helpers import (
     TINY, TINY_TEXT, TINY_VAE, nchw_to_nhwc, nhwc_to_nchw, port_and_jax, randn,
 )
 from tests.test_torch_pipeline import _call_kwargs
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 STEPS = 4            # interval 3: full, cached, cached, full
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -41,6 +41,7 @@ from reflecting_reality_tpu_torch.models import clip_vision as t_clip_vision
 from reflecting_reality_tpu_torch.parallel.mesh import split_between_processes
 from tests.test_segmentation import FakeSegmenter, cam_pose_map_for, make_gt_data
 from tests.test_torch_helpers import init_jax, nhwc_to_nchw, to_torch
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 RTOL = 1e-5
 

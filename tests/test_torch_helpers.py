@@ -1,13 +1,36 @@
 """Shared helpers for the PyTorch-port parity tests (this file holds no
-tests): tiny configs, JAX modules with jittered parameters, and the same
-weights loaded strictly into the port's modules through
-`state_dict_from_jax_params`."""
+tests): the one-thread fixture every port test module imports, tiny
+configs, JAX modules with jittered parameters, and the same weights loaded
+strictly into the port's modules through `state_dict_from_jax_params`.
+JAX is imported where it is used, so the card's tests, which run where JAX
+is absent, can import the fixture."""
 
-import jax
+import os
+
 import numpy as np
+import pytest
 import torch
 
 from reflecting_reality_tpu_torch.core.io import load_into, state_dict_from_jax_params
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch at one intra-op thread for the module that imports this, and
+    the count it found put back after.  The suite runs several workers side
+    by side, each beside XLA's own pool; at torch's default of a thread a
+    core the tiny ops here fight for the cores (one 5-step CLI case took
+    16 s at one thread and 630 s at the default inside the suite)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def one_thread_env() -> dict:
+    """The environment for a child process of a port test: torch at one
+    thread there too."""
+    return dict(os.environ, OMP_NUM_THREADS="1")
+
 
 # tests/test_golden_pipeline.py:22-28 and tests/test_pipeline.py:22-35
 TINY = dict(
@@ -25,6 +48,8 @@ TINY_TEXT = dict(vocab_size=1000, hidden_size=32, num_hidden_layers=2,
 def jitter(params, seed: int = 0, scale: float = 0.1):
     """Numpy copy of a JAX param tree with seeded noise added to every leaf,
     so zero-initialized convs, biases and unit norm scales all carry signal."""
+    import jax
+
     rng = np.random.RandomState(seed)
     return jax.tree_util.tree_map(
         lambda x: (np.asarray(x) + scale * rng.standard_normal(np.shape(x))).astype(np.float32),
@@ -34,6 +59,8 @@ def jitter(params, seed: int = 0, scale: float = 0.1):
 
 def init_jax(module, *args, seed: int = 0, **kwargs):
     """Jittered numpy params of a JAX module."""
+    import jax
+
     params = module.init(jax.random.PRNGKey(seed), *args, **kwargs)
     return jitter(params, seed)
 

@@ -40,6 +40,7 @@ from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
 )
 from tests.tiny_checkpoint import TINY_UNET, make_tiny_sd_checkpoint
 from tests.test_torch_helpers import TINY, TINY_TEXT, TINY_VAE
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 Z8, T1, EHS = jnp.zeros((1, 8, 8, 4)), jnp.array([1]), jnp.zeros((1, 77, 32))
 

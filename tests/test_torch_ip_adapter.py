@@ -58,16 +58,9 @@ from tests.test_torch_training import (
     BATCH, BCFG, CFG, LR, STEP_CFG, TEXT_CFG, VAE_CFG, adam_moments, batch_of, jax_draws,
     recover_grads, torch_draws,
 )
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 N_TOK = j_ip.DEFAULT_NUM_TOKENS
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _unit_normals(seed, n):

@@ -14,6 +14,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from tests.test_torch_helpers import one_thread_env, one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "reflecting_reality_tpu_torch")
@@ -58,8 +59,8 @@ def test_imports_with_jax_blocked():
         + "".join(f"import {m}\n" for m in mods)
         + "print('ok')\n"
     )
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                         text=True, timeout=120)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=one_thread_env(),
+                         capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
@@ -71,8 +72,8 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
     alone = tmp_path / "chip_smoke.py"
     alone.write_bytes(open(os.path.join(ROOT, "chip_smoke.py"), "rb").read())
     for script, cwd in ((os.path.join(ROOT, "chip_smoke.py"), ROOT), (str(alone), tmp_path)):
-        res = subprocess.run([sys.executable, script], cwd=cwd, capture_output=True,
-                             text=True, timeout=120)
+        res = subprocess.run([sys.executable, script], cwd=cwd, env=one_thread_env(),
+                             capture_output=True, text=True, timeout=120)
         assert res.returncode != 0 and '"ok"' not in res.stdout, (res.stdout, res.stderr)
 
 
@@ -104,7 +105,6 @@ def test_cpu_tensors_take_the_plain_versions():
     assert xg.grad is not None and qg.grad is not None
     assert (fa.flash_attention_fwd.launches, gn.group_norm_silu_fwd.launches) == before == (0, 0)
     assert all(fn.launches == 0 and not fn.launches_by_shape for fn in wrappers)
-
 
 
 CACHE_PATH_RUN = r'''
@@ -150,7 +150,7 @@ def test_cli_cache_path_imports_no_file_format_packages(tmp_path):
                  cond_latent_moments=r.randn(4, 4, 8).astype(np.float16),
                  masks=np.ones((4, 4, 1), np.float32), depths=np.zeros((4, 4, 1), np.float32))
     res = subprocess.run([sys.executable, "-c", CACHE_PATH_RUN, str(tmp_path)], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+                         env=one_thread_env(), capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
 
@@ -185,7 +185,7 @@ def test_test_cli_image_mode_imports_no_h5py(tmp_path):
     write_tiny_base(str(tmp_path / "base"))
     write_image_mode_data(str(tmp_path / "msd"), 2, 64)
     res = subprocess.run([sys.executable, "-c", IMAGE_MODE_RUN, str(tmp_path)], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+                         env=one_thread_env(), capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().splitlines()[-2:] == ["['msd0.png', 'msd1.png']", "[]"], res.stdout
 
@@ -241,8 +241,8 @@ def test_serving_path_runs_with_jax_blocked():
     VAE tiling: every module of the serving path, lazy imports included) in
     a process where jax, flax, the JAX package and safetensors cannot be
     imported."""
-    res = subprocess.run([sys.executable, "-c", SERVE_RUN], cwd=ROOT, capture_output=True,
-                         text=True, timeout=300)
+    res = subprocess.run([sys.executable, "-c", SERVE_RUN], cwd=ROOT, env=one_thread_env(),
+                         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().splitlines()[-1] == "200 1", res.stdout
 
@@ -292,7 +292,7 @@ def test_int8_and_baseline_paths_run_with_jax_blocked():
     imported; on CPU tensors `int8_mm` takes its plain version (no launch
     counted)."""
     res = subprocess.run([sys.executable, "-c", INT8_BASELINE_RUN], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+                         env=one_thread_env(), capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().splitlines()[-1] == \
         "True (1, 32, 32, 3) (1, 32, 32, 3) 0 {}", res.stdout

@@ -14,6 +14,7 @@ import reflecting_reality_tpu_torch
 from reflecting_reality_tpu_torch.core import jit_cache
 from reflecting_reality_tpu_torch.data import native
 from reflecting_reality_tpu_torch.ops.kernels import build
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 @pytest.fixture(autouse=True)

@@ -53,6 +53,7 @@ from reflecting_reality_tpu_torch.ops.kernels import groupnorm as gn
 from reflecting_reality_tpu_torch.ops.kernels import flash_attention as fa
 from reflecting_reality_tpu_torch.ops.kernels.flash_attention import tma_geometry
 from tests.test_torch_kernels_cuda import MAIN_PATH_GN_SHAPES
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 @functools.lru_cache(maxsize=None)
 def main_path_norms():

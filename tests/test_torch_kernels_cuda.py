@@ -37,6 +37,7 @@ import torch
 
 from reflecting_reality_tpu_torch.ops.kernels import flash_attention as fa
 from reflecting_reality_tpu_torch.ops.kernels import groupnorm as gn
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 pytestmark = pytest.mark.cuda
 

@@ -6,6 +6,7 @@ import pytest
 
 from reflecting_reality_tpu.metrics import functional as jf
 from reflecting_reality_tpu_torch.metrics import functional as tf
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 @pytest.mark.parametrize("shape,scale", [((32, 40, 3), 255.0), ((2, 24, 24, 3), 1.0),

@@ -23,6 +23,7 @@ from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
 from tests.test_torch_helpers import (
     TINY, TINY_TEXT, TINY_VAE, init_jax, nchw_to_nhwc, nhwc_to_nchw, randn, to_torch,
 )
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -17,6 +17,7 @@ import torch.distributed as dist
 from reflecting_reality_tpu_torch.parallel import multihost
 from reflecting_reality_tpu_torch.parallel.mesh import split_between_processes
 from reflecting_reality_tpu_torch.tools.multiprocess_dryrun import free_port, spawn
+from tests.test_torch_helpers import one_thread_env, one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -104,7 +105,8 @@ multihost.barrier("done")
 def test_two_processes_split_reduce_and_broadcast(tmp_path):
     port = str(free_port())
     spawn([[sys.executable, "-c", WORKER, str(r), port, str(tmp_path)] for r in range(2)],
-          [str(tmp_path / f"log{r}.txt") for r in range(2)], timeout_s=90, cwd=ROOT)
+          [str(tmp_path / f"log{r}.txt") for r in range(2)], timeout_s=90, env=one_thread_env(),
+          cwd=ROOT)
     r0, r1 = (json.load(open(tmp_path / f"r{r}.json")) for r in range(2))
     assert (r0["rank_world"], r1["rank_world"]) == ([0, 2], [1, 2])
     assert r0["main"] and not r1["main"]

@@ -38,6 +38,7 @@ from reflecting_reality_tpu_torch.ops.kernels.groupnorm import (
 )
 from reflecting_reality_tpu_torch.ops.norms import group_norm
 from tests.test_torch_helpers import init_jax, nchw_to_nhwc, nhwc_to_nchw, randn, to_torch
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 OP_TOL = dict(rtol=1e-5, atol=1e-5)
 BLOCK_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -34,6 +34,7 @@ from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
     StableDiffusionBrushNetPipeline,
 )
 from tests.test_torch_helpers import TINY, TINY_TEXT, TINY_VAE, init_jax, randn, to_torch
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 H = W = 64
 STEPS = 3

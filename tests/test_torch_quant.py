@@ -57,6 +57,7 @@ from tests.test_torch_helpers import (
     TINY, TINY_TEXT, TINY_VAE, nchw_to_nhwc, nhwc_to_nchw, port_and_jax, randn, to_torch,
 )
 from tests.test_torch_pipeline import _call_kwargs
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 J_ALL = jq.select_all
 

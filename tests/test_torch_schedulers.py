@@ -27,6 +27,7 @@ from reflecting_reality_tpu_torch.schedulers.common import NoiseSchedule, ddim_t
 from reflecting_reality_tpu_torch.schedulers.ddim import ddim_step
 from reflecting_reality_tpu_torch.schedulers.ddpm import ddpm_step
 from reflecting_reality_tpu_torch.schedulers.unipc import UniPCSampler
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 TOL_ORDER3 = dict(rtol=2e-4, atol=2e-4)

@@ -63,6 +63,7 @@ from reflecting_reality_tpu_torch.pipelines import StableDiffusionXLBrushNetPipe
 from tests.test_torch_helpers import (
     TINY_VAE, nchw_to_nhwc, nhwc_to_nchw, port_and_jax, randn, to_torch,
 )
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 H = W = 64
 POOLED = 16
@@ -87,14 +88,6 @@ TEXT1 = dict(vocab_size=1000, hidden_size=8, num_hidden_layers=2, num_attention_
 TEXT2 = dict(vocab_size=1000, hidden_size=16, num_hidden_layers=2, num_attention_heads=2,
              intermediate_size=32, projection_dim=POOLED, eos_token_id=999)
 RTOL = 1e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _seeded_jax_params(module, seed, *args, **kwargs):

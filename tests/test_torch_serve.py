@@ -42,17 +42,10 @@ from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
     StableDiffusionBrushNetPipeline,
 )
 from tests.test_torch_helpers import TINY, TINY_TEXT, TINY_VAE
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 H = W = 64
 TIMEOUT = 60
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _tiny_pipe(ip: bool = False):

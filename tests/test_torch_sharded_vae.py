@@ -30,16 +30,9 @@ from reflecting_reality_tpu_torch.parallel.sharded_vae import (
     tiled_decode,
 )
 from tests.test_torch_helpers import init_jax, nchw_to_nhwc, nhwc_to_nchw, randn, to_torch
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 OVERLAP = 4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _vaes(cfg, seed, batch):

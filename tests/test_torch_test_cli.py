@@ -32,6 +32,7 @@ from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
 )
 from tests.test_torch_cli import write_tiny_base
 from tests.tiny_checkpoint import make_synmirror_data
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 pytestmark = pytest.mark.integration
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 from tests.tiny_checkpoint import make_synmirror_data
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 h5py = pytest.importorskip("h5py")
 

@@ -55,7 +55,8 @@ from reflecting_reality_tpu_torch.training import (
     TrainConfig, assemble_conditioning_latents, ema_update, get_schedule, make_train_step,
     nearest_resize,
 )
-from tests.test_torch_helpers import jitter, nhwc_to_nchw, randn, to_torch
+from tests.test_torch_helpers import nhwc_to_nchw, port_and_jax, randn, to_torch
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 # tests/test_training.py:22-45
 CFG = dict(
@@ -91,29 +92,17 @@ def batch_of(n: int, seed: int = 0) -> dict:
     }
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tiny torch ops here are launch-bound; with the suite's parallel
-    workers each using every core they slow ~20x, so this module runs torch
-    on one thread and restores the setting after."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
 @pytest.fixture(scope="module")
 def jax_models():
-    """The four tiny JAX modules and their jittered params (numpy)."""
+    """The four tiny JAX modules and their jittered params (numpy), drawn by
+    the port from a seed and handed over through `port_and_jax` (jitting
+    the four JAX inits took ~40 s here)."""
     mods = dict(unet=JUNet(sample_size=2, **CFG), brushnet=JBrushNet(conditioning_channels=6, **BCFG),
                 vae=JVAE(**VAE_CFG), text=JCLIP(**TEXT_CFG))
-    r = jax.random.split(jax.random.PRNGKey(0), 4)
-    sample, t, ehs = jnp.zeros((1, 2, 2, 4)), jnp.array([1]), jnp.zeros((1, 7, 16))
-    args = dict(unet=(sample, t, ehs), brushnet=(sample, t, ehs, jnp.zeros((1, 2, 2, 6))),
-                vae=(jnp.zeros((1, H, W, 3)), jax.random.PRNGKey(9)),
-                text=(jnp.zeros((1, 7), jnp.int32),))
-    params = {k: jitter(jax.jit(m.init)(r[i], *args[k]), seed=i)
-              for i, (k, m) in enumerate(mods.items())}
+    ports = dict(unet=(UNet2DConditionModel, dict(sample_size=2, **CFG)),
+                 brushnet=(BrushNetModel, dict(conditioning_channels=6, **BCFG)),
+                 vae=(AutoencoderKL, VAE_CFG), text=(CLIPTextModel, TEXT_CFG))
+    params = {k: port_and_jax(cls, i, **cfg)[1] for i, (k, (cls, cfg)) in enumerate(ports.items())}
     return mods, params
 
 
