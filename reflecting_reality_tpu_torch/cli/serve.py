@@ -54,6 +54,7 @@ from __future__ import annotations
 import argparse
 import base64
 import io
+import itertools
 import json
 import logging
 import queue
@@ -64,6 +65,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from reflecting_reality_tpu_torch.core import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -145,16 +148,21 @@ class OverloadedError(RuntimeError):
 
 
 class _Pending:
-    """One queued /generate request: parsed kwargs + a completion event."""
+    """One queued /generate request: parsed kwargs + a completion event;
+    its id, its enqueue time and its `rr.serve.request` span's id (None
+    while spans are not recorded) for the queue-wait span."""
 
-    __slots__ = ("parsed", "event", "images", "error", "batch_size")
+    __slots__ = ("parsed", "event", "images", "error", "batch_size", "id", "span_id",
+                 "t_enqueued_ns", "batch")
 
-    def __init__(self, parsed):
+    def __init__(self, parsed, rid: Optional[int] = None, span_id: Optional[int] = None):
         self.parsed = parsed
         self.event = threading.Event()
         self.images = None
         self.error = None
         self.batch_size = 0
+        self.id, self.span_id, self.batch = rid, span_id, None
+        self.t_enqueued_ns = time.perf_counter_ns()
 
 
 class BatchingPipelineServer:
@@ -177,6 +185,12 @@ class BatchingPipelineServer:
     batch: arrival order holds within a compatibility class, not globally.
     A failing batch delivers its error to each of its requests, and the
     worker goes on.
+
+    Spans (`core/tracing.py`: recorded once enabled): `rr.serve.request` in the
+    handler thread, from entry to the reply built (`rr.serve.encode`: its
+    PNG encodes); `rr.serve.batch` around a batched call in the worker; and
+    each request's `rr.serve.queue_wait`, from its enqueue to its batch's
+    start.
     """
 
     def __init__(self, pipe, default_steps: int = 50, max_batch: int = 4,
@@ -196,6 +210,8 @@ class BatchingPipelineServer:
         self.batches = 0
         self.batched_requests = 0
         self.rejected = 0
+        self._request_ids = itertools.count()
+        self._batch_ids = itertools.count()
         self._queue: "queue.Queue[Optional[_Pending]]" = queue.Queue()
         self._worker = threading.Thread(target=self._run, daemon=True, name="serve-worker")
         self._worker.start()
@@ -218,17 +234,22 @@ class BatchingPipelineServer:
 
     def generate(self, payload: dict) -> dict:
         t0 = time.perf_counter()
-        if self.max_queue is not None and self._queue.qsize() >= self.max_queue:
-            self.rejected += 1
-            raise OverloadedError(f"queue full ({self.max_queue} pending); retry later")
-        req = _Pending(_parse_payload(payload, self.pipe, self.default_steps, self.dispatch))
-        self._queue.put(req)
-        req.event.wait()
-        if req.error is not None:
-            raise req.error
-        self.requests += 1
-        return {"images": [_encode_png(img) for img in req.images],
-                "latency_s": round(time.perf_counter() - t0, 3),
+        rid = next(self._request_ids)
+        with tracing.span("rr.serve.request", request=rid) as request:
+            if self.max_queue is not None and self._queue.qsize() >= self.max_queue:
+                self.rejected += 1
+                raise OverloadedError(f"queue full ({self.max_queue} pending); retry later")
+            req = _Pending(_parse_payload(payload, self.pipe, self.default_steps, self.dispatch),
+                           rid, request.id)
+            self._queue.put(req)
+            req.event.wait()
+            if req.error is not None:
+                raise req.error
+            self.requests += 1
+            request.set(batch=req.batch)
+            with tracing.span("rr.serve.encode", request=req.id):
+                images = [_encode_png(img) for img in req.images]
+        return {"images": images, "latency_s": round(time.perf_counter() - t0, 3),
                 "batch_size": req.batch_size}
 
     # -- worker side -------------------------------------------------------
@@ -307,6 +328,18 @@ class BatchingPipelineServer:
                     req.event.set()
 
     def _execute(self, batch: list) -> None:
+        bid = next(self._batch_ids)
+        for req in batch:
+            req.batch = bid
+        with tracing.span("rr.serve.batch", batch=bid, requests=[r.id for r in batch],
+                          size=len(batch)) as span:
+            if span.id is not None:      # each request's wait ends as its batch starts
+                for req in batch:
+                    tracing.record("rr.serve.queue_wait", req.t_enqueued_ns, span.t0_ns,
+                                   parent=req.span_id, request=req.id, batch=bid)
+            self._call_pipeline(batch)
+
+    def _call_pipeline(self, batch: list) -> None:
         pipe = self.pipe
         p0 = batch[0].parsed
         nip = p0["num_images_per_prompt"]

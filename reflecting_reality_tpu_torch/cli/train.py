@@ -47,12 +47,12 @@ import torch
 
 from reflecting_reality_tpu_torch.core.device import resolve_device
 from reflecting_reality_tpu_torch.core.jit_cache import enable_compilation_cache
+from reflecting_reality_tpu_torch.core.tracing import device_memory_stats
 from reflecting_reality_tpu_torch.data.loader import DataLoader, prefetch_to_device
 from reflecting_reality_tpu_torch.data.synmirror import read_rows
 from reflecting_reality_tpu_torch.ops.attention import set_attention_backend
 from reflecting_reality_tpu_torch.parallel import multihost
 from reflecting_reality_tpu_torch.training import checkpoint as ckpt
-from reflecting_reality_tpu_torch.training.profiling import device_memory_stats
 from reflecting_reality_tpu_torch.training.train_step import (
     TrainConfig,
     make_train_step,

@@ -17,6 +17,7 @@ batch out, and marks the device buffer with `record_stream`, so the caching
 allocator does not reuse it while the consumer's stream may still read it.
 A pinned buffer is refilled only after the copy out of it has completed
 (its event).  On the CPU the same batches are yielded as plain CPU tensors.
+The consumer's wait for the next batch is the `rr.loader.wait` span.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ from typing import Dict, Iterable, Iterator, List, Optional, Union
 
 import numpy as np
 import torch
+
+from reflecting_reality_tpu_torch.core import tracing
 
 
 def collate(examples) -> Dict[str, np.ndarray]:
@@ -233,7 +236,8 @@ def prefetch_to_device(iterator: Iterable[Dict[str, np.ndarray]],
     consumer = torch.cuda.current_stream(device) if on_card else None
     try:
         while True:
-            item = q.get()
+            with tracing.span("rr.loader.wait"):
+                item = q.get()
             if item is done:
                 return
             if isinstance(item, BaseException):

@@ -62,6 +62,13 @@ Multi-device (JAX :295-343, :480-511, :1170-1180), over a mesh of
   `sharded_decode`) over the mesh.  The decode takes sharded > tiled >
   plain.  The two are mutually exclusive, with JAX's errors.
 The SDXL pipeline (`brushnet_sdxl_pipeline.py`) subclasses this one.
+
+Spans (`core/tracing.py`: recorded once enabled, profiler ranges under a
+running profiler): `rr.pipeline.call` around a call, holding
+`rr.pipeline.text`, `rr.pipeline.conditioning`, `rr.pipeline.denoise` (one
+`rr.pipeline.step` a step, each holding `rr.brushnet`, `rr.unet` and
+`rr.pipeline.scheduler`), `rr.pipeline.decode` and `rr.pipeline.output`,
+where the host waits for the card.
 """
 
 from __future__ import annotations
@@ -74,6 +81,7 @@ from typing import NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from reflecting_reality_tpu_torch.core import tracing
 from reflecting_reality_tpu_torch.core.device import fp32_convolutions, resolve_device
 from reflecting_reality_tpu_torch.ops.embeddings import (
     precompute_time_embeddings, text_time_embedding,
@@ -462,37 +470,41 @@ class StableDiffusionBrushNetPipeline:
         do_cfg = guidance_scale > 1.0
         prompts = [prompt] if isinstance(prompt, str) else list(prompt)
         batch_size = len(prompts) * num_images_per_prompt
+        with tracing.span("rr.pipeline.call", batch_size=batch_size,
+                          steps=num_inference_steps) as call:
+            # 1. text
+            with tracing.span("rr.pipeline.text"):
+                prompt_embeds = self.encode_prompt(prompt, negative_prompt,
+                                                   num_images_per_prompt, do_cfg).to(self.dtype)
+            # 2.-3. the initial noise and the conditioning latents
+            with tracing.span("rr.pipeline.conditioning"):
+                latents0, cond, (h, _) = self._latents_and_conditioning(
+                    image, mask, depth, normals, height, width, batch_size, seed, generator,
+                    latents, deterministic_vae_encode)
+            call.set(height=h)
 
-        # 1. text
-        prompt_embeds = self.encode_prompt(prompt, negative_prompt, num_images_per_prompt,
-                                           do_cfg).to(self.dtype)
-        # 2.-3. the initial noise and the conditioning latents
-        latents0, cond, _ = self._latents_and_conditioning(
-            image, mask, depth, normals, height, width, batch_size, seed, generator, latents,
-            deterministic_vae_encode)
+            brushnet_embeds = prompt_embeds
+            if self.normals_conditioning_mode == "ip_adapter":
+                # the (1, 3) mean mirror normal -> one token appended to both
+                # CFG halves of the UNet's embeds; BrushNet keeps the text tokens
+                from reflecting_reality_tpu_torch.models.ip_adapter import normal_tokens
 
-        brushnet_embeds = prompt_embeds
-        if self.normals_conditioning_mode == "ip_adapter":
-            # the (1, 3) mean mirror normal -> one token appended to both CFG
-            # halves of the UNet's embeds; BrushNet keeps the text tokens
-            from reflecting_reality_tpu_torch.models.ip_adapter import normal_tokens
+                normal = torch.as_tensor(np.asarray(normals, np.float32).reshape(-1, 1, 3),
+                                         device=self.device)
+                tok = normal_tokens(normal, self.normal_proj)
+                if tok.shape[0] == 1 and batch_size > 1:
+                    tok = tok.repeat_interleave(batch_size, dim=0)
+                if do_cfg:
+                    tok = torch.cat([tok, tok])
+                prompt_embeds = torch.cat([prompt_embeds, tok.to(prompt_embeds.dtype)], dim=1)
 
-            normal = torch.as_tensor(np.asarray(normals, np.float32).reshape(-1, 1, 3),
-                                     device=self.device)
-            tok = normal_tokens(normal, self.normal_proj)
-            if tok.shape[0] == 1 and batch_size > 1:
-                tok = tok.repeat_interleave(batch_size, dim=0)
-            if do_cfg:
-                tok = torch.cat([tok, tok])
-            prompt_embeds = torch.cat([prompt_embeds, tok.to(prompt_embeds.dtype)], dim=1)
-
-        return self._sample(
-            latents0, cond, prompt_embeds, brushnet_embeds, None, batch_size, output_type,
-            num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
-            brushnet_conditioning_scale=brushnet_conditioning_scale,
-            control_guidance_start=control_guidance_start,
-            control_guidance_end=control_guidance_end, guess_mode=guess_mode,
-            scheduler=scheduler, solver_order=solver_order)
+            return self._sample(
+                latents0, cond, prompt_embeds, brushnet_embeds, None, batch_size, output_type,
+                num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+                brushnet_conditioning_scale=brushnet_conditioning_scale,
+                control_guidance_start=control_guidance_start,
+                control_guidance_end=control_guidance_end, guess_mode=guess_mode,
+                scheduler=scheduler, solver_order=solver_order)
 
     def _check_modes(self, dispatch: str, guess_mode: bool) -> None:
         if dispatch not in ("scan", "per_step"):
@@ -606,12 +618,15 @@ class StableDiffusionBrushNetPipeline:
         else:
             image_out = self._data_parallel(latents0, cond, prompt_embeds, brushnet_embeds,
                                             added, batch_size, loop)
-        if output_type == "latent":
-            return _nhwc(image_out).cpu().numpy()
-        image_u8 = _nhwc(to_uint8(image_out))
-        if output_type == "device":
-            return image_u8
-        return self.image_processor.postprocess(image_u8.cpu().numpy(), output_type=output_type)
+        # the host waits here for the card to finish the call
+        with tracing.span("rr.pipeline.output"):
+            if output_type == "latent":
+                return _nhwc(image_out).cpu().numpy()
+            image_u8 = _nhwc(to_uint8(image_out))
+            if output_type == "device":
+                return image_u8
+            return self.image_processor.postprocess(image_u8.cpu().numpy(),
+                                                    output_type=output_type)
 
     def _data_parallel(self, latents0, cond, prompt_embeds, brushnet_embeds, added,
                        batch_size: int, loop: dict) -> torch.Tensor:
@@ -711,42 +726,55 @@ class StableDiffusionBrushNetPipeline:
         lat = latents0
         interval = deep_cache or encoder_reuse
         cache = None
-        for i in range(num_inference_steps):
-            latent_in = torch.cat([lat, lat]) if do_cfg else lat
-            unet_kw = dict(temb=temb_u[i])
-            if interval is None or i % interval == 0:
-                # the full dual branch (refreshing the cache in a cached mode)
-                down_res, mid_res, up_res = self._residuals(
-                    rep.brushnet, lat, latent_in, brushnet_embeds, cond, cond_scales[i],
-                    temb_b[i], do_cfg, guess_mode)
-                out = rep.unet(latent_in.to(dtype), None, prompt_embeds,
-                               down_block_add_samples=down_res, mid_block_add_sample=mid_res,
-                               up_block_add_samples=up_res, return_deep=bool(deep_cache),
-                               return_encoder=bool(encoder_reuse), **unet_kw)
-                if deep_cache:
-                    pred, deep = out
-                    cache = (deep, down_res, mid_res, up_res)
-                elif encoder_reuse:
-                    pred, enc = out
-                    cache = (enc, mid_res, up_res)
-                else:
-                    pred = out
-            elif deep_cache:
-                deep, down_res, mid_res, up_res = cache
-                pred, _ = rep.unet(latent_in.to(dtype), None, prompt_embeds,
-                                   down_block_add_samples=down_res, mid_block_add_sample=mid_res,
-                                   up_block_add_samples=up_res, cached_deep=deep, **unet_kw)
-            else:
-                enc, mid_res, up_res = cache
-                pred, _ = rep.unet(latent_in.to(dtype), None, prompt_embeds,
-                                   mid_block_add_sample=mid_res, up_block_add_samples=up_res,
-                                   cached_encoder=enc, return_encoder=True, **unet_kw)
-            if do_cfg:
-                uncond, text = pred.float().chunk(2)
-                pred = uncond + float(np.float32(guidance_scale)) * (text - uncond)
-            if scheduler == "unipc":
-                lat, state = sampler.step(pred, i, lat, state)
-            else:
-                t_prev = int(timesteps[i + 1]) if i + 1 < num_inference_steps else -1
-                lat = ddim_step(self.schedule, pred, int(timesteps[i]), t_prev, lat)
-        return self._decode(rep.vae, (lat / sf).to(dtype))
+        with tracing.span("rr.pipeline.denoise"):
+            for i in range(num_inference_steps):
+                with tracing.span("rr.pipeline.step", i=i):
+                    latent_in = torch.cat([lat, lat]) if do_cfg else lat
+                    unet_kw = dict(temb=temb_u[i])
+                    if interval is None or i % interval == 0:
+                        # the full dual branch (refreshing the cache in a cached mode)
+                        with tracing.span("rr.brushnet", i=i):
+                            down_res, mid_res, up_res = self._residuals(
+                                rep.brushnet, lat, latent_in, brushnet_embeds, cond,
+                                cond_scales[i], temb_b[i], do_cfg, guess_mode)
+                        with tracing.span("rr.unet", i=i, mode="full"):
+                            out = rep.unet(latent_in.to(dtype), None, prompt_embeds,
+                                           down_block_add_samples=down_res,
+                                           mid_block_add_sample=mid_res,
+                                           up_block_add_samples=up_res,
+                                           return_deep=bool(deep_cache),
+                                           return_encoder=bool(encoder_reuse), **unet_kw)
+                        if deep_cache:
+                            pred, deep = out
+                            cache = (deep, down_res, mid_res, up_res)
+                        elif encoder_reuse:
+                            pred, enc = out
+                            cache = (enc, mid_res, up_res)
+                        else:
+                            pred = out
+                    elif deep_cache:
+                        deep, down_res, mid_res, up_res = cache
+                        with tracing.span("rr.unet", i=i, mode="deep_cache"):
+                            pred, _ = rep.unet(latent_in.to(dtype), None, prompt_embeds,
+                                               down_block_add_samples=down_res,
+                                               mid_block_add_sample=mid_res,
+                                               up_block_add_samples=up_res, cached_deep=deep,
+                                               **unet_kw)
+                    else:
+                        enc, mid_res, up_res = cache
+                        with tracing.span("rr.unet", i=i, mode="encoder_reuse"):
+                            pred, _ = rep.unet(latent_in.to(dtype), None, prompt_embeds,
+                                               mid_block_add_sample=mid_res,
+                                               up_block_add_samples=up_res, cached_encoder=enc,
+                                               return_encoder=True, **unet_kw)
+                    with tracing.span("rr.pipeline.scheduler", i=i):
+                        if do_cfg:
+                            uncond, text = pred.float().chunk(2)
+                            pred = uncond + float(np.float32(guidance_scale)) * (text - uncond)
+                        if scheduler == "unipc":
+                            lat, state = sampler.step(pred, i, lat, state)
+                        else:
+                            t_prev = int(timesteps[i + 1]) if i + 1 < num_inference_steps else -1
+                            lat = ddim_step(self.schedule, pred, int(timesteps[i]), t_prev, lat)
+        with tracing.span("rr.pipeline.decode"):
+            return self._decode(rep.vae, (lat / sf).to(dtype))

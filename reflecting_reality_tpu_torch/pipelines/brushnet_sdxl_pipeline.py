@@ -31,6 +31,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from reflecting_reality_tpu_torch.core import tracing
 from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
     StableDiffusionBrushNetPipeline,
 )
@@ -171,20 +172,26 @@ class StableDiffusionXLBrushNetPipeline(StableDiffusionBrushNetPipeline):
         prompts = [prompt] if isinstance(prompt, str) else list(prompt)
         batch_size = len(prompts) * num_images_per_prompt
 
-        prompt_embeds, pooled = self.encode_prompt_xl(prompt, negative_prompt, do_cfg)
-        prompt_embeds = _repeat_halves(prompt_embeds, num_images_per_prompt, do_cfg).to(self.dtype)
-        pooled = _repeat_halves(pooled, num_images_per_prompt, do_cfg)
-        latents0, cond, (h, w) = self._latents_and_conditioning(
-            image, mask, depth, normals, height, width, batch_size, seed, generator, latents,
-            deterministic_vae_encode)
-        time_ids = torch.tensor(
-            [list(original_size or (h, w)) + list(crops_coords_top_left)
-             + list(target_size or (h, w))], dtype=torch.float32, device=self.device)
-        added = {"text_embeds": pooled, "time_ids": time_ids.expand(pooled.shape[0], 6)}
-        return self._sample(
-            latents0, cond, prompt_embeds, prompt_embeds, added, batch_size, output_type,
-            num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
-            brushnet_conditioning_scale=brushnet_conditioning_scale,
-            control_guidance_start=control_guidance_start,
-            control_guidance_end=control_guidance_end, guess_mode=False,
-            scheduler=scheduler, solver_order=solver_order)
+        with tracing.span("rr.pipeline.call", batch_size=batch_size,
+                          steps=num_inference_steps) as call:
+            with tracing.span("rr.pipeline.text"):
+                prompt_embeds, pooled = self.encode_prompt_xl(prompt, negative_prompt, do_cfg)
+                prompt_embeds = _repeat_halves(prompt_embeds, num_images_per_prompt,
+                                               do_cfg).to(self.dtype)
+                pooled = _repeat_halves(pooled, num_images_per_prompt, do_cfg)
+            with tracing.span("rr.pipeline.conditioning"):
+                latents0, cond, (h, w) = self._latents_and_conditioning(
+                    image, mask, depth, normals, height, width, batch_size, seed, generator,
+                    latents, deterministic_vae_encode)
+            call.set(height=h)
+            time_ids = torch.tensor(
+                [list(original_size or (h, w)) + list(crops_coords_top_left)
+                 + list(target_size or (h, w))], dtype=torch.float32, device=self.device)
+            added = {"text_embeds": pooled, "time_ids": time_ids.expand(pooled.shape[0], 6)}
+            return self._sample(
+                latents0, cond, prompt_embeds, prompt_embeds, added, batch_size, output_type,
+                num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+                brushnet_conditioning_scale=brushnet_conditioning_scale,
+                control_guidance_start=control_guidance_start,
+                control_guidance_end=control_guidance_end, guess_mode=False,
+                scheduler=scheduler, solver_order=solver_order)

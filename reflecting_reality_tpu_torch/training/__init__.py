@@ -1,7 +1,7 @@
 """The MirrorFusion training step and its pieces (counterpart of
-`reflecting_reality_tpu/training/`): `train_step`, `lr_schedules`, `ema`,
-`checkpoint` (reference-layout checkpoints, resume, async save) and
-`profiling`."""
+`reflecting_reality_tpu/training/`): `train_step`, `lr_schedules`, `ema`
+and `checkpoint` (reference-layout checkpoints, resume, async save).  The
+step's spans and the memory readout are `core/tracing.py`'s."""
 
 from reflecting_reality_tpu_torch.training.ema import ema_update
 from reflecting_reality_tpu_torch.training.lr_schedules import get_schedule

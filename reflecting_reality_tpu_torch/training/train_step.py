@@ -49,6 +49,10 @@ The non-finite guard needs the host to see the loss and the gradient norm
 AdamW moments, the accumulated gradients and the EMA untouched (:370-389).
 On fake tensors (`tools/aot_memory.py` runs this step to plan its memory)
 the host reads see no value: the step takes the finite branch and clips.
+Spans (`core/tracing.py`): `rr.train.step` holds `rr.train.forward`,
+`rr.train.backward`, `rr.train.all_reduce`, the host reads
+(`rr.train.host_read`: the guard's, and the clip's inside
+`rr.train.optimizer`) and `rr.train.optimizer`.
 `gradient_accumulation_steps = K` averages K micro-steps and updates on the
 K-th, like `optax.MultiSteps`; the LR schedule counts updates, not
 micro-steps.  `draws=` lets a caller pass the step's random numbers in (the
@@ -80,6 +84,7 @@ from torch import nn
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.checkpoint import checkpoint
 
+from reflecting_reality_tpu_torch.core import tracing
 from reflecting_reality_tpu_torch.core.device import fp32_convolutions, resolve_device
 from reflecting_reality_tpu_torch.models.vae import DiagonalGaussian
 from reflecting_reality_tpu_torch.parallel import multihost
@@ -356,11 +361,15 @@ def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
-def _host_float(x: torch.Tensor, planned: float) -> float:
-    """x's value on the host.  A fake tensor (the memory plan of
+def _host_float(x: torch.Tensor, planned: float, what: str) -> float:
+    """x's value on the host (a synchronisation, spanned as
+    `rr.train.host_read`).  A fake tensor (the memory plan of
     `tools/aot_memory.py`) has none and gives `planned`: a plan takes the
     finite branch, clipping included."""
-    return planned if isinstance(x, FakeTensor) else x.item()
+    if isinstance(x, FakeTensor):
+        return planned
+    with tracing.span("rr.train.host_read", what=what):
+        return x.item()
 
 
 def gradients_and_loss(params: List[nn.Parameter], loss: torch.Tensor
@@ -368,9 +377,10 @@ def gradients_and_loss(params: List[nn.Parameter], loss: torch.Tensor
     """After `loss.backward()`: the parameters' gradients (zeros where none
     flowed) and the loss, both averaged across the data-parallel ranks (as
     is, in one process)."""
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-    loss = loss.detach().clone()
-    multihost.all_reduce_mean([*grads, loss])
+    with tracing.span("rr.train.all_reduce"):
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        loss = loss.detach().clone()
+        multihost.all_reduce_mean([*grads, loss])
     return grads, loss
 
 
@@ -393,7 +403,7 @@ def apply_update(state: TrainState, grads: List[torch.Tensor], config: TrainConf
         update = state.micro_step == k
         grads = state.grad_acc
     if update:
-        norm = _host_float(_global_norm(grads), config.max_grad_norm)
+        norm = _host_float(_global_norm(grads), config.max_grad_norm, "grad_norm")
         if norm >= config.max_grad_norm:   # optax: g / ‖g‖ · max_norm
             torch._foreach_div_(grads, norm)
             torch._foreach_mul_(grads, config.max_grad_norm)
@@ -524,17 +534,22 @@ def make_train_step(unet: nn.Module, brushnet: nn.Module, vae: nn.Module,
     def train_step(state: TrainState, batch: Mapping[str, Any],
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Mapping[str, Any]] = None):
-        with fp32_convolutions(dtype):
-            loss = compute_loss(state, batch, generator, draws or {})
-            loss.backward()
-        grads, loss = gradients_and_loss(state.params, loss)
-        grad_norm = _global_norm(grads)
-        finite = bool(_host_float(torch.isfinite(loss) & torch.isfinite(grad_norm), 1.0))
-        if finite:
-            apply_update(state, grads, config, schedule_fn)
-        for p in state.params:
-            p.grad = None
-        state.step += 1
+        with tracing.span("rr.train.step", step=state.step):
+            with fp32_convolutions(dtype):
+                with tracing.span("rr.train.forward"):
+                    loss = compute_loss(state, batch, generator, draws or {})
+                with tracing.span("rr.train.backward"):
+                    loss.backward()
+            grads, loss = gradients_and_loss(state.params, loss)
+            grad_norm = _global_norm(grads)
+            finite = bool(_host_float(torch.isfinite(loss) & torch.isfinite(grad_norm), 1.0,
+                                      "finite"))
+            if finite:
+                with tracing.span("rr.train.optimizer"):
+                    apply_update(state, grads, config, schedule_fn)
+            for p in state.params:
+                p.grad = None
+            state.step += 1
         metrics = {"loss": loss, "grad_norm": grad_norm,
                    "nonfinite_skipped": torch.tensor(0.0 if finite else 1.0)}
         return state, metrics

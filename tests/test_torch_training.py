@@ -24,8 +24,6 @@ The pieces (schedules, noise math, EMA, weight surgery) are held at rtol
 1e-6 or exactly where both sides do the same fp32 arithmetic.
 """
 
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -540,13 +538,23 @@ def test_nearest_resize_matches_interpolate():
                                    rtol=0, atol=0)
 
 
-def test_profiling_helpers(tmp_path):
-    from reflecting_reality_tpu_torch.training import profiling
+def test_profiling_helpers():
+    """`core.tracing`: a span under a profiler records itself and opens its
+    `name#id` range; the memory readout is empty without a card."""
+    from torch.profiler import ProfilerActivity, profile
 
-    with profiling.trace(str(tmp_path)) as prof:
-        torch.ones(8).add_(1)
+    from reflecting_reality_tpu_torch.core import tracing
+
+    tracing.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with tracing.span("rr.test", k=1) as sp:
+                torch.ones(8).add_(1)
+    finally:
+        tracing.disable()
+    (rec,) = tracing.take()["spans"]
+    assert rec["name"] == "rr.test" and rec["id"] == sp.id and rec["attrs"] == {"k": 1}
+    assert rec["t0_ns"] <= rec["t1_ns"] and rec["parent"] is None
+    assert any(e.key == f"rr.test#{sp.id}" for e in prof.key_averages())
     assert any(e.key == "aten::add_" for e in prof.key_averages())
-    assert [f for f in os.listdir(tmp_path) if f.endswith(".json")]
-    timer = profiling.StepTimer(window=2)
-    assert timer.tick() is None and timer.tick() > 0
-    assert profiling.device_memory_stats() == {} or torch.cuda.is_available()
+    assert tracing.device_memory_stats() == {} or torch.cuda.is_available()
