@@ -159,9 +159,14 @@ Phases, each printing one JSON line:
              name), one solo request, then SERVE_REQUESTS concurrent ones at
              SERVE_STEPS steps (PNG inputs, a 16-bit depth PNG): latency p50
              and p95, images/s, the batches formed; the solo reply within 1
-             uint8 level of a direct pipeline call on the same payload; B1
-             and B2 launched.  Then the same with `--int8` (`serve_int8`):
-             images/s beside the exact server's, int8 GEMMs launched.
+             uint8 level of a direct, eager pipeline call on the same
+             payload.  The server steps on CUDA graphs: /healthz's graph
+             counters show replays, and the solo request again under the
+             profiler launches two graphs a step, with B1 and B2 among the
+             kernels those launch: each B1 and B2 kernel as often as the
+             eager call's denoise loop launches it.  Then the same with `--int8`
+             (`serve_int8`, eager: no graph): images/s beside the exact
+             server's, B1, B2 and int8 GEMMs launched.
  15. baseline  the SD-inpainting baseline at full width: its training step
              (the whole 10-channel UNet trainable, fp32 as the baseline
              CLI's default, 512² batch 4, depth concat, AdamW lr 5e-6): a
@@ -2774,7 +2779,9 @@ def phase_serve(torch, gpu_line: str, tmp: str, int8: bool = False, exact=None):
     512², with `--int8` when `int8`) behind its handler on 127.0.0.1 in a
     thread: /healthz, one solo request, then SERVE_REQUESTS concurrent ones
     at SERVE_STEPS steps -> ({path: {(kernel, key): launches}}, the burst's
-    images/s).  `exact` is the exact server's images/s, printed beside."""
+    images/s).  `exact` is the exact server's images/s, printed beside.
+    The launches are those the host made: under graphs, the captures' and
+    no replay's (what the replays ran is read from a profiler trace)."""
     import base64
     import io
     import threading
@@ -2850,10 +2857,15 @@ def phase_serve(torch, gpu_line: str, tmp: str, int8: bool = False, exact=None):
         launched, by_shape = read_counters(), read_counters_by_shape()
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             stats = json.loads(r.read())
-        # the solo reply against a direct pipeline call on the same payload
-        direct = pipe(**serve._parse_payload(payload(0), pipe, SERVE_STEPS))[0]
+        # the solo request again, its steps replayed, against the direct
+        # call on the same payload with graphs off (the eager pipeline)
+        replayed = None if int8 else graph_kernels(torch, lambda: post(payload(0)))
+        pipe.disable_cuda_graphs()
+        eager = {}
+        eager_kernels = graph_kernels(torch, lambda: eager.update(direct=pipe(
+            **serve._parse_payload(payload(0), pipe, SERVE_STEPS))[0]))
         got = np.asarray(Image.open(io.BytesIO(base64.b64decode(solo["images"][0]))))
-        solo_diff = int(np.abs(got.astype(np.int16) - direct.astype(np.int16)).max())
+        solo_diff = int(np.abs(got.astype(np.int16) - eager["direct"].astype(np.int16)).max())
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -2871,7 +2883,8 @@ def phase_serve(torch, gpu_line: str, tmp: str, int8: bool = False, exact=None):
                      "latency_p50_s": float(np.percentile(lat, 50)) if lat else None,
                      "latency_p95_s": float(np.percentile(lat, 95)) if lat else None,
                      "batch_sizes": sorted(r[1]["batch_size"] for r in results if r)},
-           "stats": stats, "launches": launched, "phase_wall_s": time.perf_counter() - t_phase}
+           "stats": stats, "launches": launched, "eager_call_kernels": eager_kernels,
+           "replayed_solo_kernels": replayed, "phase_wall_s": time.perf_counter() - t_phase}
     if int8:
         res["int8_mm_launches"] = int8_counter().launches
         res["exact_server_images_per_s"] = exact
@@ -2887,14 +2900,69 @@ def phase_serve(torch, gpu_line: str, tmp: str, int8: bool = False, exact=None):
     if stats["requests"] < 1 + SERVE_REQUESTS or stats["batches"] < 2 + 1 + 1 \
             or not max(res["burst"]["batch_sizes"]) > 1:
         bad.append(f"stats {stats}, batch sizes {res['burst']['batch_sizes']}")
-    if launched["flash"] == 0 or launched["groupnorm"] == 0:
-        bad.append(f"launches {launched}")
-    if int8 and not res["int8_mm_launches"] > 0:
-        bad.append("no int8_mm launch")
+    graphs = stats["graphs"]
+    if int8:
+        # int8 steps stay eager: every B1 and B2 launch is the host's
+        if launched["flash"] == 0 or launched["groupnorm"] == 0 or graphs["replays"] > 0:
+            bad.append(f"launches {launched}, graphs {graphs}")
+        if not res["int8_mm_launches"] > 0:
+            bad.append("no int8_mm launch")
+    elif not (graphs["replays"] > 0 and graphs["eager_steps"] == 0
+              and replayed["graph_launches"] == 2 * SERVE_STEPS
+              and replayed["in_graphs"].get("flash_fwd_wgmma", 0) > 0
+              and replayed["in_graphs"].get("gn_kernel", 0) > 0
+              and replayed["in_graphs"] == eager_kernels["in_denoise"]):
+        bad.append(f"graphs {graphs}, replayed solo {replayed}, eager call {eager_kernels}")
     if bad:
         raise AssertionError(f"{res['phase']} failed: {bad}")
     return ({"serve_int8_requests" if int8 else "serve_requests": by_shape},
             res["burst"]["images_per_s"])
+
+
+def graph_kernels(torch, fn) -> dict:
+    """fn() under the profiler: its CUDA graph launches, and the B1 and B2
+    kernels it ran ({name: count}; the unqualified name, without template
+    arguments): all of them, those a graph launch launched, and those
+    launched inside a `rr.pipeline.denoise` range on the launching thread
+    (the profiler records the ranges of the thread that started it), each
+    kernel matched to its launch by the profiler's correlation id."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    finally:
+        os.remove(path)
+    calls = {e.get("args", {}).get("correlation"): e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")}
+    launches = [c for c, e in calls.items() if e["name"] in ("cudaGraphLaunch", "cuGraphLaunch")]
+    denoise = [e for e in events if e["name"].startswith("rr.pipeline.denoise#")]
+
+    def in_denoise(call) -> bool:
+        return any(r["tid"] == call["tid"] and r["ts"] <= call["ts"] <= r["ts"] + r["dur"]
+                   for r in denoise)
+
+    counts = {"all": {}, "in_graphs": {}, "in_denoise": {}}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        # "void (anonymous namespace)::gn_kernel<__nv_bfloat16, 8, true, 0>(...)"
+        name = re.search(r"\w+(?=[<(])|\w+$|$", e["name"]).group(0)
+        if name not in ("flash_fwd_wgmma", "flash_fwd_tf32", "gn_kernel"):
+            continue
+        corr = e.get("args", {}).get("correlation")
+        for where, yes in (("all", True), ("in_graphs", corr in launches),
+                           ("in_denoise", corr in calls and in_denoise(calls[corr]))):
+            if yes:
+                counts[where][name] = counts[where].get(name, 0) + 1
+    return {"graph_launches": len(launches), **counts}
 
 
 # ------------------------------------------------------------------ int8

@@ -186,6 +186,15 @@ class BatchingPipelineServer:
     A failing batch delivers its error to each of its requests, and the
     worker goes on.
 
+    A pipeline on a card serves on CUDA graphs (`enable_cuda_graphs`): the
+    server lives long and its batches take few step shapes, so each shape's
+    graphs are captured once (by `warmup`, or by the first batch of that
+    shape) and replayed by every later step.  It keeps the graphs of
+    2 x `max_batch` shapes, the least recently used dropped first: the
+    batch sizes at one resolution, each at a guidance window's two
+    conditioning scales, and what clients vary beyond that is captured
+    anew, in bounded memory.
+
     Spans (`core/tracing.py`: recorded once enabled): `rr.serve.request` in the
     handler thread, from entry to the reply built (`rr.serve.encode`: its
     PNG encodes); `rr.serve.batch` around a batched call in the worker; and
@@ -199,6 +208,8 @@ class BatchingPipelineServer:
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self.pipe = pipe
+        if pipe.device.type == "cuda":
+            pipe.enable_cuda_graphs(max_keys=2 * max_batch)
         self.default_steps = default_steps
         # the dispatch of requests that name none
         self.dispatch = dispatch
@@ -224,6 +235,7 @@ class BatchingPipelineServer:
             "queue_depth": self._queue.qsize(),
             "max_batch": self.max_batch,
             "rejected": self.rejected,
+            "graphs": self.pipe.graph_stats(),
         }
 
     def close(self):

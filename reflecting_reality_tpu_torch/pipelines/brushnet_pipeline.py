@@ -63,12 +63,18 @@ Multi-device (JAX :295-343, :480-511, :1170-1180), over a mesh of
   plain.  The two are mutually exclusive, with JAX's errors.
 The SDXL pipeline (`brushnet_sdxl_pipeline.py`) subclasses this one.
 
+CUDA graphs (`enable_cuda_graphs`, `pipelines/cuda_graphs.py`; off by
+default, the server turns them on): on the exact path on a card, each
+step's BrushNet and UNet calls replay a graph captured at the first step of
+their shape; the modules are still called, so their hooks run.
+
 Spans (`core/tracing.py`: recorded once enabled, profiler ranges under a
 running profiler): `rr.pipeline.call` around a call, holding
 `rr.pipeline.text`, `rr.pipeline.conditioning`, `rr.pipeline.denoise` (one
 `rr.pipeline.step` a step, each holding `rr.brushnet`, `rr.unet` and
 `rr.pipeline.scheduler`), `rr.pipeline.decode` and `rr.pipeline.output`,
-where the host waits for the card.
+where the host waits for the card.  `rr.brushnet` and `rr.unet` carry
+`graph`: "replay", "capture" or "eager".
 """
 
 from __future__ import annotations
@@ -86,6 +92,7 @@ from reflecting_reality_tpu_torch.core.device import fp32_convolutions, resolve_
 from reflecting_reality_tpu_torch.ops.embeddings import (
     precompute_time_embeddings, text_time_embedding,
 )
+from reflecting_reality_tpu_torch.pipelines.cuda_graphs import StepGraphs, graph_mode, step_key
 from reflecting_reality_tpu_torch.pipelines.image_processor import ImageProcessor
 from reflecting_reality_tpu_torch.schedulers.common import NoiseSchedule, ddim_timesteps
 from reflecting_reality_tpu_torch.schedulers.ddim import ddim_step
@@ -186,6 +193,8 @@ class StableDiffusionBrushNetPipeline:
         self._sharded_vae = None    # (mesh, exact, VAE replicas) when enabled
         self._dp_mesh = None        # the data-parallel mesh when enabled
         self._dp_replicas = None    # its replicas, built at the first call
+        self._int8 = False          # enable_int8 has run
+        self._graphs = None         # the StepGraphs when CUDA graphs are enabled
 
     @classmethod
     def from_pretrained(
@@ -256,6 +265,8 @@ class StableDiffusionBrushNetPipeline:
                 setattr(self, name, module.to(self.device))
         self._prompt_cache.clear()
         self._dp_replicas = None
+        if self._graphs is not None:
+            self._graphs.clear()
         return self
 
     # ------------------------------------------------------ approximate modes
@@ -354,7 +365,47 @@ class StableDiffusionBrushNetPipeline:
         if n == 0:
             raise ValueError("no kernels selected for int8 quantization")
         self._dp_replicas = None    # data-parallel replicas copy the quantized modules
+        self._int8 = True           # steps run eagerly from here (`_graphed`)
         return n
+
+    # ----------------------------------------------------------- CUDA graphs
+
+    def enable_cuda_graphs(self, max_keys: int = 8) -> None:
+        """CUDA graphs over each denoise step's BrushNet and UNet calls
+        (`pipelines/cuda_graphs.py`): a graph per module and step key
+        (`cuda_graphs.step_key`), captured at the key's first step and
+        replayed at the later ones, on the exact path on a card.  The steps
+        of DeepCache, encoder reuse, int8, data parallelism, autocast and
+        the CPU stay eager, as does the scheduler and CFG combine of every
+        step.  Exact: a replay runs the kernels the eager step runs.
+
+        For a long-lived caller whose step shapes are a small set (the
+        server): the graphs of at most `max_keys` keys are kept, the least
+        recently used dropped first, so each kept key holds its graphs'
+        inputs, outputs and share of the pool.  Graphs fix the modules'
+        weights' addresses and their attention backends as captured;
+        `to()` drops them."""
+        if self._graphs is None:
+            self._graphs = StepGraphs((self.unet, self.brushnet), max_keys)
+
+    def disable_cuda_graphs(self) -> None:
+        """Drop the graphs: every step runs eagerly again."""
+        if self._graphs is not None:
+            self._graphs.close()
+            self._graphs = None
+
+    def graph_stats(self) -> dict:
+        """{captures, replays, eager_steps} since `enable_cuda_graphs`
+        (zeros without it): graphs captured and replayed, and the denoise
+        steps that ran without them."""
+        if self._graphs is None:
+            return {"captures": 0, "replays": 0, "eager_steps": 0}
+        return self._graphs.stats()
+
+    def _graphed(self, rep: "_Replica", interval) -> bool:
+        """Whether this loop's steps run on graphs (the exact path on a card)."""
+        return (self._graphs is not None and rep.device.type == "cuda" and interval is None
+                and not self._int8 and self._dp_mesh is None and not self.autocast)
 
     # ------------------------------------------------------------------ text
 
@@ -405,23 +456,25 @@ class StableDiffusionBrushNetPipeline:
                 and self.brushnet.add_embedding is None)
 
     def _residuals(self, brushnet, latents, latent_in, brushnet_embeds, cond_latents,
-                   cond_scale, temb, do_cfg, guess_mode):
-        """One BrushNet evaluation -> (down, mid, up) at the model batch."""
+                   cond_scale, temb, do_cfg, guess_mode, graph_key=None):
+        """One BrushNet evaluation -> (down, mid, up) at the model batch;
+        through the step's graph when `graph_key` is given."""
         d = self.dtype
+        gk = {} if graph_key is None else {"graph_key": graph_key}
         if self._brushnet_cfg_dedup(do_cfg, guess_mode):
             return _tile(brushnet(
                 latents.to(d), None, brushnet_embeds[latents.shape[0]:], cond_latents,
-                conditioning_scale=cond_scale, temb=temb))
+                conditioning_scale=cond_scale, temb=temb, **gk))
         if guess_mode and do_cfg:
             down, mid, up = brushnet(
                 latents.to(d), None, brushnet_embeds[brushnet_embeds.shape[0] // 2:],
-                cond_latents, conditioning_scale=cond_scale, guess_mode=True, temb=temb)
+                cond_latents, conditioning_scale=cond_scale, guess_mode=True, temb=temb, **gk)
             return ([torch.cat([torch.zeros_like(x), x]) for x in down],
                     torch.cat([torch.zeros_like(mid), mid]),
                     [torch.cat([torch.zeros_like(x), x]) for x in up])
         cond_b = torch.cat([cond_latents, cond_latents]) if do_cfg else cond_latents
         return brushnet(latent_in.to(d), None, brushnet_embeds, cond_b,
-                             conditioning_scale=cond_scale, guess_mode=guess_mode, temb=temb)
+                        conditioning_scale=cond_scale, guess_mode=guess_mode, temb=temb, **gk)
 
     # ----------------------------------------------------------------- call
 
@@ -725,19 +778,32 @@ class StableDiffusionBrushNetPipeline:
 
         lat = latents0
         interval = deep_cache or encoder_reuse
+        graphed = self._graphed(rep, interval)
+        dedup = self._brushnet_cfg_dedup(do_cfg, guess_mode)
         cache = None
         with tracing.span("rr.pipeline.denoise"):
             for i in range(num_inference_steps):
                 with tracing.span("rr.pipeline.step", i=i):
                     latent_in = torch.cat([lat, lat]) if do_cfg else lat
                     unet_kw = dict(temb=temb_u[i])
+                    key = None
+                    if graphed:
+                        key = step_key(latent_in.shape[0], lat.shape[2:], prompt_embeds.shape,
+                                       dtype, do_cfg, guess_mode, dedup, cond_scales[i])
+                        unet_kw["graph_key"] = key
+                    elif self._graphs is not None:
+                        self._graphs.count_eager()
                     if interval is None or i % interval == 0:
                         # the full dual branch (refreshing the cache in a cached mode)
-                        with tracing.span("rr.brushnet", i=i):
+                        with tracing.span("rr.brushnet", i=i,
+                                          graph=graph_mode(rep.brushnet, key)):
                             down_res, mid_res, up_res = self._residuals(
                                 rep.brushnet, lat, latent_in, brushnet_embeds, cond,
-                                cond_scales[i], temb_b[i], do_cfg, guess_mode)
-                        with tracing.span("rr.unet", i=i, mode="full"):
+                                cond_scales[i], temb_b[i], do_cfg, guess_mode, key)
+                        with tracing.span("rr.unet", i=i, mode="full",
+                                          graph=graph_mode(rep.unet, key)):
+                            # with a key: the graph's static output, read by
+                            # the CFG combine and the sampler within this step
                             out = rep.unet(latent_in.to(dtype), None, prompt_embeds,
                                            down_block_add_samples=down_res,
                                            mid_block_add_sample=mid_res,
@@ -754,7 +820,7 @@ class StableDiffusionBrushNetPipeline:
                             pred = out
                     elif deep_cache:
                         deep, down_res, mid_res, up_res = cache
-                        with tracing.span("rr.unet", i=i, mode="deep_cache"):
+                        with tracing.span("rr.unet", i=i, mode="deep_cache", graph="eager"):
                             pred, _ = rep.unet(latent_in.to(dtype), None, prompt_embeds,
                                                down_block_add_samples=down_res,
                                                mid_block_add_sample=mid_res,
@@ -762,7 +828,7 @@ class StableDiffusionBrushNetPipeline:
                                                **unet_kw)
                     else:
                         enc, mid_res, up_res = cache
-                        with tracing.span("rr.unet", i=i, mode="encoder_reuse"):
+                        with tracing.span("rr.unet", i=i, mode="encoder_reuse", graph="eager"):
                             pred, _ = rep.unet(latent_in.to(dtype), None, prompt_embeds,
                                                mid_block_add_sample=mid_res,
                                                up_block_add_samples=up_res, cached_encoder=enc,

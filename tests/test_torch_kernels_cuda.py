@@ -404,3 +404,117 @@ def test_groupnorm_wrapper_raises_on_non_contiguous(cuda):
     x = torch.randn(2, 64, 8, 8, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         gn.group_norm_silu_fwd(x, w.half(), w.half(), 32, 1e-5)
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+GRAPH_PX, GRAPH_STEPS = 512, 4
+
+
+@pytest.fixture(scope="module")
+def graph_pipe():
+    """The SD-1.5 pipeline at full width and one resnet a level, bf16 at
+    512², BrushNet's zero convs given seeded values; the decoder's pre-hook
+    keeps each call's final latents."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from reflecting_reality_tpu_torch.data.tokenizer import HashTokenizer
+    from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
+    from reflecting_reality_tpu_torch.models.clip_text import CLIPTextModel
+    from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
+    from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+    from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
+        StableDiffusionBrushNetPipeline,
+    )
+
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        unet, vae = UNet2DConditionModel(layers_per_block=1), AutoencoderKL(layers_per_block=1)
+        brushnet = BrushNetModel(conditioning_channels=6, layers_per_block=1)
+        text = CLIPTextModel()
+    g = torch.Generator("cuda").manual_seed(1)
+    convs = (list(brushnet.brushnet_down_blocks) + [brushnet.brushnet_mid_block]
+             + list(brushnet.brushnet_up_blocks))
+    with torch.no_grad():
+        for conv in convs:
+            for p in (conv.weight, conv.bias):
+                p.copy_(torch.randn(p.shape, generator=g, device=p.device) * 0.02)
+    pipe = StableDiffusionBrushNetPipeline(
+        vae=vae, text_encoder=text, tokenizer=HashTokenizer(vocab_size=49408), unet=unet,
+        brushnet=brushnet, depth_conditioning_mode="concat", dtype=torch.bfloat16, device="cuda")
+    pipe.final_latents = []       # (a copy, the storage address) a call
+    pipe.vae.decoder.register_forward_pre_hook(lambda module, args: pipe.final_latents.append(
+        (args[0].clone(), args[0].untyped_storage().data_ptr())))
+    return pipe
+
+
+def _graph_call(pipe, batch: int, seed: int) -> torch.Tensor:
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    mask = np.zeros((batch, GRAPH_PX, GRAPH_PX, 3), np.float32)
+    mask[:, 128:384, 160:352] = 1.0
+    latents = torch.randn((batch, GRAPH_PX // 8, GRAPH_PX // 8, 4),
+                          generator=torch.Generator().manual_seed(seed))
+    return pipe([f"a mirror, request {k}" for k in range(batch)],
+                image=rng.rand(batch, GRAPH_PX, GRAPH_PX, 3).astype(np.float32), mask=mask,
+                depth=rng.rand(batch, GRAPH_PX, GRAPH_PX, 1).astype(np.float32),
+                num_inference_steps=GRAPH_STEPS, latents=latents.numpy(),
+                deterministic_vae_encode=True, output_type="device")
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_graphed_steps_equal_the_eager_steps(graph_pipe, batch):
+    """A 4-step call on graphs against the eager call: the same final
+    latents (expected bitwise; held to 1e-3 of their largest value); the
+    same B1 and B2 kernels, as often, in a profiler trace, the steps' among
+    those the two graph launches a step launch; the wrappers count only the
+    launches the host makes, none of a replay's; a second call of the shape
+    captures nothing; nothing a call returns or keeps is a graph's output,
+    which the next call of its shape overwrites."""
+    from chip_smoke import graph_kernels
+
+    pipe, out = graph_pipe, {}
+    pipe.disable_cuda_graphs()
+    n0 = fa.flash_attention_fwd.launches
+    eager_kernels = graph_kernels(torch, lambda: out.update(
+        image=_graph_call(pipe, batch, seed=batch)))
+    n1 = fa.flash_attention_fwd.launches
+    eager_image, eager = out["image"], pipe.final_latents[-1][0]
+    pipe.enable_cuda_graphs()
+    try:
+        _graph_call(pipe, batch, seed=batch)                   # captures the key
+        stats = pipe.graph_stats()
+        assert stats["captures"] == 2 and stats["eager_steps"] == 0
+        n2 = fa.flash_attention_fwd.launches
+        replayed = graph_kernels(torch, lambda: out.update(           # replays only
+            image=_graph_call(pipe, batch, seed=batch)))
+        n3 = fa.flash_attention_fwd.launches
+        image = out["image"]
+        graphed, graphed_ptr = pipe.final_latents[-1]
+        assert pipe.graph_stats() == {"captures": 2, "replays": 4 * GRAPH_STEPS,
+                                      "eager_steps": 0}
+        assert replayed["graph_launches"] == 2 * GRAPH_STEPS
+        assert replayed["all"] == eager_kernels["all"], (replayed, eager_kernels)
+        in_graphs = replayed["in_graphs"]
+        assert in_graphs.get("flash_fwd_wgmma", 0) > 0 and in_graphs.get("gn_kernel", 0) > 0
+        assert n1 - n0 == eager_kernels["all"]["flash_fwd_wgmma"]
+        assert n3 - n2 == n1 - n0 - in_graphs["flash_fwd_wgmma"]
+        gap = (graphed.float() - eager.float()).abs().max().item()
+        assert gap <= 1e-3 * eager.float().abs().max().item(), gap
+        print(f"batch {batch}: graphed latents bitwise equal to eager: "
+              f"{torch.equal(graphed, eager)}, max gap {gap}; kernels in graphs {in_graphs}")
+        assert (image.int() - eager_image.int()).abs().max().item() <= 1
+
+        outputs = [x for fwd in (pipe.unet.forward, pipe.brushnet.forward)
+                   for g in fwd.graphs.values()
+                   for x in torch.utils._pytree.tree_leaves(g.outputs)]
+        ptrs = {x.untyped_storage().data_ptr() for x in outputs}
+        assert graphed_ptr not in ptrs
+        assert image.untyped_storage().data_ptr() not in ptrs
+        kept = image.clone()
+        _graph_call(pipe, batch, seed=batch + 100)             # other inputs, same key
+        assert torch.equal(image, kept)
+        assert pipe.graph_stats()["captures"] == 2
+    finally:
+        pipe.disable_cuda_graphs()

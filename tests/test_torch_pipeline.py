@@ -11,11 +11,14 @@ layers per step, amplified by CFG 7.5.  The uint8 images may then differ by
 at most 1 where a value sits on a rounding boundary.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 from reflecting_reality_tpu.data.tokenizer import HashTokenizer as JHashTokenizer
 from reflecting_reality_tpu.models.brushnet import BrushNetModel as JBrushNet
@@ -25,11 +28,14 @@ from reflecting_reality_tpu.models.vae import AutoencoderKL as JVAE
 from reflecting_reality_tpu.pipelines.brushnet_pipeline import (
     StableDiffusionBrushNetPipeline as JPipeline,
 )
+from reflecting_reality_tpu_torch.core import tracing
 from reflecting_reality_tpu_torch.data.tokenizer import HashTokenizer
 from reflecting_reality_tpu_torch.models.brushnet import BrushNetModel
 from reflecting_reality_tpu_torch.models.clip_text import CLIPTextModel
 from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
 from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+from reflecting_reality_tpu_torch.parallel.mesh import make_mesh
+from reflecting_reality_tpu_torch.pipelines import cuda_graphs
 from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
     StableDiffusionBrushNetPipeline,
 )
@@ -219,3 +225,202 @@ def test_entry_point_defaults_to_the_card(pipes):
             unet=tpipe.unet, brushnet=tpipe.brushnet, depth_conditioning_mode="concat")
     with pytest.raises(RuntimeError, match="cuda"):
         StableDiffusionBrushNetPipeline.from_pretrained("/nonexistent", "/nonexistent")
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+
+class _FakeGraph:
+    """A CPU stand-in for a captured graph: a replay recomputes the forward
+    from the static inputs and writes the static outputs in place, as a
+    replay overwrites them on the card, so an output kept past its step
+    would change under the caller."""
+
+    def __init__(self, fn, args, kwargs, outputs):
+        self.fn, self.args, self.kwargs, self.outputs = fn, args, kwargs, outputs
+
+    def replay(self):
+        new = self.fn(*self.args, **self.kwargs)
+        for old, fresh in zip(pytree.tree_leaves(self.outputs), pytree.tree_leaves(new)):
+            old.copy_(fresh)
+
+
+@pytest.fixture
+def emulated_graphs(monkeypatch):
+    """The graphed path on the CPU: a CPU replica passes for a card's in the
+    pipeline's choice, and a capture records a `_FakeGraph`."""
+    graphed = StableDiffusionBrushNetPipeline._graphed
+    monkeypatch.setattr(
+        StableDiffusionBrushNetPipeline, "_graphed",
+        lambda self, rep, interval: graphed(self, rep._replace(device=torch.device("cuda")),
+                                            interval))
+    monkeypatch.setattr(cuda_graphs, "_warm_up", lambda fn, args, kwargs: fn(*args, **kwargs))
+
+    def record(fn, args, kwargs, owner):
+        out = fn(*args, **kwargs)
+        return _FakeGraph(fn, args, kwargs, out), out
+
+    monkeypatch.setattr(cuda_graphs, "_record", record)
+
+
+@pytest.fixture
+def graph_pipe(pipes):
+    """A copy of the tiny pipeline (so that modes and graphs stay off the
+    shared one), with its eager output of `_call_kwargs()`."""
+    pipe = copy.deepcopy(pipes[1])
+    return pipe, pipe(**_call_kwargs(), output_type="latent")
+
+
+def test_cuda_graphs_on_the_cpu_leave_every_step_eager(graph_pipe):
+    pipe, eager = graph_pipe
+    pipe.enable_cuda_graphs()
+    tracing.enable()
+    try:
+        got = pipe(**_call_kwargs(), output_type="latent")
+    finally:
+        tracing.disable()
+        spans = tracing.take()["spans"]
+    np.testing.assert_array_equal(got, eager)
+    assert pipe.graph_stats() == {"captures": 0, "replays": 0, "eager_steps": STEPS}
+    assert [s["attrs"]["graph"] for s in spans
+            if s["name"] in ("rr.unet", "rr.brushnet")] == ["eager"] * (2 * STEPS)
+    pipe.disable_cuda_graphs()
+    assert "forward" not in vars(pipe.unet) and "forward" not in vars(pipe.brushnet)
+    assert pipe.graph_stats() == {"captures": 0, "replays": 0, "eager_steps": 0}
+
+
+@pytest.mark.parametrize("variant, keys", [
+    ({}, 1),                                            # CFG, BrushNet deduplicated
+    (dict(guess_mode=True), 1),                         # BrushNet on the cond half
+    (dict(guidance_scale=1.0, scheduler="ddim"), 1),    # no CFG: outputs used as they are
+    (dict(control_guidance_start=0.34, brushnet_conditioning_scale=0.7), 2),  # scales 0, 0, 0.7
+])
+def test_emulated_graphs_equal_the_eager_steps(graph_pipe, emulated_graphs, variant, keys):
+    """Captured once a key, replayed at every step, equal to the eager
+    call; a second call of the same shape captures nothing new."""
+    pipe, _ = graph_pipe
+    kw = dict(_call_kwargs(), **variant)
+    eager = pipe(**kw, output_type="latent")
+    pipe.enable_cuda_graphs()
+    tracing.enable()
+    try:
+        got = pipe(**kw, output_type="latent")
+    finally:
+        tracing.disable()
+        spans = tracing.take()["spans"]
+    np.testing.assert_array_equal(got, eager)
+    assert pipe.graph_stats() == {"captures": 2 * keys, "replays": 2 * STEPS, "eager_steps": 0}
+    modes = [s["attrs"]["graph"] for s in spans if s["name"] == "rr.unet"]
+    assert modes.count("capture") == keys and modes.count("replay") == STEPS - keys
+    np.testing.assert_array_equal(pipe(**kw, output_type="latent"), eager)
+    assert pipe.graph_stats() == {"captures": 2 * keys, "replays": 4 * STEPS, "eager_steps": 0}
+
+
+def test_emulated_graphs_per_batch_size_and_a_mismatch_raises(graph_pipe, emulated_graphs):
+    pipe, _ = graph_pipe
+    pipe.enable_cuda_graphs()
+    kw = _call_kwargs()
+    two = dict(kw, prompt=["a mirror", "a hall mirror"],
+               latents=np.concatenate([kw["latents"], randn(8, 1, 8, 8, 4)]))
+    solo = pipe(**dict(kw, prompt="a mirror"), output_type="latent")
+    both = pipe(**two, output_type="latent")
+    assert pipe.graph_stats()["captures"] == 4
+    pipe.disable_cuda_graphs()
+    np.testing.assert_array_equal(both, pipe(**two, output_type="latent"))
+    np.testing.assert_array_equal(solo, pipe(**dict(kw, prompt="a mirror"), output_type="latent"))
+    # a key that does not fix the shapes it was captured at is a fault
+    pipe.enable_cuda_graphs()
+    x = torch.zeros(2, 4, 8, 8)
+    ehs, temb = torch.zeros(2, 77, 32), torch.zeros(1, 32)
+    with torch.inference_mode():
+        pipe.unet(x, None, ehs, temb=temb, graph_key="k")
+        with pytest.raises(ValueError, match="captured for other arguments"):
+            pipe.unet(x[:1], None, ehs[:1], temb=temb, graph_key="k")
+
+
+def _int8(pipe):
+    from reflecting_reality_tpu_torch.ops.quant import select_all
+
+    pipe.enable_int8(select=select_all)
+
+
+@pytest.mark.parametrize("mode", [
+    lambda p: p.enable_deep_cache(2),
+    lambda p: p.enable_encoder_reuse(2),
+    _int8,
+    lambda p: p.enable_data_parallel(make_mesh(devices=("cpu",))),
+], ids=["deep_cache", "encoder_reuse", "int8", "data_parallel"])
+def test_approximate_and_parallel_modes_count_eager_steps(graph_pipe, emulated_graphs, mode):
+    pipe, _ = graph_pipe
+    mode(pipe)
+    pipe.enable_cuda_graphs()
+    pipe(**_call_kwargs(), output_type="latent")
+    assert pipe.graph_stats() == {"captures": 0, "replays": 0, "eager_steps": STEPS}
+
+
+def test_graphs_of_many_resolutions_stay_within_the_cap(graph_pipe, emulated_graphs):
+    """Past `max_keys` a new key drops the least recently used key's graphs:
+    four calls at three resolutions keep the graphs of two keys at most, and
+    the dropped resolution, met again, is captured anew and still exact."""
+    pipe, eager = graph_pipe
+    pipe.enable_cuda_graphs(max_keys=2)
+    for k, px in enumerate((H, 96, 128, H)):
+        kw = _call_kwargs()
+        if px != H:
+            rng = np.random.RandomState(k)
+            kw.update(image=rng.rand(px, px, 3).astype(np.float32),
+                      mask=np.pad(kw["mask"], ((0, px - H), (0, px - H), (0, 0))),
+                      depth=rng.rand(px, px, 1).astype(np.float32),
+                      latents=randn(20 + k, 1, px // 8, px // 8, 4))
+        got = pipe(**kw, output_type="latent")
+        assert got.shape == (1, px, px, 3)
+        held = [len(m.forward.graphs) for m in (pipe.unet, pipe.brushnet)]
+        assert held == [min(k + 1, 2)] * 2 and len(pipe._graphs.keys) == min(k + 1, 2)
+    np.testing.assert_array_equal(got, eager)
+    assert pipe.graph_stats() == {"captures": 8, "replays": 2 * 4 * STEPS, "eager_steps": 0}
+    assert [key[1] for key in pipe._graphs.keys] == [(16, 16), (8, 8)]
+
+
+def test_int8_after_a_capture_runs_eager(graph_pipe, emulated_graphs):
+    """The graphs hold the float weights: once int8 is on, the steps run
+    eagerly, and no captured graph is replayed."""
+    pipe, _ = graph_pipe
+    pipe.enable_cuda_graphs()
+    pipe(**_call_kwargs(), output_type="latent")
+    _int8(pipe)
+    pipe(**_call_kwargs(), output_type="latent")
+    assert pipe.graph_stats() == {"captures": 2, "replays": 2 * STEPS, "eager_steps": STEPS}
+
+
+def test_graphed_modules_copy_without_their_graphs(graph_pipe, emulated_graphs):
+    """A copied module (a data-parallel replica) runs its own weights,
+    through a graphed forward of its own that holds no graph."""
+    pipe, _ = graph_pipe
+    pipe.enable_cuda_graphs()
+    pipe(**_call_kwargs(), output_type="latent")
+    unet = copy.deepcopy(pipe.unet)
+    assert unet.forward.module is unet and unet.forward.graphs == {}
+    assert pipe.unet.forward.graphs
+    with torch.no_grad():
+        for p in unet.parameters():
+            p.zero_()
+    x, ehs = torch.ones(2, 4, 8, 8), torch.ones(2, 77, 32)
+    with torch.inference_mode():
+        assert not unet(x, None, ehs, temb=torch.ones(1, 32)).abs().max() > 0
+        assert pipe.unet(x, None, ehs, temb=torch.ones(1, 32)).abs().max() > 0
+
+
+@pytest.mark.parametrize("field", ["rows", "hw", "embeds", "dtype", "do_cfg", "guess_mode",
+                                   "dedup", "cond_scale"])
+def test_step_key_tells_apart_what_fixes_a_graph(field):
+    base = dict(rows=2, latent_hw=(64, 64), embeds_shape=(2, 77, 768), dtype=torch.bfloat16,
+                do_cfg=True, guess_mode=False, dedup=True, cond_scale=1.0)
+    other = dict(rows=dict(rows=4), hw=dict(latent_hw=(128, 128)),
+                 embeds=dict(embeds_shape=(2, 78, 768)), dtype=dict(dtype=torch.float32),
+                 do_cfg=dict(do_cfg=False), guess_mode=dict(guess_mode=True),
+                 dedup=dict(dedup=False), cond_scale=dict(cond_scale=0.0))[field]
+    key = cuda_graphs.step_key(**base)
+    assert key == cuda_graphs.step_key(**dict(base, latent_hw=torch.Size([64, 64]),
+                                              embeds_shape=torch.Size([2, 77, 768])))
+    assert hash(key) == hash(cuda_graphs.step_key(**base))
+    assert cuda_graphs.step_key(**dict(base, **other)) != key

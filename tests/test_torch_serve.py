@@ -408,6 +408,35 @@ def test_warmup_runs_solo_and_full_batch(tiny_pipe):
         srv.close()
 
 
+class _CardPipe:
+    """What the server reads of a pipeline on a card, recording
+    `enable_cuda_graphs`."""
+
+    device = torch.device("cuda")
+    enabled = ()
+
+    def enable_cuda_graphs(self, max_keys):
+        self.enabled += (max_keys,)
+
+    def graph_stats(self):
+        return {"captures": 8, "replays": 400, "eager_steps": 0}
+
+
+@pytest.mark.parametrize("on_card", [False, True])
+def test_server_enables_cuda_graphs_on_a_card_only(tiny_pipe, on_card):
+    """A long-lived server steps on CUDA graphs where its pipeline is on a
+    card; a CPU pipeline stays as it is.  stats() and /healthz carry the
+    pipeline's graph counters."""
+    pipe = _CardPipe() if on_card else tiny_pipe
+    srv = _batched_server(pipe, max_batch=4)
+    if on_card:
+        assert pipe.enabled == (8,)              # 2 x max_batch step shapes kept
+        assert srv.stats()["graphs"] == {"captures": 8, "replays": 400, "eager_steps": 0}
+    else:
+        assert tiny_pipe._graphs is None
+        assert srv.stats()["graphs"] == {"captures": 0, "replays": 0, "eager_steps": 0}
+
+
 def test_ip_adapter_payload_batched_matches_solo():
     """The normals ip_adapter mode through the server: the (1, 3) mean normal
     as a nested list, two requests batched equal their solo calls."""
