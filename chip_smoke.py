@@ -7,6 +7,7 @@
     python3 chip_smoke.py --train-cli-fp32 [CHECKOUT]
     python3 chip_smoke.py --ddp-step RANK WORLD PORT OUT [BACKEND]   (a rank of phase 19)
     python3 chip_smoke.py --sdxl      (phases 2 and 22 alone, B1 at SDXL's shapes)
+    python3 chip_smoke.py --flux      (phase 2, B1 at FLUX.1's shape, a FLUX.1 Fill call)
     python3 chip_smoke.py --backend-memory-cache   (phases 2 and 23-25 alone)
     python3 chip_smoke.py --cache-child DIR [--no-nvcc]   (a process of phase 25)
     python3 chip_smoke.py --train-cli-modes TMP OUT_JSON   (a process of phase 9)
@@ -372,6 +373,8 @@ TF32_PASSES = 3                     # an fp32-accurate product on TF32 (hi·lo +
 # level in the UNet, BrushNet and VAE, so that the CPU's side takes about
 # half the time; B1 and B2 still launch at the full-depth paths' shapes
 PARITY_DEPTH = dict(layers_per_block=1)
+FLUX_STEPS = 4                      # the counted FLUX.1 Fill call's denoise steps
+FLUX_JOINT_ATTENTIONS = 57          # FLUX.1's 19 double- and 38 single-stream blocks, a step
 
 
 def b1_launches_per_unet_forward(layers_per_block: int = 2) -> int:
@@ -830,7 +833,9 @@ FLASH_SHAPES = [((2, 4096, 8, 40), "bfloat16"), ((4, 4096, 8, 40), "bfloat16"),
                 # SDXL at 1024²: the 4096-token self-attentions (head dim 64) in
                 # both dtypes, and the 1024-token ones the rule sends to the plain path
                 ((2, 4096, 10, 64), "bfloat16"), ((2, 4096, 10, 64), "float32"),
-                ((2, 1024, 20, 64), "bfloat16")]
+                ((2, 1024, 20, 64), "bfloat16"),
+                # FLUX.1 Fill's joint attention at 1024² (4096 image + 512 text tokens)
+                ((1, 4608, 24, 128), "bfloat16")]
 FLASH_BWD_SHAPES = [((4, 4096, 8, 40), "bfloat16"), ((2, 4096, 8, 40), "bfloat16"),
                     ((2, 4608, 8, 40), "bfloat16"), ((1, 2048, 8, 160), "bfloat16"),
                     ((4, 4096, 8, 40), "float32"), ((2, 4096, 8, 40), "float32"),
@@ -4777,6 +4782,87 @@ def sdxl_alone(torch) -> None:
     print(gpu_line, flush=True)
 
 
+def phase_flux(torch, gpu_line: str) -> dict:
+    """FLUX.1 Fill [dev] at its published widths in bf16 (seeded weights,
+    the hash tokenizers): a 2-step warm-up call at 1024², then a
+    `FLUX_STEPS`-step call counted -> {path: B1/B2 launches by shape}."""
+    from reflecting_reality_tpu_torch.data.tokenizer import HashTokenizer, T5HashTokenizer
+    from reflecting_reality_tpu_torch.models.clip_text import CLIPTextModel
+    from reflecting_reality_tpu_torch.models.flux_transformer import FluxTransformer2DModel
+    from reflecting_reality_tpu_torch.models.t5 import T5EncoderModel
+    from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+    from reflecting_reality_tpu_torch.pipelines.flux_fill_pipeline import FluxFillPipeline
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    dt = torch.bfloat16
+    g = torch.Generator("cuda").manual_seed(SEED)
+
+    def seeded(module):
+        module.to(dt).to_empty(device="cuda")
+        with torch.no_grad():
+            for name, p in sorted(module.named_parameters()):
+                fan = math.prod(p.shape[1:]) if p.dim() > 1 else 0
+                p.normal_(1.0 if fan == 0 and name.endswith("weight") else 0.0,
+                          fan ** -0.5 if fan else 0.02, generator=g)
+        return module.eval()
+
+    with torch.device("meta"):
+        mods = (FluxTransformer2DModel(in_channels=384, out_channels=64, guidance_embeds=True),
+                AutoencoderKL(block_out_channels=(128, 256, 512, 512), latent_channels=16,
+                              scaling_factor=0.3611, shift_factor=0.1159, use_quant_conv=False,
+                              use_post_quant_conv=False),
+                CLIPTextModel(), T5EncoderModel())
+    pipe = FluxFillPipeline(*map(seeded, mods), HashTokenizer(vocab_size=49408),
+                            T5HashTokenizer(), dtype=dt, device="cuda")
+    px = 1024
+    img = np.zeros((1, px, px, 3), np.uint8)
+    mask = np.zeros((1, px, px, 1), np.uint8)
+    mask[:, 256:768, 256:768] = 255
+    pipe("warm up", img, mask, num_inference_steps=2, guidance_scale=30.0, seed=1)
+    torch.cuda.synchronize()
+    reset_counters()
+    before = pipe.stats()
+    t0 = time.perf_counter()
+    out = pipe("a framed mirror on the wall", img, mask, num_inference_steps=FLUX_STEPS,
+               guidance_scale=30.0, seed=2)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    by_shape = read_counters_by_shape()
+    after = pipe.stats()
+    joint = {k: (after["attention"]["joint"][k] - before["attention"]["joint"][k]) / FLUX_STEPS
+             for k in ("flash", "plain")}
+    emit({"phase": "flux", "call_s": call_s, "steps": FLUX_STEPS,
+          "joint_attention_per_step": joint, "stats": after,
+          "image_mean": float(out.mean()), "finite": bool(np.isfinite(out).all()),
+          "memory_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": {f"{k[0]} {k[1]}": n for k, n in by_shape.items()},
+          "nvidia_smi": gpu_line, "phase_wall_s": time.perf_counter() - t_phase})
+    if joint["flash"] != FLUX_JOINT_ATTENTIONS or joint["plain"]:
+        raise AssertionError(f"FLUX joint attentions a step {joint}, not "
+                             f"{FLUX_JOINT_ATTENTIONS} flash")
+    del pipe, mods
+    torch.cuda.empty_cache()
+    return {f"flux_bf16_{FLUX_STEPS}_steps": by_shape}
+
+
+def flux_alone(torch) -> None:
+    """`--flux`: the build, B1 at FLUX.1's shape and a FLUX.1 Fill call."""
+    gpu_line = nvidia_smi()
+    phase_build(torch)
+    entries = [e for shape, dt in FLASH_SHAPES if shape[2:] == (24, 128)
+               for e in kernel_entries(torch, "flash", (shape, dt))]
+    paths = phase_flux(torch, gpu_line)
+    rows = [{k: e.get(k) for k in ("name", "ms", "device_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms", "max_abs_err", "rel_l2_err")}
+            | {"launches_by_path": {p: c.get(e["key"], 0) for p, c in paths.items()}}
+            for e in entries]
+    emit({"phase": "kernels_detail", "kernels": rows})
+    emit_phase_seconds()
+    print(gpu_line, flush=True)
+
+
 def backend_memory_cache_alone(torch) -> None:
     """`--backend-memory-cache`: the build and phases 23-25 alone, the test
     CLI of phase 23 on a seeded base folder and BrushNet written here."""
@@ -4839,6 +4925,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--sdxl"]:
         sdxl_alone(torch)
+        return 0
+    if sys.argv[1:2] == ["--flux"]:
+        flux_alone(torch)
         return 0
     if sys.argv[1:2] == ["--train-cli-modes"]:
         train_cli_modes(*sys.argv[2:4])

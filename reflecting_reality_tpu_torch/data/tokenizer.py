@@ -189,3 +189,24 @@ class HashTokenizer:
             ] + [self.vocab_size - 1]
             out[i, : len(ids)] = ids
         return out
+
+
+class T5HashTokenizer:
+    """Deterministic stand-in for T5's SentencePiece tokenizer (which the
+    port does not read): the crc32 of each lower-cased word into
+    [2, vocab), EOS 1 after the last, padding 0 to `model_max_length`
+    (FLUX.1 pads every prompt to 512)."""
+
+    def __init__(self, vocab_size: int = 32128, model_max_length: int = 512):
+        self.vocab_size = vocab_size
+        self.model_max_length = model_max_length
+
+    def __call__(self, texts: Sequence[str] | str) -> np.ndarray:
+        if isinstance(texts, str):
+            texts = [texts]
+        out = np.zeros((len(texts), self.model_max_length), dtype=np.int32)
+        for i, t in enumerate(texts):
+            words = t.lower().split()[: self.model_max_length - 1]
+            ids = [2 + (zlib.crc32(w.encode()) % (self.vocab_size - 2)) for w in words] + [1]
+            out[i, : len(ids)] = ids
+        return out

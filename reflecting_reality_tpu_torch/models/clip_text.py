@@ -5,7 +5,8 @@ LayerNorm; SD-1.5 uses only `last_hidden_state`, SDXL the penultimate of
 the per-layer states (`output_hidden_states`).  Parameter names follow
 the transformers checkpoint layout (`text_model.encoder.layers.N.self_attn.
 q_proj`).  `CLIPTextModelWithProjection` (JAX :105-137) adds the projected
-EOS-token state, the text half of CLIP_Similarity.  The T=77 attention stays
+EOS-token state, the text half of CLIP_Similarity; FLUX.1 conditions on
+`CLIPTextModel.pooled_output`, that state unprojected.  The T=77 attention stays
 plain, as in JAX.
 """
 
@@ -134,6 +135,14 @@ class CLIPTextModel(nn.Module, ConfigMixin):
         `output_hidden_states`, (last, [num_hidden_layers + 1 states])."""
         last, hidden_states = self.text_model(input_ids)
         return (last, hidden_states) if output_hidden_states else last
+
+    def pooled_output(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """(B, T) token ids -> (B, hidden): the last hidden state at each
+        row's largest id, CLIP's EOS (transformers' `pooler_output` of a
+        config whose `eos_token_id` is 2, as FLUX.1's CLIP-L's is)."""
+        last, _ = self.text_model(input_ids)
+        eos = input_ids.int().argmax(dim=-1)
+        return last[torch.arange(last.shape[0], device=last.device), eos]
 
 
 class CLIPTextModelWithProjection(nn.Module, ConfigMixin):

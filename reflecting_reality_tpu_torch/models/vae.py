@@ -11,6 +11,10 @@ vae.py:46,185,769).
 - Decoder: post_quant_conv -> conv_in -> mid -> UpDecoderBlock2D x4 (nearest
   x2 upsample) -> GroupNorm+SiLU -> conv_out.
 - The x0.18215 latent scaling (`scaling_factor`) is applied by callers.
+- FLUX.1's VAE (diffusers' `use_quant_conv` / `use_post_quant_conv` false,
+  16 latent channels) has neither 1x1 conv; `shift_factor` is its latent
+  shift, which callers apply as (z - shift) x scale.  The defaults keep the
+  SD VAE: both convs, no shift.
 """
 
 from __future__ import annotations
@@ -157,7 +161,8 @@ class AutoencoderKL(nn.Module, ConfigMixin):
                  block_out_channels: Tuple[int, ...] = (128, 256, 512, 512),
                  layers_per_block: int = 2, latent_channels: int = 4,
                  norm_num_groups: int = 32, scaling_factor: float = 0.18215,
-                 sample_size: int = 512):
+                 sample_size: int = 512, use_quant_conv: bool = True,
+                 use_post_quant_conv: bool = True, shift_factor: Optional[float] = None):
         super().__init__()
         self.in_channels = in_channels
         self.out_channels = out_channels
@@ -167,15 +172,24 @@ class AutoencoderKL(nn.Module, ConfigMixin):
         self.norm_num_groups = norm_num_groups
         self.scaling_factor = scaling_factor
         self.sample_size = sample_size
+        self.use_quant_conv, self.use_post_quant_conv = use_quant_conv, use_post_quant_conv
+        self.shift_factor = shift_factor
         self.encoder = Encoder(in_channels, self.block_out_channels, layers_per_block,
                                latent_channels, norm_num_groups)
         self.decoder = Decoder(out_channels, self.block_out_channels, layers_per_block,
                                latent_channels, norm_num_groups)
-        self.quant_conv = nn.Conv2d(2 * latent_channels, 2 * latent_channels, 1)
-        self.post_quant_conv = nn.Conv2d(latent_channels, latent_channels, 1)
+        self.quant_conv = (nn.Conv2d(2 * latent_channels, 2 * latent_channels, 1)
+                           if use_quant_conv else None)
+        self.post_quant_conv = (nn.Conv2d(latent_channels, latent_channels, 1)
+                                if use_post_quant_conv else None)
 
     def encode(self, x: torch.Tensor) -> DiagonalGaussian:
-        return DiagonalGaussian.from_moments(self.quant_conv(self.encoder(x)))
+        moments = self.encoder(x)
+        if self.quant_conv is not None:
+            moments = self.quant_conv(moments)
+        return DiagonalGaussian.from_moments(moments)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return self.decoder(self.post_quant_conv(z))
+        if self.post_quant_conv is not None:
+            z = self.post_quant_conv(z)
+        return self.decoder(z)

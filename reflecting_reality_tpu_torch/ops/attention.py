@@ -37,10 +37,15 @@ that mixes float and int8 projections runs them one by one.  With
 `ip_num_tokens` context tokens attend through bias-free `to_k_ip` /
 `to_v_ip` and are added with `ip_scale`; that attention has Tq != Tk, so it
 takes the plain path, as in JAX.
+
+`routes` counts the calls of `dot_product_attention` by the route each took
+("flash" or "plain"), where it is taken; a caller reads its own calls as
+the difference across them.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -56,6 +61,10 @@ from reflecting_reality_tpu_torch.ops.norms import GroupNorm
 from reflecting_reality_tpu_torch.ops.quant import Int8Linear, dense_int8
 
 
+#: calls of `dot_product_attention` by the route taken
+routes: Counter = Counter()
+
+
 def routes_to_flash(q: torch.Tensor, k: torch.Tensor) -> bool:
     """The JAX package's flash dispatch rule (ops/attention.py:63-64), with
     the head dims the kernels take (D % 8 == 0, D <= `_MAX_D`) in place of
@@ -68,7 +77,9 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           backend: Optional[str] = None) -> torch.Tensor:
     """Scaled dot-product attention over (batch, tokens, heads, head_dim)."""
     if backend != "xla" and q.is_cuda and routes_to_flash(q, k):
+        routes["flash"] += 1
         return flash_attention(q, k, v)
+    routes["plain"] += 1
     return attention_plain(q, k, v)
 
 

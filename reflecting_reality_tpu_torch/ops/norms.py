@@ -9,6 +9,9 @@ tensors take the CUDA kernel (`ops/kernels/csrc/groupnorm.cu` through
 through its autograd Function (plain closed-form backward) when a gradient
 is needed.  On the card every GroupNorm of the UNet, BrushNet, VAE and
 Transformer2D goes through that kernel.
+
+`RMSNorm` (FLUX.1's per-head q/k norm and T5's layer norm) is plain PyTorch
+on every device: memory-bound work over the last axis.
 """
 
 from __future__ import annotations
@@ -41,3 +44,22 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, apply_silu: bool = False) -> torch.Tensor:
         return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, apply_silu)
+
+
+class RMSNorm(nn.Module):
+    """Root-mean-square norm over the last axis with a learned scale
+    (diffusers `RMSNorm`, transformers `T5LayerNorm`: the two compute alike):
+    the mean square in fp32, the input scaled by its reciprocal root, cast
+    to the scale's dtype where that is a half type, times the scale."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        var = x.float().pow(2).mean(-1, keepdim=True)
+        y = x * torch.rsqrt(var + self.eps)
+        if self.weight.dtype in (torch.float16, torch.bfloat16):
+            y = y.to(self.weight.dtype)
+        return y * self.weight

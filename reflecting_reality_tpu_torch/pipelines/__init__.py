@@ -5,9 +5,10 @@ from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
 from reflecting_reality_tpu_torch.pipelines.brushnet_sdxl_pipeline import (
     StableDiffusionXLBrushNetPipeline,
 )
+from reflecting_reality_tpu_torch.pipelines.flux_fill_pipeline import FluxFillPipeline
 from reflecting_reality_tpu_torch.pipelines.image_processor import ImageProcessor
 
 __all__ = [
-    "ImageProcessor", "StableDiffusionBrushNetPipeline",
+    "FluxFillPipeline", "ImageProcessor", "StableDiffusionBrushNetPipeline",
     "StableDiffusionXLBrushNetPipeline",
 ]

@@ -71,6 +71,7 @@ def assert_flash_close(out, ref, dtype):
     ((1, 2056, 1, 152), torch.bfloat16),
     ((1, 40, 2, 40), torch.bfloat16),
     ((1, 72, 1, 64), torch.bfloat16),
+    ((1, 4608, 24, 128), torch.bfloat16),   # FLUX.1 Fill's joint attention at 1024²
     ((1, 2056, 2, 40), torch.float32),
     ((1, 2048, 1, 160), torch.float32),
     ((2, 4096, 8, 40), torch.float32),      # the test CLI's default step
@@ -148,6 +149,7 @@ def _bwd(q, k, v, do):
     ((1, 2048, 2, 160), torch.bfloat16),
     ((1, 2056, 1, 152), torch.bfloat16),    # D = 160 instance, ragged rows and columns
     ((1, 72, 1, 64), torch.bfloat16),
+    ((1, 4608, 24, 128), torch.bfloat16),   # FLUX.1 Fill's joint attention at 1024²
     ((1, 2056, 2, 40), torch.float32),
     ((1, 2048, 1, 160), torch.float32),
     ((2, 4096, 8, 40), torch.float32),
