@@ -45,8 +45,10 @@ Phases, each printing one JSON line:
              VAE, recorded from the full-width modules on the meta device,
              at the main path's batches and at the test CLI's 4 batched
              seeds in bf16 and its batches in fp32) and a few they meet
-             elsewhere (1024², 576x512, fp32 parity, and the self-attention shapes the
-             routing rule sends to the plain path): max abs error in the
+             elsewhere (1024², 576x512, fp32 parity; B1 at every attention of
+             the SD-1.5 UNet at the main path's, the server's and the fp32
+             paths' rows, self- and cross-attention, and of SDXL's): max abs
+             error in the
              working dtype and against fp32 and the relative L2 error, each
              with its tolerance; kernel, plain and library times (20
              back-to-back calls, host launch cost included), the kernel's
@@ -64,12 +66,13 @@ Phases, each printing one JSON line:
              published widths and PARITY_DEPTH (one resnet a level, so that
              the CPU's side takes about half the time), one denoise step's
              forward at 64x64 latents, batch 2, fp32 with TF32 off: the card
-             (kernels; B1 3 launches) against the CPU (plain versions).
+             (kernels; B1 20 launches, every attention of the forward)
+             against the CPU (plain versions).
   5. main    StableDiffusionBrushNetPipeline at full SD-1.5 width in bf16:
              512x512, CFG 7.5, UniPC, depth concat; a warm run, then timed
              4- and 8-step runs in turns, MAIN_REPEATS of each (medians;
              s/step is their two-point difference).  In every run the flash
-             kernel must launch exactly 5 x steps times and the GroupNorm
+             kernel must launch exactly 32 x steps times and the GroupNorm
              kernel at least once, and every GroupNorm shape of a denoise
              step must take the single-pass (cluster) regime.
   6. profile one traced 4-step call: device busy time, idle share, device
@@ -80,7 +83,7 @@ Phases, each printing one JSON line:
              backward on the card (through the kernels' autograd Functions)
              against the CPU (plain paths) on the same draws: the loss and
              four BrushNet gradients, each with its tolerance; B1/B3/B4 must
-             launch 3/3/3 times and GroupNorm at least once.
+             launch 20/20/20 times and GroupNorm at least once.
   8. train_main  the training step (`make_train_step`) at full width: bf16
              autocast, frozen UNet/VAE/CLIP stored in bf16, fp32 BrushNet
              master weights, 512² batch 4, depth concat, AdamW lr 5e-6 without
@@ -89,7 +92,7 @@ Phases, each printing one JSON line:
              checkpointing under each policy ("full", "dots"), and one traced
              step (idle share, device time by kind).  Every loss finite,
              BrushNet moved, UNet/VAE/CLIP bit-identical, and per step
-             B1/B3/B4 launch 5/5/5 (10/5/5 with checkpointing under either
+             B1/B3/B4 launch 32/32/32 (64/32/32 with checkpointing under either
              policy).
   9. train_cli  the training CLI (`cli.train.main`) end to end: a base
              folder at full SD-1.5 width from seeded weights in bf16
@@ -104,7 +107,7 @@ Phases, each printing one JSON line:
              checkpoint-8 with the safetensors package blocked and a 4-step
              512² call.  Checks: finite losses, BrushNet moved, frozen modules
              bit-identical to the folder, checkpoint-4 pruned, the resume
-             bit-identical (BrushNet, AdamW moments, step 8), 5/5/5 launches
+             bit-identical (BrushNet, AdamW moments, step 8), 32/32/32 launches
              per CLI step, the first batch the step sees equal to the host
              batch cast to bf16, no h5py/pandas/PIL/safetensors/msgpack
              imported.  Prints s/step beside train_main's, the loader's share
@@ -119,7 +122,7 @@ Phases, each printing one JSON line:
              again with each row waited for (no overlap), a rerun that must
              write nothing; a one-row fp32 warm-up, then fp32 sequential
              seeds at 2 and 4 steps.  Checks: 1024x1024 uint8 sheets, not
-             constant, launches per denoise step equal to main_path's (B1 5,
+             constant, launches per denoise step equal to main_path's (B1 32,
              B2 the same) in both dtypes, no h5py or jax imported.  Prints
              s/image, s/step (two-point), the host time per row outside the
              card's work and how much of it the one-deep overlap hid, peak
@@ -145,8 +148,9 @@ Phases, each printing one JSON line:
              pipeline (depth concat + the mean normal's token; IP UNet and
              NormalProjModel from a seed) in bf16, CFG 7.5, UniPC, 4- and
              8-step calls in turns (IP_REPEATS, 2, each; s/step, s/image, peak
-             memory, B1 40 launches in 8 steps), another normal must change
-             the image, one fp32 step card vs CPU at PARITY_DEPTH (B1 3
+             memory, B1 384 launches in 8 steps: each cross-attention runs a
+             second one over the normal's token), another normal must change
+             the image, one fp32 step card vs CPU at PARITY_DEPTH (B1 30
              launches); then the training CLI in ip mode at its default fp32
              from the base folder and a latent cache with normals: batch 4,
              IP_TRAIN_STEPS steps with a checkpoint at the end (unet/ and
@@ -176,25 +180,25 @@ Phases, each printing one JSON line:
              moved), one step at batch 1 card vs CPU on the same draws, UNet
              and VAE at PARITY_DEPTH (the loss at 1e-4, the first AdamW
              moment of four leaves at 1e-3 of each one's largest element;
-             B1/B3/B4 3/3/3), `save_pretrained` to
+             B1/B3/B4 20/20/20), `save_pretrained` to
              checkpoint-N/unet, then `cli.test_baseline.main --image_mode` on
              it at its default fp32: 2 rows, 4 seeds, 4 steps, 1024x1024
-             sheets, B1 160 launches.  (The card has no h5py, so the
+             sheets, B1 1024 launches.  (The card has no h5py, so the
              baseline training CLI's HDF5 reader runs only in the CPU
              tests.)
  16. modes   a full-width 512² bf16 pipeline call, 4 steps, depth `latents`
              + normals `concat` (BrushNet with 12 conditioning channels):
-             a finite, non-constant uint8 image, B1 20 launches; then fp32
+             a finite, non-constant uint8 image, B1 128 launches; then fp32
              depth `concat` + normals `latents` at PARITY_DEPTH, one denoise
              step, TF32 off, the card against the CPU at slice parity's
-             tolerance (the normals drawn from their own seed; B1 3
+             tolerance (the normals drawn from their own seed; B1 20
              launches).
  17. approx  the main path (bf16, 512², 4 and 8 steps in turns, APPROX_REPEATS,
              3, each) exact, with
              DeepCache every 3 steps and with encoder reuse every 3 steps in
              one process: s/step and s/image of each beside the exact
              path's, each 8-step image's mean and max uint8 difference from
-             the exact one, B1 launches (40, 40, 30 in 8 steps); then
+             the exact one, B1 launches (256, 146, 196 in 8 steps); then
              `tiled_decode` of a 128x128 latent (a 1024² image) against the
              plain decode: seconds, peak memory above the inputs, max and
              mean difference, the tiled decode's launches.
@@ -203,7 +207,7 @@ Phases, each printing one JSON line:
              and 8-step calls in turns (INT8_REPEATS, 2, each): s/step, s/image,
              peak memory, the quantized-module counts (256 UNet, 92
              BrushNet: JAX's selection), the 8-step image's mean and max
-             uint8 difference from the exact one, B1 40 launches, the int8
+             uint8 difference from the exact one, B1 256 launches, the int8
              GEMMs launched; what `torch._int_mm` accepts at its edges;
              every int8 GEMM shape the 8-step call launched, `int8_mm` held
              exactly against an fp64 product on the card and timed beside
@@ -235,7 +239,7 @@ Phases, each printing one JSON line:
              s/step beside train_cli_fp32's.
  20. data_parallel  `enable_data_parallel` over a mesh of two `cuda:0`
              entries, full width, bf16, DP_SEEDS seeds, 4 and 8 steps in
-             turns, beside the same calls without it (s/step of both; B1 80
+             turns, beside the same calls without it (s/step of both; B1 512
              launches in 8 steps); the 8-step images against each
              replica's rows called alone (uint8 within 1; a bf16 batch of 4
              takes other kernels than two of 2, so its difference from the
@@ -255,19 +259,18 @@ Phases, each printing one JSON line:
              seeded weights made on the card, bf16, 1024², CFG 7.5, UniPC,
              depth concat: 4- and 8-step calls in turns (SDXL_REPEATS, 2, each;
              s/step, s/image, peak memory, B1 and B2 launches by shape a
-             denoise step, B1 exactly 10 a step at (2, 4096, 10, 64)), a
+             denoise step, the attentions of a UNet forward by route (the
+             pipeline's `stats()`: 140 flash, 0 plain), and B1's launches by
+             shape exactly a self- and a cross-attention (77 keys) a
+             transformer layer: 10 layers at 4096 tokens, 60 at 1024), a
              traced 4-step call (idle share); one fp32 denoise step and
-             decode card vs CPU at 1e-3 of the output's max under C4's
-             rule (the transformer depth cut to 1/1/1, one resnet a level in
-             the UNet, BrushNet and VAE, 2-layer text encoders,
-             SDXL_PARITY_*; B1 3 launches at (2, 4096, 10, 64) fp32; phase
-             3 measures SDXL_FULL_DEPTH_NORM, the B2 shape only two resnets
-             a level give); B1's
-             head-dim-64 instances without spills; and the 60
-             self-attentions a step at 1024 tokens, which JAX's T >= 2048
-             rule sends to the plain path, timed there against B1
-             (phase 3's (2, 1024, 20, 64) entry).  Its norms' shapes are
-             measured by `kernels_late`.
+             decode card vs CPU at 1e-3 of the output's max under C4's rule
+             (the transformer depth cut to 1/1/1, one resnet a level in the
+             UNet, BrushNet and VAE, 2-layer text encoders, SDXL_PARITY_*; B1
+             14 launches, 7 layers; phase 3 measures SDXL_FULL_DEPTH_NORM,
+             the B2 shape only two resnets a level give); B1's head-dim-64
+             instances without spills.  Its norms' shapes are measured by
+             `kernels_late`.
  23. attention_backend  `--attention_backend xla` against the default
              `flash`: one fp32 pipeline step (TF32 off) at 1e-3 of the
              output's max; the 512² bf16 pipeline (4- and 8-step calls,
@@ -377,10 +380,13 @@ FLUX_STEPS = 4                      # the counted FLUX.1 Fill call's denoise ste
 FLUX_JOINT_ATTENTIONS = 57          # FLUX.1's 19 double- and 38 single-stream blocks, a step
 
 
-def b1_launches_per_unet_forward(layers_per_block: int = 2) -> int:
-    """An SD-1.5 UNet forward's 4096-token self-attentions at 512² (down
-    block 0's `layers_per_block`, up block 3's one more): B1's launches."""
-    return 2 * layers_per_block + 1
+def attentions_per_unet_forward(layers_per_block: int = 2, ip: bool = False) -> int:
+    """An SD-1.5 UNet forward's attentions at 512², every one B1's: a self-
+    and a cross-attention in each transformer block (`layers_per_block` in
+    each of down blocks 0-2, one in the mid block, one more in each of up
+    blocks 1-3); with `ip` (the IP-Adapter UNet) each cross-attention runs a
+    second one, over the image tokens."""
+    return (3 if ip else 2) * (6 * layers_per_block + 4)
 
 
 PHASE_SECONDS = {}                  # {phase: its phase_wall_s}, for the phase_seconds line
@@ -643,14 +649,25 @@ def check(entry: dict) -> None:
         raise AssertionError(f"{entry['name']}: {bad} over tolerance: {entry}")
 
 
-def bench_flash(torch, shape, dtype) -> dict:
+def flash_name(kind: str, shape, dtype: str, tk: int) -> str:
+    """An entry's name: the kernel, q's shape and dtype, and the key count
+    where it is not the query count (a cross-attention)."""
+    keys = "" if tk == shape[1] else f" x {tk} keys"
+    return f"{kind} {'x'.join(map(str, shape))}{keys} {dtype}"
+
+
+def bench_flash(torch, shape, dtype, tk: int) -> dict:
+    """B1 at q `shape` (B, Tq, H, D) over `tk` keys against its plain
+    version, and timed."""
     import torch.nn.functional as F
 
     from reflecting_reality_tpu_torch.ops.kernels import flash_attention as fa
 
     b, t, h, d = shape
     g = torch.Generator("cuda").manual_seed(SEED)
-    q, k, v = (torch.randn(shape, generator=g, device="cuda", dtype=dtype) for _ in range(3))
+    q = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+    k, v = (torch.randn((b, tk, h, d), generator=g, device="cuda", dtype=dtype)
+            for _ in range(2))
     out, lse = fa.flash_attention_fwd(q, k, v)
     plain, plain_lse = fa.attention_plain(q, k, v, return_lse=True)
     ref32 = fa.attention_plain(q.float(), k.float(), v.float())
@@ -670,9 +687,9 @@ def bench_flash(torch, shape, dtype) -> dict:
         return 4 * bf16_ulp(s) if bf16 else 1e-4 * s
 
     entry = {
-        "name": f"flash_attn_fwd {'x'.join(map(str, shape))} {str(dtype)[6:]}",
-        "key": ("flash", (tuple(shape), str(dtype)[6:])),
-        "shape": list(shape), "dtype": str(dtype)[6:],
+        "name": flash_name("flash_attn_fwd", shape, str(dtype)[6:], tk),
+        "key": ("flash", (tuple(shape), str(dtype)[6:], tk)),
+        "shape": list(shape), "keys": tk, "dtype": str(dtype)[6:],
         "max_abs_err": err,
         "max_rel_err": err / scale,
         "max_abs_tol": tol(scale),
@@ -691,23 +708,25 @@ def bench_flash(torch, shape, dtype) -> dict:
     entry["plain_ms"] = cuda_ms(torch, lambda: fa.attention_plain(q, k, v), iters=5)
     entry["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qs, ks, vs))
     itemsize = q.element_size()
-    nbytes = 4 * b * t * h * d * itemsize + b * h * t * 4
-    entry.update(flash_bound(4.0 * b * h * t * t * d, nbytes, entry["dtype"]))
+    nbytes = 2 * b * (t + tk) * h * d * itemsize + b * h * t * 4     # q, k, v, o; lse
+    entry.update(flash_bound(4.0 * b * h * t * tk * d, nbytes, entry["dtype"]))
     # one exp2 per logit on the multi-function units: 16 per clock per SM
-    entry["exp_bound_ms"] = b * h * t * t / (SMS * 16 * max_sm_clock_hz()) * 1e3
+    entry["exp_bound_ms"] = b * h * t * tk / (SMS * 16 * max_sm_clock_hz()) * 1e3
     return entry
 
 
-def bench_flash_bwd(torch, shape, dtype):
-    """Kernels B3 (dQ) and B4 (dK/dV) at one shape -> two entries."""
+def bench_flash_bwd(torch, shape, dtype, tk: int):
+    """Kernels B3 (dQ) and B4 (dK/dV) at q `shape` over `tk` keys -> two
+    entries."""
     import torch.nn.functional as F
 
     from reflecting_reality_tpu_torch.ops.kernels import flash_attention as fa
 
     b, t, h, d = shape
     g = torch.Generator("cuda").manual_seed(SEED + 7)
-    q, k, v, do = (torch.randn(shape, generator=g, device="cuda", dtype=dtype)
-                   for _ in range(4))
+    q, do = (torch.randn(shape, generator=g, device="cuda", dtype=dtype) for _ in range(2))
+    k, v = (torch.randn((b, tk, h, d), generator=g, device="cuda", dtype=dtype)
+            for _ in range(2))
     out, lse = fa.flash_attention_fwd(q, k, v)
     delta = fa.flash_attention_delta(out, do)
     got = {"dq": fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)}
@@ -742,18 +761,17 @@ def bench_flash_bwd(torch, shape, dtype):
                                                             retain_graph=True))
     plain_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do),
                        iters=5)
-    itemsize = q.element_size()
-    tensor_bytes = b * t * h * d * itemsize
-    rows_bytes = 2 * b * h * t * 4          # lse and delta
+    row_bytes = b * h * d * q.element_size()    # one token of (B, T, H, D)
+    rows_bytes = 2 * b * h * t * 4              # lse and delta
     entries = []
-    for kind, names, products, run in (
-            ("flash_bwd_dq", ("dq",), 3,
+    for kind, names, products, written, run in (
+            ("flash_bwd_dq", ("dq",), 3, t,
              lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)),
-            ("flash_bwd_dkv", ("dk", "dv"), 4,
+            ("flash_bwd_dkv", ("dk", "dv"), 4, 2 * tk,
              lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))):
-        e = {"name": f"flash_attn_bwd_{kind[10:]} {'x'.join(map(str, shape))} {str(dtype)[6:]}",
-             "key": (kind, (tuple(shape), str(dtype)[6:])),
-             "shape": list(shape), "dtype": str(dtype)[6:],
+        e = {"name": flash_name(f"flash_attn_bwd_{kind[10:]}", shape, str(dtype)[6:], tk),
+             "key": (kind, (tuple(shape), str(dtype)[6:], tk)),
+             "shape": list(shape), "keys": tk, "dtype": str(dtype)[6:],
              "bit_identical_relaunch": all(same[n] for n in names)}
         for n in names:
             e.update(errors(n))
@@ -763,10 +781,10 @@ def bench_flash_bwd(torch, shape, dtype):
         e["device_ms"] = graph_ms(torch, run)
         e["plain_ms"] = plain_ms      # the plain backward computes dq, dk and dv together
         e["library_ms"] = library_ms  # so does SDPA's
-        # products of 2·B·H·T²·D each; q, k, v, dO, lse, delta read, grads written
-        nbytes = (4 + len(names)) * tensor_bytes + rows_bytes
-        e.update(flash_bound(2.0 * products * b * h * t * t * d, nbytes, e["dtype"]))
-        e["exp_bound_ms"] = b * h * t * t / (SMS * 16 * max_sm_clock_hz()) * 1e3  # p recomputed
+        # products of 2·B·H·Tq·Tk·D each; q, k, v, dO, lse, delta read, grads written
+        nbytes = (2 * t + 2 * tk + written) * row_bytes + rows_bytes
+        e.update(flash_bound(2.0 * products * b * h * t * tk * d, nbytes, e["dtype"]))
+        e["exp_bound_ms"] = b * h * t * tk / (SMS * 16 * max_sm_clock_hz()) * 1e3  # p recomputed
         entries.append(e)
     return entries
 
@@ -818,28 +836,44 @@ def bench_groupnorm(torch, shape, dtype, silu) -> dict:
     return entry
 
 
-FLASH_SHAPES = [((2, 4096, 8, 40), "bfloat16"), ((4, 4096, 8, 40), "bfloat16"),
-                ((8, 4096, 8, 40), "bfloat16"),         # the test CLI's 4 batched seeds
-                ((6, 4096, 8, 40), "bfloat16"),         # the server's batch of 3
-                ((2, 4096, 8, 80), "bfloat16"), ((2, 4608, 8, 40), "bfloat16"),
-                ((1, 2048, 8, 160), "bfloat16"), ((2, 4096, 8, 40), "float32"),
-                ((1, 4096, 8, 40), "float32"),          # train_parity's batch
-                ((4, 4096, 8, 40), "float32"),          # the training CLI's default step
-                # the UNet's other self-attentions, which the routing rule sends
-                # to the plain path: B1 against it, for the crossover
-                ((2, 1024, 8, 80), "bfloat16"), ((2, 256, 8, 160), "bfloat16"),
-                ((2, 64, 8, 160), "bfloat16"), ((2, 1024, 8, 80), "float32"),
-                ((2, 256, 8, 160), "float32"),
-                # SDXL at 1024²: the 4096-token self-attentions (head dim 64) in
-                # both dtypes, and the 1024-token ones the rule sends to the plain path
-                ((2, 4096, 10, 64), "bfloat16"), ((2, 4096, 10, 64), "float32"),
-                ((2, 1024, 20, 64), "bfloat16"),
-                # FLUX.1 Fill's joint attention at 1024² (4096 image + 512 text tokens)
-                ((1, 4608, 24, 128), "bfloat16")]
-FLASH_BWD_SHAPES = [((4, 4096, 8, 40), "bfloat16"), ((2, 4096, 8, 40), "bfloat16"),
-                    ((2, 4608, 8, 40), "bfloat16"), ((1, 2048, 8, 160), "bfloat16"),
-                    ((4, 4096, 8, 40), "float32"), ((2, 4096, 8, 40), "float32"),
-                    ((1, 4096, 8, 40), "float32")]
+def sd15_attention_shapes(batch: int) -> list:
+    """(q shape, key count) of every attention an SD-1.5 UNet forward at
+    512² runs at `batch` rows: the self-attentions at 4096, 1024, 256 and 64
+    tokens (head dims 40, 80, 160, 160) and the cross-attentions of the same
+    queries to the 77 text tokens."""
+    qs = [(batch, 4096, 8, 40), (batch, 1024, 8, 80), (batch, 256, 8, 160), (batch, 64, 8, 160)]
+    return [(q, q[1]) for q in qs] + [(q, 77) for q in qs]
+
+
+# (q shape, dtype, key count)
+FLASH_SHAPES = [((2, 4096, 8, 40), "bfloat16", 4096), ((4, 4096, 8, 40), "bfloat16", 4096),
+                ((8, 4096, 8, 40), "bfloat16", 4096),   # the test CLI's 4 batched seeds
+                ((6, 4096, 8, 40), "bfloat16", 4096),   # the server's batch of 3
+                ((2, 4096, 8, 80), "bfloat16", 4096), ((2, 4608, 8, 40), "bfloat16", 4608),
+                ((1, 2048, 8, 160), "bfloat16", 2048), ((2, 4096, 8, 40), "float32", 4096),
+                ((1, 4096, 8, 40), "float32", 4096),    # train_parity's batch
+                ((4, 4096, 8, 40), "float32", 4096)]    # the training CLI's default step
+# the SD-1.5 UNet's other attentions at the main path's and the server's CFG
+# rows (2, 4, 6, 8; 4 also the training batch) in bf16, and at the fp32
+# paths' 2 and 4 rows
+FLASH_SHAPES += [(q, "bfloat16", tk) for b in (2, 4, 6, 8)
+                 for q, tk in sd15_attention_shapes(b) if q[1] != 4096 or tk != 4096]
+FLASH_SHAPES += [(q, "float32", tk) for b in (2, 4)
+                 for q, tk in sd15_attention_shapes(b) if q[1] != 4096 or tk != 4096]
+# SDXL at 1024²: the self-attentions at 4096 and 1024 tokens (head dim 64)
+# and the cross-attentions of both to the 77 text tokens; FLUX.1 Fill's
+# joint attention at 1024² (4096 image + 512 text tokens)
+FLASH_SHAPES += [((2, 4096, 10, 64), "bfloat16", 4096), ((2, 4096, 10, 64), "float32", 4096),
+                 ((2, 1024, 20, 64), "bfloat16", 1024), ((2, 4096, 10, 64), "bfloat16", 77),
+                 ((2, 1024, 20, 64), "bfloat16", 77), ((1, 4608, 24, 128), "bfloat16", 4608)]
+FLASH_BWD_SHAPES = [((4, 4096, 8, 40), "bfloat16", 4096), ((2, 4096, 8, 40), "bfloat16", 4096),
+                    ((2, 4608, 8, 40), "bfloat16", 4608), ((1, 2048, 8, 160), "bfloat16", 2048),
+                    ((4, 4096, 8, 40), "float32", 4096), ((2, 4096, 8, 40), "float32", 4096),
+                    ((1, 4096, 8, 40), "float32", 4096)]
+# the training step's other attentions (batch 4) in both dtypes
+FLASH_BWD_SHAPES += [(q, dt, tk) for dt in ("bfloat16", "float32")
+                     for q, tk in sd15_attention_shapes(TRAIN_BATCH)
+                     if q[1] != 4096 or tk != 4096]
 GN_SHAPES = [(2, 320, 64, 64), (4, 320, 64, 64), (2, 2560, 16, 16), (2, 1280, 8, 8),
              (1, 512, 64, 64), (1, 128, 512, 512), (4, 128, 512, 512)]
 
@@ -892,14 +926,14 @@ def kernel_entries(torch, kern: str, key: tuple) -> list:
 
     shape, dt = key[0], getattr(torch, key[1])
     if kern == "flash":
-        entries = [bench_flash(torch, shape, dt)]
+        entries = [bench_flash(torch, shape, dt, key[2])]
         entries[0].update(kernel="flash", route="cuda", source=fa.SOURCE, replaces=fa.REPLACES)
     elif kern == "groupnorm":
         entries = [bench_groupnorm(torch, shape, dt, key[2])]
         entries[0].update(kernel="groupnorm", route="cuda", source=gn.SOURCE,
                           replaces=gn.REPLACES)
     else:
-        entries = bench_flash_bwd(torch, shape, dt)
+        entries = bench_flash_bwd(torch, shape, dt, key[2])
         for e, replaces in zip(entries, (fa.DQ_REPLACES, fa.DKV_REPLACES)):
             e.update(kernel=e["key"][0], route="cuda", source=fa.BWD_SOURCE, replaces=replaces)
     for e in entries:
@@ -909,8 +943,8 @@ def kernel_entries(torch, kern: str, key: tuple) -> list:
 
 def phase_kernels(torch):
     t_phase = time.perf_counter()
-    keys = [("flash", (shape, dt)) for shape, dt in FLASH_SHAPES]
-    keys += [("flash_bwd", (shape, dt)) for shape, dt in FLASH_BWD_SHAPES]
+    keys = [("flash", (shape, dt, tk)) for shape, dt, tk in FLASH_SHAPES]
+    keys += [("flash_bwd", (shape, dt, tk)) for shape, dt, tk in FLASH_BWD_SHAPES]
     gn_cases = {(shape, dt, silu) for shape in GN_SHAPES for dt in ("bfloat16", "float32")
                 for silu in (False, True)}
     step_norms, vae_norms = main_path_groupnorms(torch)
@@ -1022,7 +1056,7 @@ def phase_slice(torch):
     emit(res)
     if not (res["finite"] and err <= tol):
         raise AssertionError(f"slice parity failed: {res}")
-    if launched["flash"] != b1_launches_per_unet_forward(**PARITY_DEPTH) \
+    if launched["flash"] != attentions_per_unet_forward(**PARITY_DEPTH) \
             or launched["groupnorm"] == 0:
         raise AssertionError(f"slice forward did not run through the kernels: {launched}")
     del unet, brushnet, unet_c, bn_c
@@ -1082,7 +1116,8 @@ def phase_main(torch, gpu_line: str):
             launched = read_counters()
             if out.shape != (1, 512, 512, 3) or out.dtype != np.uint8:
                 raise AssertionError(f"{steps}-step run gave {out.shape} {out.dtype}")
-            if launched["flash"] != 5 * steps or launched["groupnorm"] == 0:
+            if launched["flash"] != attentions_per_unet_forward() * steps \
+                    or launched["groupnorm"] == 0:
                 raise AssertionError(f"{steps}-step run launches {launched}")
             runs[steps]["s_each"].append(dt)
             runs[steps].update(launches=launched,
@@ -1266,7 +1301,7 @@ def phase_train_parity(torch):
            if not (r["finite"] and r["max_abs"] > 0 and r["max_abs_err"] <= r["max_abs_tol"])]
     if bad or not res["loss_rel_err"] <= res["loss_rel_tol"]:
         raise AssertionError(f"train parity failed ({bad}): {res}")
-    b1 = b1_launches_per_unet_forward(**PARITY_DEPTH)
+    b1 = attentions_per_unet_forward(**PARITY_DEPTH)     # BrushNet's residuals reach each
     if (launched["flash"], launched["flash_bwd_dq"], launched["flash_bwd_dkv"]) != (b1, b1, b1) \
             or launched["groupnorm"] == 0:
         raise AssertionError(f"train parity did not run through the kernels: {launched} "
@@ -1374,14 +1409,16 @@ def phase_train_main(torch, gpu_line: str) -> dict:
           "trace": traced, "phase_wall_s": time.perf_counter() - t_phase})
     if not all(v > 0 for v in moved.values()) or not all(frozen_same.values()):
         raise AssertionError(f"train step moved {moved}, frozen unchanged {frozen_same}")
-    want = {"flash": 5, "flash_bwd_dq": 5, "flash_bwd_dkv": 5}
+    n = attentions_per_unet_forward()
+    want = {"flash": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
     if any(per_step[k] != v for k, v in want.items()) or per_step["groupnorm"] == 0:
         raise AssertionError(f"train step launches per step {per_step}, want {want}")
     # under either policy the flash forward (an opaque autograd Function) is
-    # recomputed with the rest of the forward: 10/5/5
+    # recomputed with the rest of the forward: 2n/n/n
     for policy, got in (("full", ckpt["launches"]), ("dots", dots["launches"])):
-        if (got["flash"], got["flash_bwd_dq"], got["flash_bwd_dkv"]) != (10, 5, 5):
-            raise AssertionError(f"checkpointed ({policy}) step launches {got}, want 10/5/5")
+        if (got["flash"], got["flash_bwd_dq"], got["flash_bwd_dkv"]) != (2 * n, n, n):
+            raise AssertionError(f"checkpointed ({policy}) step launches {got}, "
+                                 f"want {2 * n}/{n}/{n}")
     del state, unet, brushnet, vae, text
     torch.cuda.empty_cache()
     return by_shape, s_step
@@ -1763,7 +1800,8 @@ def phase_train_cli(torch, gpu_line: str, train_main_s_step: float, tmp: str) ->
         bad.append("resume")
     if not (saved_same and pipe_same):
         bad.append("checkpoint-8 BrushNet against the trained one")
-    want = {"flash": 5, "flash_bwd_dq": 5, "flash_bwd_dkv": 5}
+    n = attentions_per_unet_forward()
+    want = {"flash": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
     if any(per_step[k] != v for k, v in want.items()) or per_step["groupnorm"] == 0:
         bad.append(f"launches per CLI step {per_step}")
     if not first_batch_same:
@@ -1779,7 +1817,7 @@ def phase_train_cli(torch, gpu_line: str, train_main_s_step: float, tmp: str) ->
 
 
 CLI_FP32_STEPS = 6                  # steps of the train_cli_fp32 phase
-FP32_TRAIN_KEY = ((TRAIN_BATCH, 4096, 8, 40), "float32")   # its level-0 self-attentions
+FP32_TRAIN_KEY = ((TRAIN_BATCH, 4096, 8, 40), "float32", 4096)   # its level-0 self-attentions
 
 
 def phase_train_cli_fp32(torch, gpu_line: str, tmp: str) -> dict:
@@ -1990,8 +2028,12 @@ def phase_test_cli(torch, gpu_line: str, tmp: str, main_per_step: dict, entries:
 
     a_per_step = per_step(a8, a4, 4, rows)                 # one batched call a row
     b_per_step = per_step(b4, b2, 2, rows * CLI_SEEDS)     # one call a seed
-    fp32_key = ("flash", ((2, 4096, 8, 40), "float32"))
-    b1_fp32 = next(e for e in entries if e["key"] == fp32_key)
+    # B1's device time an fp32 step: each shape's launches a step by its
+    # device ms (phase 3 measured every shape of the fp32 step's CFG batch 2)
+    device_ms = {e["key"]: e["device_ms"] for e in entries}
+    b1_fp32_ms = sum((n - by_shape["b_fp32_2_steps"].get(k, 0)) / (2 * rows * CLI_SEEDS)
+                     * device_ms[k] for k, n in by_shape["b_fp32_4_steps"].items()
+                     if k[0] == "flash")
     b_s_step = (b4["rows_s"] - b2["rows_s"]) / (2 * rows * CLI_SEEDS)
     host_row_s = (a8s["rows_s"] - a8s["device_s"]) / rows
     res = {
@@ -2007,12 +2049,10 @@ def phase_test_cli(torch, gpu_line: str, tmp: str, main_per_step: dict, entries:
         "overlap_hid_s_per_row": (a8s["rows_s"] - a8["rows_s"]) / rows,
         "launches_per_step": {"bf16_batched": a_per_step, "fp32_sequential": b_per_step,
                               "main_path": main_per_step},
-        "b1_fp32_launches": {"b_fp32_4_steps": by_shape["b_fp32_4_steps"].get(fp32_key, 0),
+        "b1_fp32_launches": {"b_fp32_4_steps": b4["launches"]["flash"],
                              "per_step": b_per_step["flash"]},
-        "b1_fp32_device_ms_per_step": b_per_step["flash"] * b1_fp32["device_ms"],
-        "b1_fp32_share_of_fp32_step": b_per_step["flash"] * b1_fp32["device_ms"] / 1e3
-        / b_s_step,
-        "plain_fp32_ms_per_step_instead": b_per_step["flash"] * b1_fp32["plain_ms"],
+        "b1_fp32_device_ms_per_step": b1_fp32_ms,
+        "b1_fp32_share_of_fp32_step": b1_fp32_ms / 1e3 / b_s_step,
         "absent_modules": {m: m not in sys.modules or sys.modules[m] is None
                            for m in ("h5py", "jax")},
         "phase_wall_s": time.perf_counter() - t_phase,
@@ -2029,7 +2069,8 @@ def phase_test_cli(torch, gpu_line: str, tmp: str, main_per_step: dict, entries:
     if c["rows"] != 0 or c["rewrote"] or c["launches"]["flash"] != 0:
         bad.append(f"the rerun wrote or ran: {c['rewrote']}, {c['rows']} rows")
     for name, got in (("bf16_batched", a_per_step), ("fp32_sequential", b_per_step)):
-        if got["flash"] != 5 or got["groupnorm"] != main_per_step["groupnorm"]:
+        if got["flash"] != attentions_per_unet_forward() \
+                or got["groupnorm"] != main_per_step["groupnorm"]:
             bad.append(f"{name} launches per step {got}, main path {main_per_step}")
     if not all(res["absent_modules"].values()):
         bad.append(f"modules imported: {res['absent_modules']}")
@@ -2169,9 +2210,10 @@ def phase_modes(torch, gpu_line: str) -> dict:
     if bf16["shape"] != [1, CLI_PX, CLI_PX, 3] or bf16["dtype"] != "uint8" or \
             not bf16["std"] > 0 or channels != 12:
         bad.append(f"bf16 image {bf16}")
-    if bf16["launches"]["flash"] != 20 or bf16["launches"]["groupnorm"] == 0:
+    if bf16["launches"]["flash"] != 4 * attentions_per_unet_forward() \
+            or bf16["launches"]["groupnorm"] == 0:
         bad.append(f"bf16 launches {bf16['launches']}")
-    b1 = b1_launches_per_unet_forward(**PARITY_DEPTH)
+    b1 = attentions_per_unet_forward(**PARITY_DEPTH)
     if not (p["finite"] and p["max_abs_err"] <= p["max_abs_tol"]) \
             or p["launches"]["flash"] != b1 or p["launches"]["groupnorm"] == 0:
         bad.append(f"fp32 parity {p} (B1: want {b1})")
@@ -2661,11 +2703,12 @@ def phase_ip_adapter(torch, gpu_line: str, tmp: str) -> dict:
            "phase_wall_s": time.perf_counter() - t_phase}
     emit(res)
     bad = []
-    if bf16["launches_8_steps"]["flash"] != 40 or bf16["launches_8_steps"]["groupnorm"] == 0:
+    if bf16["launches_8_steps"]["flash"] != 8 * attentions_per_unet_forward(ip=True) \
+            or bf16["launches_8_steps"]["groupnorm"] == 0:
         bad.append(f"pipeline launches {bf16['launches_8_steps']}")
     if not token_moves > 0:
         bad.append("another normal gave the same image")
-    b1 = b1_launches_per_unet_forward(**PARITY_DEPTH)
+    b1 = attentions_per_unet_forward(**PARITY_DEPTH, ip=True)
     if not (parity["finite"] and parity["max_abs_err"] <= parity["max_abs_tol"]) \
             or parity["launches"]["flash"] != b1 or parity["launches"]["groupnorm"] == 0:
         bad.append(f"fp32 parity {parity} (B1: want {b1})")
@@ -2759,11 +2802,12 @@ def phase_approx(torch, gpu_line: str) -> dict:
         if not r["uint8_diff_from_exact_max"] > 0 or not r["launches_8_steps"]["flash"] > 0 \
                 or r["launches_8_steps"]["groupnorm"] == 0:
             bad.append(f"{name}: {r}")
-    # B1 runs at the 4096-token level only: 2 self-attentions in down block
-    # 0, 3 in the last up block.  Full steps (0, 3, 6 of 8) launch all 5; a
-    # DeepCache step recomputes both blocks (5), an encoder-reuse step only
-    # the up block (3)
-    want = {"exact": 40, "deep_cache": 40, "encoder_reuse": 3 * 5 + 5 * 3}
+    # full steps (0, 3, 6 of 8) launch a forward's 32; a DeepCache step
+    # recomputes down block 0 and the last up block (5 transformer blocks,
+    # 10 attentions), an encoder-reuse step the mid block and the decoder
+    # (10 blocks, 20)
+    n = attentions_per_unet_forward()
+    want = {"exact": 8 * n, "deep_cache": 3 * n + 5 * 10, "encoder_reuse": 3 * n + 5 * 20}
     for name, n in want.items():
         if res[name]["launches_8_steps"]["flash"] != n:
             bad.append(f"{name} B1 launches {res[name]['launches_8_steps']} (want {n})")
@@ -3209,8 +3253,9 @@ def int8_checks(res: dict, q: dict, parity: dict) -> None:
     if not q["int8_mm_launches_8_steps"] > 0 or not res["int8"]["deterministic"]:
         bad.append(f"int8_mm launches {q['int8_mm_launches_8_steps']}, "
                    f"deterministic {res['int8']['deterministic']}")
-    if q["launches_8_steps"]["flash"] != 40 or q["launches_8_steps"]["groupnorm"] == 0:
-        bad.append(f"int8 launches {q['launches_8_steps']} (B1: want 40)")
+    n = 8 * attentions_per_unet_forward()
+    if q["launches_8_steps"]["flash"] != n or q["launches_8_steps"]["groupnorm"] == 0:
+        bad.append(f"int8 launches {q['launches_8_steps']} (B1: want {n})")
     if not res["int8"]["uint8_diff_from_exact_max"] > 0 \
             or not res["int8"]["uint8_diff_from_exact_mean"] < 16:
         bad.append(f"int8 vs exact {res['int8']}")
@@ -3226,7 +3271,7 @@ def int8_checks(res: dict, q: dict, parity: dict) -> None:
 # -------------------------------------------------------------- baseline
 
 BASELINE_STEPS = 4                  # timed steps of the baseline training step
-BASELINE_KEY = ((TRAIN_BATCH, 4096, 8, 40), "float32")
+BASELINE_KEY = ((TRAIN_BATCH, 4096, 8, 40), "float32", 4096)
 
 
 def baseline_batch(n: int, seed: int) -> dict:
@@ -3399,14 +3444,14 @@ def phase_baseline(torch, gpu_line: str, tmp: str, data: str) -> dict:
     if not p["loss_rel_err"] <= p["loss_rel_tol"] or any(
             not (r["finite"] and r["max_abs_err"] <= r["max_abs_tol"]) for r in p["adam_mu"].values()):
         bad.append(f"card vs CPU {p}")
-    b1 = b1_launches_per_unet_forward(**PARITY_DEPTH)
+    b1 = attentions_per_unet_forward(**PARITY_DEPTH)
     if (p["launches"]["flash"], p["launches"]["flash_bwd_dq"], p["launches"]["flash_bwd_dkv"]) \
             != (b1, b1, b1):
         bad.append(f"card step launches {p['launches']} (want {b1} each)")
     t = res["test_cli"]
     if sheets != ["scene0.png", "scene1.png"] or any(s != [1024, 1024, 3]
                                                       for s in t["sheet_shapes"]) \
-            or not min(t["sheet_std"]) > 0 or t["launches"]["flash"] != 2 * CLI_SEEDS * 4 * 5:
+            or not min(t["sheet_std"]) > 0 or t["launches"]["flash"] != 2 * CLI_SEEDS * 4 * attentions_per_unet_forward():
         bad.append(f"test_baseline {t}")
     if bad:
         raise AssertionError(f"baseline failed: {bad}")
@@ -3499,7 +3544,7 @@ def phase_fp32_conv_cost(torch, gpu_line: str) -> dict:
 
 DDP_WORLD = 2                       # ranks of the ddp phase, sharing the one card
 DDP_RANK_BATCH = 2                  # --train_batch_size of each rank
-DDP_KEY = ((DDP_RANK_BATCH, 4096, 8, 40), "float32")   # each rank's level-0 self-attentions
+DDP_KEY = ((DDP_RANK_BATCH, 4096, 8, 40), "float32", 4096)   # each rank's level-0 self-attentions
 DDP_SAMPLE_STRIDE = 97              # every 97th gradient element is compared
 DDP_CLI_STEPS = 3                   # the 1-rank NCCL CLI run (checkpoint at its end) ...
 DDP_CLI_RESUME_TO = 4               # ... and its resume
@@ -3882,7 +3927,7 @@ def phase_data_parallel(torch, gpu_line: str, tmp: str, data: str) -> dict:
     b = res["bf16"]
     if b["uint8_max_diff_from_the_replicas_rows_alone"] > 1 \
             or b["shape"] != [DP_SEEDS, CLI_PX, CLI_PX, 3] \
-            or b["data_parallel"]["launches"]["flash"] != 40 * 2:
+            or b["data_parallel"]["launches"]["flash"] != 8 * attentions_per_unet_forward() * 2:
         bad.append(f"bf16 {b}")
     f = res["fp32_one_step"]
     if not f["max_abs_err"] <= f["max_abs_tol"]:
@@ -4043,29 +4088,35 @@ def sdxl_inputs(seed: int) -> dict:
                 scheduler="unipc", seed=SEED)
 
 
-def sdxl_attention_counts(cfg: dict) -> dict:
-    """Self-attentions a UNet forward runs at each token count (1024²: 4096
-    at down/up block 1, 1024 at block 2 and the mid block)."""
+def sdxl_attention_keys(cfg: dict, dtype: str) -> dict:
+    """{B1's launch key: launches} of one SDXL UNet forward at 1024² (CFG
+    batch 2): a self- and a cross-attention (77 keys) in each transformer
+    layer, at 4096 tokens in down/up block 1 and 1024 in block 2 and the
+    mid block."""
     tl, lpb = cfg["transformer_layers_per_block"], cfg["layers_per_block"]
+    heads, widths = cfg["attention_head_dim"], cfg["block_out_channels"]
     side = SDXL_PX // 8
-    counts = {}
+    layers = {}
     for i, bt in enumerate(cfg["down_block_types"]):
         if bt.startswith("CrossAttn"):
-            n = (side >> i) ** 2
-            counts[n] = counts.get(n, 0) + (2 * lpb + 1) * tl[i]   # down and up blocks
-    n = (side >> (len(tl) - 1)) ** 2
-    counts[n] = counts.get(n, 0) + tl[-1]                          # the mid block
-    return counts
+            layers[i] = layers.get(i, 0) + (2 * lpb + 1) * tl[i]   # down and up blocks
+    last = len(tl) - 1
+    layers[last] = layers.get(last, 0) + tl[-1]                    # the mid block
+    keys = {}
+    for i, n in layers.items():
+        q = (2, (side >> i) ** 2, heads[i], widths[i] // heads[i])
+        keys[(q, dtype, q[1])] = keys[(q, dtype, 77)] = n
+    return keys
 
 
 def phase_sdxl(torch, gpu_line: str, entries: list, ptxas: dict) -> dict:
     """The SDXL BrushNet pipeline at the full published SDXL-base width from
     seeded weights, 1024², CFG 7.5, UniPC, depth concat: bf16 4- and 8-step
     calls in turns (s/step, s/image, peak memory, B1 and B2 launches by
-    shape a denoise step, a traced 4-step call's idle share), one fp32
-    denoise step and decode card vs CPU at 1e-3 of the output's largest
-    value (C4's rule), and B1 against the plain path at the 1024-token
-    self-attentions -> {path: {(kernel, key): launches}}."""
+    shape a denoise step, the attentions of a UNet forward by route, a
+    traced 4-step call's idle share), one fp32 denoise step and decode card
+    vs CPU at 1e-3 of the output's largest value (C4's rule) -> {path:
+    {(kernel, key): launches}}."""
     from reflecting_reality_tpu_torch.ops.kernels import groupnorm as gn
     from reflecting_reality_tpu_torch.pipelines import StableDiffusionXLBrushNetPipeline
     from reflecting_reality_tpu_torch.tools.make_synthetic_fullscale import (
@@ -4084,6 +4135,9 @@ def phase_sdxl(torch, gpu_line: str, entries: list, ptxas: dict) -> dict:
         params = {n: sum(p.numel() for p in getattr(pipe, n).parameters())
                   for n in ("unet", "brushnet", "vae", "text_encoder", "text_encoder_2")}
         bf16 = timed_calls(torch, pipe, kw, SDXL_REPEATS)
+        # every UNet forward of the calls runs the same attentions
+        st = pipe.stats()
+        routes = {r: n / st["steps"] for r, n in st["attention"]["unet"].items()}
         profile = trace(torch, lambda: pipe(**kw, num_inference_steps=4, output_type="np"))
         del pipe
         torch.cuda.empty_cache()
@@ -4102,15 +4156,7 @@ def phase_sdxl(torch, gpu_line: str, entries: list, ptxas: dict) -> dict:
         if kern == "groupnorm":
             row["regime"] = gn.launch_plan(key[0], 32).regime
         per_step.append(row)
-    # the 1024-token self-attentions, on the plain path by JAX's T >= 2048
-    # rule: their time a step there against B1's at the same shape
-    attn = sdxl_attention_counts(SDXL_UNET)
-    heads, width = SDXL_UNET["attention_head_dim"][-1], SDXL_UNET["block_out_channels"][-1]
-    low = (SDXL_PX // 32) ** 2
-    e = {e["key"]: e for e in entries}[("flash", ((2, low, heads, width // heads), "bfloat16"))]
-    b1_plain = {"shape": e["shape"], "calls_per_step": attn[low],
-                **{f"{k}_per_step": attn[low] * e[k]
-                   for k in ("plain_ms", "ms", "device_ms", "library_ms")}}
+    want = sdxl_attention_keys(SDXL_UNET, "bfloat16")
     d64 = {k: v for k, v in ptxas.get("flash_attn_fwd", {}).items() if k.endswith("<64>")}
     res = {"phase": "sdxl", "gpu": gpu_line, "size": f"{SDXL_PX}x{SDXL_PX}",
            "source": "stabilityai/stable-diffusion-xl-base-1.0 unet/config.json",
@@ -4120,21 +4166,20 @@ def phase_sdxl(torch, gpu_line: str, entries: list, ptxas: dict) -> dict:
            "s_per_image_50_steps_two_point_estimate": (bf16["s_per_image_8_steps"]
                                                        + 42 * bf16["s_per_step"]),
            "launches_by_shape_per_step": per_step,
-           "self_attentions_per_unet_forward": {str(k): v for k, v in attn.items()},
-           "profile_4_steps": profile, "b1_vs_plain_1024_tokens": b1_plain,
+           "attention_routes_per_unet_forward": routes,
+           "profile_4_steps": profile,
            "b1_d64_ptxas": d64,
            "fp32_parity": dict(parity, depth=SDXL_PARITY_DEPTH,
                                text_layers=SDXL_PARITY_TEXT_LAYERS, vae_depth=PARITY_DEPTH),
            "phase_wall_s": time.perf_counter() - t_phase}
     emit(res)
     bad = []
-    high = (SDXL_PX // 16) ** 2          # down and up block 1's tokens
-    heads = SDXL_UNET["attention_head_dim"][1]
-    b1 = (2, high, heads, SDXL_UNET["block_out_channels"][1] // heads)
+    if routes != {"flash": sum(want.values()), "plain": 0}:
+        bad.append(f"attentions a UNet forward by route {routes} (want {sum(want.values())} "
+                   "flash)")
     flash_8 = {key: n for (kern, key), n in bf16["by_shape_8"].items() if kern == "flash"}
-    want = {(b1, "bfloat16"): 8 * attn[high]}
-    if flash_8 != want:
-        bad.append(f"bf16 B1 launches in 8 steps {flash_8} (want {want})")
+    if flash_8 != {key: 8 * n for key, n in want.items()}:
+        bad.append(f"bf16 B1 launches in 8 steps {flash_8} (want 8 x {want})")
     # every norm of a step on B2, block 0's 163,840 elements a group in the
     # split regime
     gn_step = {tuple(row["key"][0]) for row in per_step
@@ -4142,7 +4187,7 @@ def phase_sdxl(torch, gpu_line: str, entries: list, ptxas: dict) -> dict:
     if (2, 320, SDXL_PX // 8, SDXL_PX // 8) not in gn_step:
         bad.append(f"bf16 B2 shapes a step {sorted(gn_step)}")
     f32_flash = {key: n for (kern, key), n in parity_by_shape.items() if kern == "flash"}
-    want32 = {(b1, "float32"): sdxl_attention_counts(dict(SDXL_UNET, **SDXL_PARITY_DEPTH))[high]}
+    want32 = sdxl_attention_keys(dict(SDXL_UNET, **SDXL_PARITY_DEPTH), "float32")
     if not (parity["finite"] and parity["max_abs_err"] <= parity["max_abs_tol"]) \
             or f32_flash != want32 or parity["launches"]["groupnorm"] == 0:
         bad.append(f"fp32 parity {parity}, B1 {f32_flash} (want {want32})")
@@ -4389,15 +4434,16 @@ def phase_attention_backend(torch, gpu_line: str, data: str, brushnet_path: str,
     bad = []
     if not fp32_step["max_abs_err"] <= fp32_step["max_abs_tol"]:
         bad.append(f"fp32 xla vs flash {fp32_step}")
-    if launches32["flash"]["flash"] != 5 or launches32["xla"]["flash"] != 0:
+    n = attentions_per_unet_forward()
+    if launches32["flash"]["flash"] != n or launches32["xla"]["flash"] != 0:
         bad.append(f"fp32 step launches {launches32}")
-    for name, want in (("flash", 40), ("xla", 0)):
+    for name, want in (("flash", 8 * n), ("xla", 0)):
         got = runs[name]["launches_8_steps"]
         if got["flash"] != want or got["groupnorm"] == 0:
             bad.append(f"{name} pipeline launches {got}")
         got = train[name]["launches_per_step"]
         trio = (got["flash"], got["flash_bwd_dq"], got["flash_bwd_dkv"])
-        if trio != ((5, 5, 5) if name == "flash" else (0, 0, 0)) or got["groupnorm"] == 0:
+        if trio != ((n, n, n) if name == "flash" else (0, 0, 0)) or got["groupnorm"] == 0:
             bad.append(f"{name} training launches {got}")
         if not all(math.isfinite(x) for x in train[name]["losses"]):
             bad.append(f"{name} losses {train[name]['losses']}")
@@ -4769,8 +4815,8 @@ def sdxl_alone(torch) -> None:
     and the late measurement of the shapes it launched."""
     gpu_line = nvidia_smi()
     ptxas = phase_build(torch)
-    entries = [e for shape, dt in FLASH_SHAPES if shape[2:] in ((10, 64), (20, 64))
-               for e in kernel_entries(torch, "flash", (shape, dt))]
+    entries = [e for shape, dt, tk in FLASH_SHAPES if shape[2:] in ((10, 64), (20, 64))
+               for e in kernel_entries(torch, "flash", (shape, dt, tk))]
     paths = phase_sdxl(torch, gpu_line, entries, ptxas)
     measure_late(torch, entries, paths)
     rows = [{k: e.get(k) for k in ("name", "ms", "device_ms", "plain_ms", "bound_ms",
@@ -4851,8 +4897,8 @@ def flux_alone(torch) -> None:
     """`--flux`: the build, B1 at FLUX.1's shape and a FLUX.1 Fill call."""
     gpu_line = nvidia_smi()
     phase_build(torch)
-    entries = [e for shape, dt in FLASH_SHAPES if shape[2:] == (24, 128)
-               for e in kernel_entries(torch, "flash", (shape, dt))]
+    entries = [e for shape, dt, tk in FLASH_SHAPES if shape[2:] == (24, 128)
+               for e in kernel_entries(torch, "flash", (shape, dt, tk))]
     paths = phase_flux(torch, gpu_line)
     rows = [{k: e.get(k) for k in ("name", "ms", "device_ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms", "max_abs_err", "rel_l2_err")}

@@ -532,8 +532,8 @@ def build_parser():
                    help="denoise dispatch of requests that name none; the port runs one "
                         "step at a time either way, so both give the same images")
     p.add_argument("--attention_backend", type=str, default="flash", choices=["flash", "xla"],
-                   help="attention: 'flash' (kernel B1 for the long self-attentions on the "
-                        "card; short or wide shapes and the CPU take the plain path) or "
+                   help="attention: 'flash' (kernel B1 for every attention on the card whose "
+                        "head dim it takes; wider heads and the CPU take the plain path) or "
                         "'xla' (the plain einsum-softmax path everywhere)")
     p.add_argument("--batch_window", type=float, default=0.0,
                    help="with --max_batch > 1: hold a partial batch up to this many seconds "

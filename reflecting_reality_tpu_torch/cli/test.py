@@ -443,8 +443,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "directories")
     p.add_argument("--attention_backend", type=str, default="flash",
                    choices=["flash", "xla"],
-                   help="attention: 'flash' (kernel B1 for the long self-attentions on the "
-                        "card; short or wide shapes and the CPU take the plain path) or "
+                   help="attention: 'flash' (kernel B1 for every attention on the card whose "
+                        "head dim it takes; wider heads and the CPU take the plain path) or "
                         "'xla' (the plain einsum-softmax path everywhere)")
     p.add_argument("--num_samples", type=int, default=None)
     p.add_argument("--train_data_dir", type=str, default="data/blenderproc")

@@ -586,8 +586,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "logging land on the K-step boundaries. The RNG/step stream is "
                         "the same as K=1")
     p.add_argument("--attention_backend", type=str, default="flash", choices=["flash", "xla"],
-                   help="attention: 'flash' (kernels B1/B3/B4 for the long "
-                        "self-attentions on the card; short or wide shapes and the CPU take "
+                   help="attention: 'flash' (kernels B1/B3/B4 for every attention on the "
+                        "card whose head dim they take; wider heads and the CPU take "
                         "the plain path) or 'xla' (the plain einsum-softmax path everywhere, "
                         "differentiated by torch autograd)")
     p.add_argument("--serialize_dispatch", type=str, default="auto",

@@ -7,7 +7,7 @@ with openai/clip-vit-large-patch14).
 Parameter names follow transformers' CLIPVisionModelWithProjection
 (`vision_model.embeddings/encoder/...`, `visual_projection`), so the
 checkpoint loads strictly.  The layers are the text tower's `_CLIPLayer`
-without a mask; the 257-token attention stays plain, as in JAX (T < 2048).
+without a mask; their attention is the text tower's own plain code.
 `clip_preprocess` is the CLIP transform on the host: bicubic resize of the
 shorter side to `image_size`, centre crop, [0, 1], CLIP mean/std; it
 returns NHWC numpy, as JAX's does, and the model takes NCHW tensors.

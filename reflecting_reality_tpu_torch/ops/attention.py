@@ -4,20 +4,28 @@
 `dot_product_attention(q, k, v, backend=None)` takes (B, T, H, D), the JAX
 layout, and JAX's backend names.  `"xla"` takes the plain path below
 whatever the device and shape.  `None` or `"flash"` routes by the tensors'
-device and shape:
+device and shape, by one rule:
 
-- CUDA tensors whose shape the JAX dispatch rule sends to flash
-  (`ops/attention.py:63-64`: Tq >= 2048, Tq == Tk, Tq % 8 == 0) and whose
-  head dim the kernels take (D % 8 == 0 and D <= `_MAX_D` = 160, SD-1.5's
-  largest; JAX's rule allows any D <= 256) go to the flash kernels
-  (`ops/kernels/flash_attention.py`): through the `FlashAttention` autograd
-  Function (B1 forward, B3 + B4 backward) when a gradient is needed,
-  straight to B1 when not.  That token threshold was measured on the TPU;
-  re-deriving it for the H100 is later work.
-- Everything else, head dims 161-256 (or not a multiple of 8) on the card
-  included, takes the plain path, the JAX einsum path (:69-72): fp32
+- CUDA tensors whose head dim the kernels take (D % 8 == 0 and D <=
+  `_MAX_D` = 160) go to the flash kernels (`ops/kernels/flash_attention.py`),
+  whatever their query and key lengths (Tk >= 1, Tq == Tk or not: self- and
+  cross-attention alike): through the `FlashAttention` autograd Function
+  (B1 forward, B3 + B4 backward) when a gradient is needed, straight to B1
+  when not.  bf16 and fp32 both: the fp32 instances run 3xTF32 products,
+  which keep fp32 accuracy.
+- Everything else takes the plain path, the JAX einsum path (:69-72): fp32
   logits and softmax, probabilities cast to q.dtype before P V; torch
-  autograd differentiates it.
+  autograd differentiates it.  That is CPU tensors, and head dims no kernel
+  takes (161-256 or not a multiple of 8; the VAE's single 512-wide head).
+
+The JAX package's TPU rule (`ops/attention.py:63-64`: Tq >= 2048, Tq == Tk)
+is not this one: on the H100 B1 beats the plain path at every shape the
+UNets give it (`chip_smoke.py`'s kernel table, H100 80GB HBM3): at SDXL's
+(2, 1024, 20, 64) self-attention 0.039 against 0.617 ms, where the plain
+path writes and rereads 168 MB of fp32 logits and runs Q K^T as an fp32
+GEMM on the CUDA cores; over 77 text tokens 0.007-0.067 ms against
+0.13-0.44.  The kernels take any lengths: keys past Tk in the last tile
+are masked, query rows past Tq are dropped.
 
 The backend is chosen per module, never by a process global (the JAX
 package's `set_attention_backend(name)` sets one; a server's threads and
@@ -35,8 +43,8 @@ one int8 product with one activation scale (JAX `fuse`, :185-194); a group
 that mixes float and int8 projections runs them one by one.  With
 `ip_num_tokens` (IP-Adapter, JAX :124-131, :223-230) the last
 `ip_num_tokens` context tokens attend through bias-free `to_k_ip` /
-`to_v_ip` and are added with `ip_scale`; that attention has Tq != Tk, so it
-takes the plain path, as in JAX.
+`to_v_ip` and are added with `ip_scale`; that attention has Tq != Tk and
+takes the route of any other.
 
 `routes` counts the calls of `dot_product_attention` by the route each took
 ("flash" or "plain"), where it is taken; a caller reads its own calls as
@@ -66,11 +74,10 @@ routes: Counter = Counter()
 
 
 def routes_to_flash(q: torch.Tensor, k: torch.Tensor) -> bool:
-    """The JAX package's flash dispatch rule (ops/attention.py:63-64), with
-    the head dims the kernels take (D % 8 == 0, D <= `_MAX_D`) in place of
-    JAX's D <= 256."""
-    t, d = q.shape[1], q.shape[-1]
-    return t >= 2048 and t == k.shape[1] and t % 8 == 0 and d <= _MAX_D and d % 8 == 0
+    """Whether the flash kernels take attention of q (B, Tq, H, D) over k
+    (B, Tk, H, D): any lengths, a head dim they have an instance for."""
+    d = q.shape[-1]
+    return k.shape[1] >= 1 and d <= _MAX_D and d % 8 == 0
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

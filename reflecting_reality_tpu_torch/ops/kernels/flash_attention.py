@@ -64,9 +64,9 @@ TFLOP/s.  `bwd_f32_plan` mirrors their `DqF32Cfg` / `DkvF32Cfg`.
 
 `flash_attention_fwd`, `flash_attention_bwd_dq` and `flash_attention_bwd_dkv`
 are the wrappers: each checks device, dtype, shape and strides, raises on
-anything its kernel does not take (head dims past 160 among them: no model
-of the port meets one), launches, and counts launches in `.launches` and,
-per (shape, dtype) of q, in `.launches_by_shape`.  Given fake tensors (the
+anything its kernel does not take (head dims past 160 among them), launches,
+and counts launches in `.launches` and, per (shape of q, dtype, key count
+Tk), in `.launches_by_shape`.  Given fake tensors (the
 memory plan of `tools/aot_memory.py`) they allocate their outputs and
 return them without a launch or a count.  `FlashAttention` is the
 `torch.autograd.Function` over them (the `_flash` custom VJP of the JAX
@@ -407,9 +407,9 @@ def _check_rows(q: torch.Tensor, *rows: torch.Tensor) -> None:
                              f"{q.device}, got {x.dtype} {tuple(x.shape)}")
 
 
-def _count(wrapper, q: torch.Tensor) -> None:
+def _count(wrapper, q: torch.Tensor, k: torch.Tensor) -> None:
     wrapper.launches += 1
-    wrapper.launches_by_shape[(tuple(q.shape), str(q.dtype)[6:])] += 1
+    wrapper.launches_by_shape[(tuple(q.shape), str(q.dtype)[6:], k.shape[1])] += 1
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -432,7 +432,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         _DTYPE_CODE[q.dtype], b, h, tq, tk, d, *_strides(q, k, v, out), 1.0 / math.sqrt(d))
     _raise_on(err, "flash_attn_fwd")
-    _count(flash_attention_fwd, q)
+    _count(flash_attention_fwd, q, k)
     return out, lse
 
 
@@ -452,7 +452,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         delta.data_ptr(), dq.data_ptr(), _DTYPE_CODE[q.dtype], b, h, tq, k.shape[1], d,
         *_strides(q, k, v, do, dq), 1.0 / math.sqrt(d))
     _raise_on(err, "flash_attn_bwd_dq")
-    _count(flash_attention_bwd_dq, q)
+    _count(flash_attention_bwd_dq, q, k)
     return dq
 
 
@@ -486,7 +486,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, h, tq,
         k.shape[1], d, *_strides(q, k, v, do, dk, dv), lse.stride(0), 1.0 / math.sqrt(d))
     _raise_on(err, "flash_attn_bwd_dkv")
-    _count(flash_attention_bwd_dkv, q)
+    _count(flash_attention_bwd_dkv, q, k)
     return dk, dv
 
 

@@ -75,6 +75,14 @@ running profiler): `rr.pipeline.call` around a call, holding
 `rr.pipeline.scheduler`), `rr.pipeline.decode` and `rr.pipeline.output`,
 where the host waits for the card.  `rr.brushnet` and `rr.unet` carry
 `graph`: "replay", "capture" or "eager".
+
+Counters (`stats()`): calls, denoise steps (one UNet forward each) and the
+UNet's attention calls by route ("flash" or "plain"), the difference of
+`ops.attention.routes` across each UNet call.  They count what the host
+ran: under CUDA graphs a key's warm-up and capture each count and its
+replays do not, as for the kernels' launch counters.  Under data
+parallelism the replicas' threads share `ops.attention.routes`, so a
+replica's difference also holds what the others ran meanwhile.
 """
 
 from __future__ import annotations
@@ -82,6 +90,7 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
+from collections import Counter
 from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
@@ -89,6 +98,7 @@ import torch
 
 from reflecting_reality_tpu_torch.core import tracing
 from reflecting_reality_tpu_torch.core.device import fp32_convolutions, resolve_device
+from reflecting_reality_tpu_torch.ops import attention
 from reflecting_reality_tpu_torch.ops.embeddings import (
     precompute_time_embeddings, text_time_embedding,
 )
@@ -195,6 +205,7 @@ class StableDiffusionBrushNetPipeline:
         self._dp_replicas = None    # its replicas, built at the first call
         self._int8 = False          # enable_int8 has run
         self._graphs = None         # the StepGraphs when CUDA graphs are enabled
+        self._counts = Counter()    # stats()
 
     @classmethod
     def from_pretrained(
@@ -401,6 +412,25 @@ class StableDiffusionBrushNetPipeline:
         if self._graphs is None:
             return {"captures": 0, "replays": 0, "eager_steps": 0}
         return self._graphs.stats()
+
+    # -------------------------------------------------------------- counters
+
+    def stats(self) -> dict:
+        """Calls, denoise steps and the UNet's attention calls by route since
+        the pipeline was built."""
+        c = self._counts
+        return {"calls": c["calls"], "steps": c["steps"],
+                "attention": {"unet": {"flash": c["attention.unet.flash"],
+                                       "plain": c["attention.unet.plain"]}}}
+
+    @contextlib.contextmanager
+    def _counting_unet(self):
+        """Count one UNet call: a step, and its attention calls by route."""
+        routed = attention.routes.copy()
+        yield
+        for route, n in (attention.routes - routed).items():
+            self._counts["attention.unet." + route] += n
+        self._counts["steps"] += 1
 
     def _graphed(self, rep: "_Replica", interval) -> bool:
         """Whether this loop's steps run on graphs (the exact path on a card)."""
@@ -660,6 +690,7 @@ class StableDiffusionBrushNetPipeline:
             for i in range(num_inference_steps)
         ]
         cond_scales = [float(np.float32(k * brushnet_conditioning_scale)) for k in keeps]
+        self._counts["calls"] += 1
         loop = dict(num_inference_steps=num_inference_steps, cond_scales=cond_scales,
                     guidance_scale=guidance_scale, do_cfg=guidance_scale > 1.0,
                     guess_mode=guess_mode, scheduler=scheduler, solver_order=solver_order)
@@ -801,7 +832,8 @@ class StableDiffusionBrushNetPipeline:
                                 rep.brushnet, lat, latent_in, brushnet_embeds, cond,
                                 cond_scales[i], temb_b[i], do_cfg, guess_mode, key)
                         with tracing.span("rr.unet", i=i, mode="full",
-                                          graph=graph_mode(rep.unet, key)):
+                                          graph=graph_mode(rep.unet, key)), \
+                                self._counting_unet():
                             # with a key: the graph's static output, read by
                             # the CFG combine and the sampler within this step
                             out = rep.unet(latent_in.to(dtype), None, prompt_embeds,
@@ -820,7 +852,8 @@ class StableDiffusionBrushNetPipeline:
                             pred = out
                     elif deep_cache:
                         deep, down_res, mid_res, up_res = cache
-                        with tracing.span("rr.unet", i=i, mode="deep_cache", graph="eager"):
+                        with tracing.span("rr.unet", i=i, mode="deep_cache", graph="eager"), \
+                                self._counting_unet():
                             pred, _ = rep.unet(latent_in.to(dtype), None, prompt_embeds,
                                                down_block_add_samples=down_res,
                                                mid_block_add_sample=mid_res,
@@ -828,7 +861,8 @@ class StableDiffusionBrushNetPipeline:
                                                **unet_kw)
                     else:
                         enc, mid_res, up_res = cache
-                        with tracing.span("rr.unet", i=i, mode="encoder_reuse", graph="eager"):
+                        with tracing.span("rr.unet", i=i, mode="encoder_reuse",
+                                          graph="eager"), self._counting_unet():
                             pred, _ = rep.unet(latent_in.to(dtype), None, prompt_embeds,
                                                mid_block_add_sample=mid_res,
                                                up_block_add_samples=up_res, cached_encoder=enc,

@@ -32,7 +32,7 @@ VAE's sampling noise, and `latents=` (B, H/8, W/8, 16) NHWC overrides it.
 
 Counters (`stats()`): calls, denoise steps, the joint tokens of the last
 step, and the attention calls by route: the transformer's joint attentions
-("flash" on the card at >= 2048 tokens; 57 a step for FLUX.1), and apart
+("flash" on the card; 57 a step for FLUX.1), and apart
 from them the plain attentions of the text encoders (T5 and CLIP, one a
 layer) and of the VAE's mid blocks (one an encode or decode; 16,384 tokens
 at head dim 512 at 1024², above B1's 160).

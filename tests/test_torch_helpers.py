@@ -97,3 +97,17 @@ def port_and_jax(cls, seed: int, **cfg):
             p.add_(0.1 * torch.randn(p.shape, generator=g))
     state = {k: v.numpy() for k, v in module.state_dict().items()}
     return module, {"params": torch_to_flax_params(state)}
+
+
+def unet_route_counts(pipe, call) -> tuple:
+    """call() -> (its change of pipe.stats()'s calls and steps, the UNet's
+    attention modules, its change of the UNet's attention calls by route)."""
+    from reflecting_reality_tpu_torch.ops.attention import Attention
+
+    before = pipe.stats()
+    call()
+    after = pipe.stats()
+    routes = {r: after["attention"]["unet"][r] - before["attention"]["unet"][r]
+              for r in ("flash", "plain")}
+    return ((after["calls"] - before["calls"], after["steps"] - before["steps"]),
+            sum(isinstance(m, Attention) for m in pipe.unet.modules()), routes)

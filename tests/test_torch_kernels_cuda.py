@@ -87,7 +87,7 @@ def test_flash_matches_plain(cuda, shape, dtype):
     assert_flash_close(out, ref, dtype)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
     assert fa.flash_attention_fwd.launches == before + 1
-    assert fa.flash_attention_fwd.launches_by_shape[(shape, str(dtype)[6:])] >= 1
+    assert fa.flash_attention_fwd.launches_by_shape[(shape, str(dtype)[6:], shape[1])] >= 1
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -108,6 +108,8 @@ def test_flash_reads_fused_qkv_slices(cuda, dtype):
     (2056, 77, 80, torch.float32),      # a cross-attention's key count
     (301, 517, 64, torch.bfloat16),
     (200, 3000, 160, torch.bfloat16),
+    (4096, 4, 40, torch.bfloat16),      # the IP-Adapter's 4 trailing context tokens
+    (4096, 4, 40, torch.float32),
 ])
 def test_flash_fwd_unequal_lengths(cuda, tq, tk, d, dtype):
     """Tq != Tk: query tails in the last CTA, key tails in the last tile."""
@@ -168,7 +170,7 @@ def test_flash_bwd_matches_plain(cuda, shape, dtype):
         assert_flash_close(a, b, dtype)
     assert (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches) == (
         before[0] + 1, before[1] + 1)
-    key = (shape, str(dtype)[6:])
+    key = (shape, str(dtype)[6:], shape[1])
     assert fa.flash_attention_bwd_dq.launches_by_shape[key] >= 1
     assert fa.flash_attention_bwd_dkv.launches_by_shape[key] >= 1
 
@@ -180,12 +182,54 @@ def test_flash_bwd_matches_plain(cuda, shape, dtype):
     (301, 517, 64, torch.float32),
     (2048, 1000, 40, torch.float32),
     (200, 3000, 160, torch.float32),
+    (4096, 4, 40, torch.bfloat16),    # the IP-Adapter's 4 trailing context tokens
+    (4096, 4, 40, torch.float32),
 ])
 def test_flash_bwd_unequal_lengths(cuda, tq, tk, d, dtype):
     """Tq != Tk: query tails in B3's CTAs and B4's tiles, key tails the other way."""
     g = torch.Generator(cuda).manual_seed(4)
     q, do = (torch.randn(1, tq, 2, d, generator=g, device=cuda, dtype=dtype) for _ in range(2))
     k, v = (torch.randn(1, tk, 2, d, generator=g, device=cuda, dtype=dtype) for _ in range(2))
+    got, ref = _bwd(q, k, v, do)
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape
+        assert_flash_close(a, r, dtype)
+
+
+ROUTED_SHORT = pytest.mark.parametrize("tq,tk,d,dtype", [
+    (tq, tk, d, dtype) for dtype in (torch.bfloat16, torch.float32) for d in (40, 64, 80, 160)
+    for tq in (64, 256, 1024) for tk in (77, tq)])
+
+
+@ROUTED_SHORT
+def test_flash_fwd_at_the_routed_short_shapes(cuda, tq, tk, d, dtype):
+    """B1 at what the routing rule sends it beside the 4096-token
+    self-attentions: the UNets' cross-attentions to 77 text tokens (one
+    ragged key tile) and their self-attentions at 64-1024 tokens (query
+    rows past Tq in the last CTA at 64), at every head dim of SD-1.5 and
+    SDXL.  The tolerances of `assert_flash_close`: over 77 keys the output
+    is of order 77^-1/2, and its bf16 rounding of P and O moves an element
+    by about one ulp."""
+    g = torch.Generator(cuda).manual_seed(8)
+    q = torch.randn(2, tq, 4, d, generator=g, device=cuda, dtype=dtype)
+    k, v = (torch.randn(2, tk, 4, d, generator=g, device=cuda, dtype=dtype) for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    ref, ref_lse = fa.attention_plain(q, k, v, return_lse=True)
+    assert_flash_close(out, ref, dtype)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+    assert fa.flash_attention_fwd.launches_by_shape[((2, tq, 4, d), str(dtype)[6:], tk)] >= 1
+
+
+@ROUTED_SHORT
+def test_flash_bwd_at_the_routed_short_shapes(cuda, tq, tk, d, dtype):
+    """B3 + B4 at the same shapes, as training meets them: B4's one CTA of
+    128 keys holds 77 (keys past Tk are computed and never stored), B3's
+    last key tile is ragged.  The forward's tolerances on each of dq, dk and
+    dv (the kernels round p and dS to bf16 before their products, as the
+    Pallas kernels do)."""
+    g = torch.Generator(cuda).manual_seed(9)
+    q, do = (torch.randn(2, tq, 4, d, generator=g, device=cuda, dtype=dtype) for _ in range(2))
+    k, v = (torch.randn(2, tk, 4, d, generator=g, device=cuda, dtype=dtype) for _ in range(2))
     got, ref = _bwd(q, k, v, do)
     for a, r in zip(got, ref):
         assert a.shape == r.shape
@@ -320,8 +364,9 @@ def test_unet_brushnet_gradient_on_card_matches_cpu(cuda):
 
         counts = (fa.flash_attention_bwd_dq.launches, gn.group_norm_silu_fwd.launches)
         on_card = grads(cuda)
-        # 3 self-attentions at 64x64: down block 0 has one, up block 1 two
-        assert fa.flash_attention_bwd_dq.launches == counts[0] + 3
+        # 4 transformer blocks (down block 0 one, the mid block one, up block
+        # 1 two), each a self- and a cross-attention, all on BrushNet's path
+        assert fa.flash_attention_bwd_dq.launches == counts[0] + 8
         assert gn.group_norm_silu_fwd.launches > counts[1]
         on_cpu = grads(torch.device("cpu"))
         tol = 1e-4 * max(v.abs().max().item() for v in on_cpu.values())

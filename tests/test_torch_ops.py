@@ -119,12 +119,84 @@ def test_group_norm_backward_matches_jax_vjp(shape, groups, apply_silu):
         np.testing.assert_allclose(got.numpy(), want, **OP_TOL)
 
 
-def test_flash_routing_rule():
-    q = torch.zeros(1, 4096, 1, 40)
-    assert t_attn.routes_to_flash(q, q)
-    assert not t_attn.routes_to_flash(q, torch.zeros(1, 77, 1, 40))        # cross
-    assert not t_attn.routes_to_flash(torch.zeros(1, 1024, 1, 80), torch.zeros(1, 1024, 1, 80))
-    assert not t_attn.routes_to_flash(torch.zeros(1, 4096, 1, 512), torch.zeros(1, 4096, 1, 512))
+@pytest.mark.parametrize("q_shape,tk,flash", [
+    ((1, 4096, 1, 40), 4096, True),       # SD-1.5's 4096-token self-attention
+    ((2, 4096, 10, 64), 4096, True),      # SDXL's
+    ((2, 1024, 20, 64), 1024, True),      # SDXL's 1024-token self-attention
+    ((2, 1024, 8, 80), 1024, True),       # SD-1.5's levels 1-3
+    ((2, 256, 8, 160), 256, True),
+    ((2, 64, 8, 160), 64, True),
+    ((2, 4096, 8, 40), 77, True),         # cross-attention to 77 text tokens
+    ((2, 4096, 10, 64), 77, True),
+    ((2, 1024, 20, 64), 77, True),
+    ((2, 64, 8, 160), 77, True),
+    ((1, 301, 2, 64), 517, True),         # any Tq != Tk
+    ((2, 4096, 8, 40), 81, True),         # IP-Adapter's extra tokens beside the text
+    ((2, 4096, 8, 40), 0, False),         # no keys: no tensor map to read them
+    ((1, 1024, 1, 168), 1024, False),     # head dims no instance takes
+    ((1, 4096, 1, 100), 77, False),
+    ((1, 4096, 1, 512), 4096, False),     # the VAE's one 512-wide head
+])
+def test_flash_routing_rule(q_shape, tk, flash):
+    """One rule by shape: the kernels take every query and key length
+    (self- and cross-attention alike) at the head dims they have instances
+    for.  Shapes only: meta tensors."""
+    q = torch.empty(q_shape, device="meta")
+    k = torch.empty(q_shape[:1] + (tk,) + q_shape[2:], device="meta")
+    assert t_attn.routes_to_flash(q, k) is flash
+
+
+def _attention_calls(monkeypatch, run):
+    """run() on the meta device -> the (q, k) shapes of each attention call."""
+    from reflecting_reality_tpu_torch.ops import norms
+    from reflecting_reality_tpu_torch.ops.kernels.groupnorm import group_norm_plain
+
+    seen = []
+
+    def record(q, k, v, backend=None):
+        seen.append((q, k))
+        return attention_plain(q, k, v)
+
+    monkeypatch.setattr(t_attn, "dot_product_attention", record)
+    monkeypatch.setattr(norms, "group_norm_silu", group_norm_plain)
+    with torch.device("meta"), torch.no_grad():
+        run()
+    return seen
+
+
+@pytest.mark.parametrize("config,px,attentions", [("sd15-mirrorfusion", 512, 32),
+                                                  ("sdxl-brushnet", 1024, 140)])
+def test_every_unet_attention_routes_to_flash(monkeypatch, config, px, attentions):
+    """Every attention of a UNet forward at the benchmark's configuration
+    (SD-1.5 at 512²: 16 transformer blocks of a self- and a cross-attention;
+    SDXL at 1024²: 70) routes to the kernels, and the VAE's does not."""
+    import json
+    import os
+
+    from reflecting_reality_tpu_torch.models.unet2d import UNet2DConditionModel
+    from reflecting_reality_tpu_torch.models.vae import AutoencoderKL
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "bench_h100", "configs", f"{config}.json")) as f:
+        cfg = json.load(f)
+
+    def unet_forward():
+        unet = UNet2DConditionModel(**cfg["unet"])
+        side = px // 8
+        unet(torch.empty(2, 4, side, side), None,
+             torch.empty(2, 77, cfg["unet"]["cross_attention_dim"]),
+             temb=torch.empty(2, unet.time_embedding.linear_2.out_features))
+
+    calls = _attention_calls(monkeypatch, unet_forward)
+    assert len(calls) == attentions
+    assert all(t_attn.routes_to_flash(q, k) for q, k in calls)
+    assert sum(k.shape[1] == 77 for _, k in calls) == attentions // 2
+
+    def vae_decode():
+        AutoencoderKL(**cfg["vae"]).decode(torch.empty(1, 4, px // 8, px // 8))
+
+    calls = _attention_calls(monkeypatch, vae_decode)
+    assert calls and not any(t_attn.routes_to_flash(q, k) for q, k in calls)
 
 
 @pytest.mark.parametrize("d,flash", [(40, True), (160, True), (161, False), (168, False),

@@ -39,7 +39,9 @@ from reflecting_reality_tpu_torch.pipelines import cuda_graphs
 from reflecting_reality_tpu_torch.pipelines.brushnet_pipeline import (
     StableDiffusionBrushNetPipeline,
 )
-from tests.test_torch_helpers import TINY, TINY_TEXT, TINY_VAE, init_jax, randn, to_torch
+from tests.test_torch_helpers import (
+    TINY, TINY_TEXT, TINY_VAE, init_jax, randn, to_torch, unet_route_counts,
+)
 from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 H = W = 64
@@ -107,6 +109,16 @@ def test_pipeline_variants_match_jax(pipes, variant):
     ref = np.asarray(jpipe(**dict(kw, latents=jnp.asarray(kw["latents"])), output_type="latent"))
     got = tpipe(**kw, output_type="latent")
     assert np.abs(got - ref).max() <= 1e-3, np.abs(got - ref).max()
+
+
+def test_stats_count_the_unet_attentions_by_route(pipes):
+    """On the CPU every attention takes the plain path: a call adds each of
+    the UNet's attention modules once a denoise step, all of them "plain"."""
+    _, tpipe = pipes
+    counts, modules, routes = unet_route_counts(
+        tpipe, lambda: tpipe(**_call_kwargs(), output_type="latent"))
+    assert counts == (1, STEPS) and modules > 0
+    assert routes == {"flash": 0, "plain": modules * STEPS}
 
 
 def test_device_output_matches_np(pipes):

@@ -61,7 +61,7 @@ from reflecting_reality_tpu_torch.ops.embeddings import (
 from reflecting_reality_tpu_torch.parallel.mesh import make_mesh
 from reflecting_reality_tpu_torch.pipelines import StableDiffusionXLBrushNetPipeline
 from tests.test_torch_helpers import (
-    TINY_VAE, nchw_to_nhwc, nhwc_to_nchw, port_and_jax, randn, to_torch,
+    TINY_VAE, nchw_to_nhwc, nhwc_to_nchw, port_and_jax, randn, to_torch, unet_route_counts,
 )
 from tests.test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
@@ -352,6 +352,16 @@ def test_cached_modes_match_jax(pipes, jax_images, mode):
         t.disable_encoder_reuse()
     _assert_image_close(got, jax_images(mode, **kw))
     assert np.abs(got - t(**kw, output_type="latent")).max() > 1e-4
+
+
+def test_stats_count_the_unet_attentions_by_route(pipes):
+    """As the SD-1.5 pipeline's: each of the UNet's attention modules once a
+    denoise step, all "plain" on the CPU."""
+    _, t = pipes
+    counts, modules, routes = unet_route_counts(
+        t, lambda: t(**_call_kwargs(steps=2), output_type="latent"))
+    assert counts == (1, 2) and modules > 0
+    assert routes == {"flash": 0, "plain": modules * 2}
 
 
 def test_refusals(pipes):
